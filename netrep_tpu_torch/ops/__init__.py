@@ -1,0 +1,3 @@
+"""Statistics, the fused-statistics kernel and p-values of the port."""
+
+from .. import utils  # noqa: F401  (pins full-float32 matrix products)
