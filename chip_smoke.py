@@ -2,17 +2,31 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``netrep_tpu_torch/csrc`` with nvcc,
-holds each kernel against its plain PyTorch version on the card, times both
-at the main path's shapes, then drives the public entry point
+Builds the port's CUDA kernels from ``netrep_tpu_torch/csrc`` with nvcc
+(one process per source, started together), holds each kernel against its
+plain PyTorch version on the card and times both (and, where one PyTorch
+call computes the same function, that call) at the main path's shapes.
+Then it drives the public entry point
 ``netrep_tpu_torch.models.preservation.module_preservation`` at the
 north-star width — 20,000 genes, 50 planted modules of 30–200 nodes, 128
-samples per dataset, 1,000 permutations — once with the materialized null
-and once streaming, and checks that both went through the kernels and gave
-the same p-values. Inputs are generated from a fixed seed (data with numpy
-on the host, correlation and network on the card) and handed to the entry
-point as host float64 numpy arrays, as a user holds them, so its input
-phase includes the copy to the card.
+samples per dataset, 1,000 permutations — along each of its paths, every
+launch count set to 0 just before a path and read just after:
+
+- ``main_path``: the fused-statistics null, materialized and streaming;
+- ``composed_path``: ``stat_mode='xla', gather_mode='fused'`` (the gather
+  kernel, then the composed statistics), both null modes;
+- ``derived_network``: ``network_from_correlation=2.0``, through the
+  fused-statistics kernel in its derived-network mode and through the
+  composed null;
+- ``multi_test``: ``vmap_tests=True`` against two test cohorts on one
+  shared permutation draw, materialized (fused statistics) and streaming
+  (composed);
+
+and checks each against the others: equal p-values where the same
+statistics run, nulls within 1e-4 where the arithmetic differs. Inputs are
+generated from a fixed seed (data with numpy on the host, correlation and
+network on the card) and handed to the entry point as host numpy arrays, as
+a user holds them, so its input phase includes the copy to the card.
 
 Prints one JSON object per phase, then the ``{"kernels": [...]}`` summary,
 the card's ``name, power.limit`` line, and as its last line
@@ -50,9 +64,11 @@ def main() -> int:
         return 1
     import numpy as np
 
+    from netrep_tpu_torch import ops as tops
     from netrep_tpu_torch import random as trandom
     from netrep_tpu_torch.models.preservation import module_preservation
     from netrep_tpu_torch.ops import _build
+    from netrep_tpu_torch.ops import fused_gather as fg
     from netrep_tpu_torch.ops import fused_stats as fs
     from netrep_tpu_torch.ops import pvalues as pv
     from netrep_tpu_torch.parallel.engine import ModuleSpec, PermutationEngine
@@ -76,23 +92,30 @@ def main() -> int:
           "count": torch.cuda.device_count(), "card": card,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
-    # ---- build every kernel source of the path, all nvcc runs at once ----
+    # ---- build every kernel source of the paths, all nvcc runs at once ---
     t0 = time.perf_counter()
-    _build.build(["fused_stats"])
+    sources = ["fused_stats", "fused_gather"]
+    _build.build(sources)
     lib = fs._lib()
-    info = _build.BUILD_INFO["fused_stats"]
-    regs = re.findall(r"Used (\d+) registers", info["ptxas"])
-    spills = re.findall(r"(\d+) bytes spill stores", info["ptxas"])
+    fg._lib()
     for cap, s, hd in ((224, 128, 1), (32, 0, 0), (96, 40, 1)):
         if lib.fused_stats_smem_bytes(cap, s, hd) != fs.resolve_smem_bytes(
                 cap, s, bool(hd)):
             raise RuntimeError("shared-memory layout of the kernel and its "
                                "Python guard disagree")
-    emit({"phase": "build", "source": "netrep_tpu_torch/csrc/fused_stats.cu",
-          "nvcc_s": info["seconds"], "total_s": time.perf_counter() - t0,
-          "lib": info["lib"].rsplit("/", 1)[-1],
-          "registers": [int(r) for r in regs],
-          "spill_bytes": [int(x) for x in spills]})
+    built = {}
+    for name in sources:
+        info = _build.BUILD_INFO[name]
+        built[name] = {
+            "source": f"netrep_tpu_torch/csrc/{name}.cu",
+            "nvcc_s": info["seconds"], "lib": info["lib"].rsplit("/", 1)[-1],
+            "registers": [int(r) for r in
+                          re.findall(r"Used (\d+) registers", info["ptxas"])],
+            "spill_bytes": [int(x) for x in re.findall(
+                r"(\d+) bytes spill stores", info["ptxas"])],
+        }
+    emit({"phase": "build", "total_s": time.perf_counter() - t0,
+          "sources": built})
 
     # ---- inputs at the north-star width, from one seed -------------------
     t0 = time.perf_counter()
@@ -102,11 +125,13 @@ def main() -> int:
     xt = rng.standard_normal((SAMPLES, GENES)).astype(np.float32)
     labels = np.full(GENES, "0", dtype=object)
     order = rng.permutation(GENES)
+    loads = []
     at = 0
     for k, sz in enumerate(sizes):
         nodes = order[at: at + sz]
         at += sz
         load = rng.uniform(0.6, 2.2, size=sz).astype(np.float32)
+        loads.append(load)
         xd[:, nodes] += rng.standard_normal((SAMPLES, 1)).astype(np.float32) * load
         if k < MODULES // 2:  # the first half is preserved in the test set
             xt[:, nodes] += (rng.standard_normal((SAMPLES, 1))
@@ -218,24 +243,30 @@ def main() -> int:
     bound_ms = max(t_bytes, t_ops)
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
 
-    def timed(mode, impl, reps=5):
-        run(mode, impl, cfg.chunk_size)
+    def timed(fn, reps=5):
+        """Mean ms of ``fn()`` over ``reps`` runs, after one warm-up."""
+        fn()
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
         for _ in range(reps):
-            run(mode, impl, cfg.chunk_size)
+            fn()
         e1.record()
         torch.cuda.synchronize()
         return e0.elapsed_time(e1) / reps
 
+    def interleaved(plain, kernel):
+        """plain, kernel, kernel, plain: drift on the card hits both
+        alike."""
+        p1, k1 = timed(plain), timed(kernel)
+        k2, p2 = timed(kernel), timed(plain)
+        return {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2}
+
     times = {}
     for mode in ("values", "counts"):
-        # plain, kernel, kernel, plain: drift on the card hits both alike
-        p1, k1 = timed(mode, "plain"), timed(mode, "kernel")
-        k2, p2 = timed(mode, "kernel"), timed(mode, "plain")
-        times[f"fused_stats_{mode}"] = {"ms": (k1 + k2) / 2,
-                                        "plain_ms": (p1 + p2) / 2}
+        times[f"fused_stats_{mode}"] = interleaved(
+            lambda: run(mode, "plain", cfg.chunk_size),
+            lambda: run(mode, "kernel", cfg.chunk_size))
     for b_info, (b, idx) in zip(per_bucket, chunk):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
@@ -256,7 +287,135 @@ def main() -> int:
           "library_note": "no single PyTorch call computes the seven "
                           "preservation statistics",
           "card": card})
-    del engine, chunk, perm, obs, tc32, tn32, tdT
+    # ---- the gather kernel against its plain version, at the path's shapes
+    # (the composed path's chunk: every bucket, batches 8 and 128, on the
+    # test correlation), with sentinel slots and a NaN planted in M
+    def same(got, want):
+        """Bit-equal, NaN positions compared apart."""
+        nan = torch.isnan(got)
+        return torch.equal(nan, torch.isnan(want)) and torch.equal(
+            torch.where(nan, 0.0, got), torch.where(nan, 0.0, want))
+
+    def abs_err(got, want):
+        """Largest |got - want| off the NaN positions (which ``same``
+        compares)."""
+        nan = torch.isnan(got) | torch.isnan(want)
+        return (torch.where(nan, 0.0, got)
+                - torch.where(nan, 0.0, want)).abs().max().item()
+
+    g_err = {"gather_submatrix_fused": 0.0,
+             "gather_submatrix_fused_local": 0.0}
+
+    def with_sentinels(idx):
+        idx = idx.clone()
+        idx[..., 0, 1] = -1
+        idx[..., -1, 2] = GENES + 5
+        return idx
+
+    b0, i0 = chunk[0]
+    r_nan, c_nan = int(i0[0, 0, 0]), int(i0[0, 0, 1])
+    m_nan = tc32.clone()
+    m_nan[r_nan, c_nan] = float("nan")
+    rows_per = GENES // 4
+    checked = nan_seen = 0
+    for batch in (8, cfg.chunk_size):
+        for b, idx in chunk:
+            for ix in (idx[:batch].contiguous(),
+                       with_sentinels(idx[:batch])):
+                for M in (tc32, m_nan):
+                    got = fg.gather_submatrix_fused(M, ix)
+                    want = fg.gather_submatrix_fused_plain(M, ix)
+                    g_err["gather_submatrix_fused"] = max(
+                        g_err["gather_submatrix_fused"], abs_err(got, want))
+                    if not same(got, want):
+                        raise RuntimeError(f"gather kernel != plain (cap "
+                                           f"{b.cap}, batch {batch})")
+                    nan_seen += int(torch.isnan(got).any())
+                    checked += 1
+                total = torch.zeros_like(got)
+                for r0 in range(0, GENES, rows_per):
+                    blk = M[r0: r0 + rows_per]
+                    part = fg.gather_submatrix_fused_local(blk, ix, r0)
+                    want = fg.gather_submatrix_fused_local_plain(blk, ix, r0)
+                    g_err["gather_submatrix_fused_local"] = max(
+                        g_err["gather_submatrix_fused_local"],
+                        abs_err(part, want))
+                    if not same(part, want):
+                        raise RuntimeError(f"local gather kernel != plain "
+                                           f"(cap {b.cap}, rows {r0}+)")
+                    total += part
+                    checked += 1
+                if not same(total, got):
+                    raise RuntimeError("local blocks do not sum to the "
+                                       f"replicated gather (cap {b.cap})")
+    torch.cuda.synchronize()
+    if nan_seen == 0:
+        raise RuntimeError("the planted NaN reached no gathered block")
+    # the loop variables still hold m_nan (1.6 GB) and views of it
+    del m_nan, M, blk, got, want, part, total
+    emit({"phase": "gather_vs_plain", "bit_equal": True,
+          "batches": [8, cfg.chunk_size], "launches_checked": checked,
+          "blocks_with_nan": nan_seen, "local_blocks": GENES // rows_per,
+          "local_sums_equal_replicated": True, "max_abs_err": g_err})
+
+    # ---- gather times: one chunk, every bucket, one matrix ---------------
+    # bound: one 32-byte sector read per REAL entry (m_k^2 for a module of
+    # m_k nodes; padded slots read node 0's row and column, which stay in
+    # L2 after their first touch), 4 bytes written per output entry (cap^2,
+    # padding included) and the indices read once. The local entry over
+    # four row blocks reads each real entry once but writes every output
+    # and reads the indices once per block.
+    real = sum(idx.shape[0] * float((b.disc.mask.sum(-1).double() ** 2)
+                                    .sum())
+               for b, idx in chunk)
+    written = sum(idx.shape[0] * len(b.module_pos) * b.cap ** 2
+                  for b, idx in chunk)
+    idx_bytes = sum(idx.numel() * 4 for _, idx in chunk)
+    n_blocks = GENES // rows_per
+    g_bytes = {
+        "gather_submatrix_fused": real * SECTOR + written * 4 + idx_bytes,
+        "gather_submatrix_fused_local": (real * SECTOR
+                                         + n_blocks * (written * 4
+                                                       + idx_bytes)),
+    }
+    long_idx = [idx.long() for _, idx in chunk]
+    blocks = [(r0, tc32[r0: r0 + rows_per])
+              for r0 in range(0, GENES, rows_per)]
+
+    def gather_all(fn):
+        return lambda: [fn(tc32, idx) for _, idx in chunk]
+
+    def local_all(fn):
+        return lambda: [fn(blk, idx, r0) for _, idx in chunk
+                        for r0, blk in blocks]
+
+    library_ms = timed(lambda: [tc32[i[..., :, None], i[..., None, :]]
+                                for i in long_idx])
+    g_times = {
+        "gather_submatrix_fused": interleaved(
+            gather_all(fg.gather_submatrix_fused_plain),
+            gather_all(fg.gather_submatrix_fused)),
+        "gather_submatrix_fused_local": interleaved(
+            local_all(fg.gather_submatrix_fused_local_plain),
+            local_all(fg.gather_submatrix_fused_local)),
+    }
+    g_times["gather_submatrix_fused"]["library_ms"] = library_ms
+    g_times["gather_submatrix_fused_local"]["library_ms"] = None
+    for name, t in g_times.items():
+        t["bytes"] = g_bytes[name]
+        t["bound_ms"] = 1e3 * g_bytes[name] / HBM_BPS
+    emit({"phase": "gather_times", "unit": "one chunk of "
+          f"{cfg.chunk_size} permutations x {MODULES} modules, one matrix "
+          f"({len(chunk)} launches; the local entry {len(chunk) * n_blocks}, "
+          f"one per bucket and row block of {rows_per})",
+          "real_entries": real, "written_entries": written,
+          "times_ms": g_times, "bound_by": "bytes",
+          "library_call": "M[idx[..., :, None], idx[..., None, :]] "
+                          "(in-range indices)",
+          "library_note": "no single PyTorch call zeroes the rows a block "
+                          "does not own, so the local entry has none",
+          "card": card})
+    del engine, chunk, perm, obs, tc32, tn32, tdT, long_idx, blocks
     torch.cuda.empty_cache()
 
     # ---- the main path, through the public entry point -------------------
@@ -274,54 +433,177 @@ def main() -> int:
         data={"disc": dd, "test": td},
         correlation={"disc": dc, "test": tc},
         module_assignments=list(labels), discovery="disc", test="test",
-        n_perm=N_PERM, seed=SEED, config=cfg, device="cuda",
+        n_perm=N_PERM, seed=SEED, device="cuda",
     )
-    runs, launches = {}, {}
-    for store in (True, False):
-        fs.reset_launches()
+
+    def drive(phase, needs, **call):
+        """One ``module_preservation`` call with every launch count at 0
+        just before it; fails unless each kernel in ``needs`` launched.
+        Returns ``(result, launches, memory)``: the peak device GiB of
+        the call and the most held while its null ran, read by the
+        progress callback."""
+        tops.reset_launches()
         torch.cuda.reset_peak_memory_stats()
+        held = []
         t0 = time.perf_counter()
-        res = module_preservation(**kw, store_nulls=store)
+        res = module_preservation(
+            **{**kw, **call},
+            progress=lambda done, total: held.append(
+                torch.cuda.memory_allocated()))
         wall = time.perf_counter() - t0
-        launches[store] = {fn.__name__: fn.launches for fn in fs.KERNELS}
-        runs[store] = res
-        used = "fused_stats_values" if store else "fused_stats_counts"
-        if launches[store][used] == 0:
-            raise RuntimeError(f"main path (store_nulls={store}) launched "
-                               f"no {used} kernel")
-        if res.observed.shape != (MODULES, 7) or not np.isfinite(
-                res.observed).all():
-            raise RuntimeError("observed statistics are not finite "
-                               f"(MODULES, 7): {res.observed.shape}")
-        if not ((res.p_values > 0) & (res.p_values <= 1)).all():
-            raise RuntimeError("p-values outside (0, 1]")
-        if res.completed != N_PERM:
-            raise RuntimeError(f"completed {res.completed} of {N_PERM}")
-        prof = res.profile
-        emit({"phase": "input_checks", "store_nulls": store,
-              "seconds": prof["input_s"]})
-        emit({"phase": "main_path", "store_nulls": store, "n_perm": N_PERM,
+        launches = {fn.__name__: fn.launches for fn in tops.kernels()}
+        for name in needs:
+            if launches[name] == 0:
+                raise RuntimeError(f"{phase} launched no {name} kernel")
+        for r in (res.values() if isinstance(res, dict) else [res]):
+            if r.observed.shape != (MODULES, 7) or not np.isfinite(
+                    r.observed).all():
+                raise RuntimeError("observed statistics are not finite "
+                                   f"(MODULES, 7): {r.observed.shape}")
+            if not ((r.p_values > 0) & (r.p_values <= 1)).all():
+                raise RuntimeError("p-values outside (0, 1]")
+            if r.completed != N_PERM:
+                raise RuntimeError(f"completed {r.completed} of {N_PERM}")
+            if r.nulls is not None and r.nulls.shape != (N_PERM, MODULES, 7):
+                raise RuntimeError(f"null shape {r.nulls.shape}")
+        prof = (next(iter(res.values())) if isinstance(res, dict)
+                else res).profile
+        store = call.get("store_nulls", True)
+        memory = {"peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                  "null_held_gib": max(held) / 2**30}
+        emit({"phase": phase, "store_nulls": store,
+              "stat_mode": call["config"].stat_mode, "n_perm": N_PERM,
               "wall_s": wall, "input_s": prof["input_s"],
               "engine_s": prof["engine_s"], "observed_s": prof["observed_s"],
               "null_s": prof["null_s"], "perms_per_s": prof["perms_per_s"],
-              "launches": launches[store],
-              "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-              "card": card})
+              "launches": launches, **memory, "card": card})
+        return res, launches, memory
+
+    def tallies_equal(a, b):
+        hi, lo, eff = pv.tail_counts(a.observed, a.nulls)
+        if not (np.array_equal(hi, b.counts_hi)
+                and np.array_equal(lo, b.counts_lo)
+                and np.array_equal(eff, b.counts_eff)):
+            raise RuntimeError("streaming tallies differ from the tail "
+                               "counts of the materialized null")
+
+    def null_err(a, b):
+        if not np.array_equal(np.isnan(a), np.isnan(b)):
+            raise RuntimeError("NaN pattern of two nulls differs")
+        return float(np.nanmax(np.abs(a - b)))
+
+    runs, launches, memory = {}, {}, {}
+    for store in (True, False):
+        res, launches[store], memory[store] = drive(
+            "main_path", ["fused_stats_values" if store
+                          else "fused_stats_counts"],
+            config=cfg, store_nulls=store)
+        runs[store] = res
+        emit({"phase": "input_checks", "store_nulls": store,
+              "seconds": res.profile["input_s"]})
     a, b = runs[True], runs[False]
     if not np.array_equal(a.p_values, b.p_values):
         raise RuntimeError("materialized and streaming p-values differ")
-    hi, lo, eff = pv.tail_counts(a.observed, a.nulls)
-    if not (np.array_equal(hi, b.counts_hi) and np.array_equal(lo, b.counts_lo)
-            and np.array_equal(eff, b.counts_eff)):
-        raise RuntimeError("streaming tallies differ from the tail counts of "
-                           "the materialized null")
+    tallies_equal(a, b)
     preserved = (a.p_values.max(axis=1) < 0.05 / MODULES)
     emit({"phase": "main_path_check", "p_values_equal": True,
           "tallies_equal_tail_counts": True,
           "min_p": float(a.p_values.min()),
           "modules_preserved": int(preserved.sum()),
           "planted_preserved": MODULES // 2})
-    del kw, runs, a, b, dd, dc, dn, td, tc, tn
+    fused_run = a
+
+    # ---- composed statistics through the gather kernel -------------------
+    composed_cfg = EngineConfig(stat_mode="xla", gather_mode="fused")
+    comp = {}
+    for store in (True, False):
+        comp[store], launches[("composed", store)], _ = drive(
+            "composed_path", ["gather_submatrix_fused"], config=composed_cfg,
+            store_nulls=store)
+        used = launches[("composed", store)]
+        if used["fused_stats_values"] or used["fused_stats_counts"]:
+            raise RuntimeError("the composed path launched the "
+                               "fused-statistics kernel")
+    if not np.array_equal(comp[True].p_values, comp[False].p_values):
+        raise RuntimeError("composed path: materialized and streaming "
+                           "p-values differ")
+    tallies_equal(comp[True], comp[False])
+    comp_err = null_err(comp[True].nulls, fused_run.nulls)
+    if comp_err > TOL:
+        raise RuntimeError(f"composed null differs from the fused-statistics "
+                           f"null by {comp_err}")
+    emit({"phase": "composed_path_check", "p_values_equal": True,
+          "tallies_equal_tail_counts": True,
+          "max_abs_null_vs_fused": comp_err, "tolerance": TOL,
+          "p_values_equal_fused": bool(np.array_equal(
+              comp[True].p_values, fused_run.p_values))})
+
+    # ---- derived network: no test network stored, through the
+    # fused-statistics kernel's derived mode and through the composed null
+    der = {}
+    for mode, kernel in (("auto", "fused_stats_values"),
+                         ("xla", "gather_submatrix_fused")):
+        der[mode], launches[("derived", mode)], memory[mode] = drive(
+            "derived_network", [kernel], config=EngineConfig(
+                network_from_correlation=BETA, stat_mode=mode))
+    der_err = {mode: null_err(r.nulls, fused_run.nulls)
+               for mode, r in der.items()}
+    if max(der_err.values()) > TOL:
+        raise RuntimeError(f"derived-network null differs from the stored-"
+                           f"network null by {der_err}")
+    emit({"phase": "derived_network_check", "network_from_correlation": BETA,
+          "max_abs_null_vs_stored": der_err, "tolerance": TOL,
+          "p_values_equal_stored": {
+              mode: bool(np.array_equal(r.p_values, fused_run.p_values))
+              for mode, r in der.items()},
+          "memory": {"stored": memory[True], "derived": memory["auto"],
+                     "derived_composed": memory["xla"]}})
+
+    # ---- two test cohorts on one shared permutation draw -----------------
+    # the second cohort continues the seed stream; it is built in float32 on
+    # the host to spare host memory (float64 would be 6.4 GB more)
+    t0 = time.perf_counter()
+    # (the first half of the modules preserved, with the discovery loadings)
+    x2 = rng.standard_normal((SAMPLES, GENES)).astype(np.float32)
+    at = 0
+    for k, sz in enumerate(sizes):
+        nodes = order[at: at + sz]
+        at += sz
+        if k < MODULES // 2:
+            x2[:, nodes] += (rng.standard_normal((SAMPLES, 1))
+                             .astype(np.float32) * loads[k])
+    t2d, t2c, t2n = [m.to(torch.float32).cpu().numpy() for m in mats(x2)]
+    torch.cuda.empty_cache()
+    emit({"phase": "second_cohort", "dtype": str(t2c.dtype),
+          "seconds": time.perf_counter() - t0})
+    kw["network"] = dict(kw["network"], test2=t2n)
+    kw["data"] = dict(kw["data"], test2=t2d)
+    kw["correlation"] = dict(kw["correlation"], test2=t2c)
+    kw["test"] = ["test", "test2"]
+    multi = {}
+    multi[True], launches[("multi", True)], _ = drive(
+        "multi_test", ["fused_stats_values"], config=cfg, vmap_tests=True)
+    multi[False], launches[("multi", False)], _ = drive(
+        "multi_test", ["gather_submatrix_fused"], config=composed_cfg,
+        vmap_tests=True, store_nulls=False)
+    # cohort 1 is the main path's test set: the shared draw gives it the
+    # single-test run's permutations, kernel and operands
+    if not np.array_equal(multi[True]["test"].p_values, fused_run.p_values):
+        raise RuntimeError("multi-test cohort 1 p-values differ from the "
+                           "single-test fused run's")
+    if not np.array_equal(multi[False]["test"].p_values,
+                          comp[False].p_values):
+        raise RuntimeError("multi-test streaming cohort 1 p-values differ "
+                           "from the single-test composed run's")
+    emit({"phase": "multi_test_check", "cohorts": 2,
+          "cohort1_p_equal_single_fused": True,
+          "cohort1_p_equal_single_composed": True,
+          "cohort2_min_p": float(multi[True]["test2"].p_values.min()),
+          "cohort2_modules_preserved": int(
+              (multi[True]["test2"].p_values.max(axis=1)
+               < 0.05 / MODULES).sum())})
+    del kw, runs, a, b, comp, der, multi, fused_run
+    del dd, dc, dn, td, tc, tn, t2d, t2c, t2n
     torch.cuda.empty_cache()
 
     # ---- a small reference: the same call on the card and on the CPU -----
@@ -333,28 +615,52 @@ def main() -> int:
                  data={"d": d["data"], "t": t["data"]},
                  correlation={"d": d["correlation"], "t": t["correlation"]},
                  module_assignments=pair["labels"], n_perm=400, seed=4)
-    on_card = module_preservation(**small)
-    on_cpu = module_preservation(**small, device="cpu")
-    obs_err = float(np.abs(on_card.observed - on_cpu.observed).max())
-    null_err = float(np.nanmax(np.abs(on_card.nulls - on_cpu.nulls)))
-    if obs_err > TOL or null_err > TOL or not np.array_equal(
-            on_card.p_values, on_cpu.p_values):
-        raise RuntimeError(f"card and CPU disagree on the example fixture: "
-                           f"observed {obs_err}, null {null_err}")
-    emit({"phase": "example_vs_cpu", "max_abs_observed": obs_err,
-          "max_abs_null": null_err, "p_values_equal": True,
-          "tolerance": TOL})
+    vs_cpu = {}
+    for label, config in (
+            ("fused", None),
+            ("composed_eigh", EngineConfig(stat_mode="xla",
+                                           summary_method="eigh"))):
+        on_card = module_preservation(**small, config=config)
+        on_cpu = module_preservation(**small, config=config, device="cpu")
+        obs_err = float(np.abs(on_card.observed - on_cpu.observed).max())
+        n_err = float(np.nanmax(np.abs(on_card.nulls - on_cpu.nulls)))
+        if obs_err > TOL or n_err > TOL or not np.array_equal(
+                on_card.p_values, on_cpu.p_values):
+            raise RuntimeError(f"card and CPU disagree on the example "
+                               f"fixture ({label}): observed {obs_err}, null "
+                               f"{n_err}")
+        vs_cpu[label] = {"max_abs_observed": obs_err, "max_abs_null": n_err,
+                         "p_values_equal": True}
+    emit({"phase": "example_vs_cpu", "runs": vs_cpu, "tolerance": TOL})
 
-    src = "netrep_tpu_torch/csrc/fused_stats.cu"
-    emit({"kernels": [
-        {"name": name, "route": "cuda", "source": src,
+    stats_src = "netrep_tpu_torch/csrc/fused_stats.cu"
+    gather_src = "netrep_tpu_torch/csrc/fused_gather.cu"
+    rows = [
+        {"name": name, "route": "cuda", "source": stats_src,
          "replaces": f"netrep_tpu/ops/fused_stats.py:{line}",
          "launches": launches[store][name], "max_abs_err": max_err[name],
          "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
-         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+         "path": f"main_path store_nulls={store}"}
         for name, line, store in (("fused_stats_values", 345, True),
                                   ("fused_stats_counts", 363, False))
-    ]})
+    ]
+    rows += [
+        {"name": name, "route": "cuda", "source": gather_src,
+         "replaces": f"netrep_tpu/ops/fused_gather.py:{line}",
+         "launches": launches.get(path, {}).get(name, 0),
+         "max_abs_err": g_err[name], "ms": g_times[name]["ms"],
+         "plain_ms": g_times[name]["plain_ms"],
+         "bound_ms": g_times[name]["bound_ms"], "bound_by": "bytes",
+         "library_ms": g_times[name]["library_ms"],
+         "path": note}
+        for name, line, path, note in (
+            ("gather_submatrix_fused", 290, ("composed", True),
+             "composed_path store_nulls=True"),
+            ("gather_submatrix_fused_local", 319, None,
+             "none yet: its path, the row-sharded null, is not ported"))
+    ]
+    emit({"kernels": rows})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -4,12 +4,15 @@ turn its null into exact Phipson–Smyth p-values and result objects.
 
 The port of the dense path of ``netrep_tpu/models/preservation.py``, with
 the same argument names and defaults and the same seeding contract (same
-seed ⇒ the same permutations, counts and p-values as the JAX package). Runs
+seed ⇒ the same permutations, counts and p-values as the JAX package),
+including ``vmap_tests`` (one discovery against several test cohorts on a
+shared permutation draw, :mod:`netrep_tpu_torch.parallel.multitest`). Runs
 on the card unless ``device="cpu"`` is passed.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import time
 from typing import Callable
@@ -19,6 +22,7 @@ import torch
 
 from ..ops import pvalues as pv
 from ..parallel.engine import ModuleSpec, PermutationEngine
+from ..parallel.multitest import MultiTestEngine
 from ..utils.config import EngineConfig, resolve_device
 from . import dataset as ds
 from .results import PreservationResult, shape_results
@@ -30,7 +34,6 @@ logger = logging.getLogger("netrep_tpu_torch")
 _LATER = {
     "adaptive": (False, "item 8 (adaptive nulls)"),
     "mesh": (None, "item 14 (mesh and sharding)"),
-    "vmap_tests": (False, "item 10 (multi-test engine / vmap_tests)"),
     "checkpoint_dir": (None, "item 7 (checkpoint/resume)"),
     "telemetry": (None, "item 16 (device-touching utils and CLI)"),
     "fault_policy": (None, "item 16 (device-touching utils and CLI)"),
@@ -156,22 +159,27 @@ def module_preservation(
     - ``device`` — None means ``"cuda"``, and raises without a card; pass
       ``"cpu"`` to run the plain versions of the kernels on the CPU;
     - ``progress`` — callback ``(done, total)`` per chunk (materialized) or
-      superchunk (streaming).
+      superchunk (streaming);
+    - ``vmap_tests`` — a discovery dataset with several test datasets that
+      share one node universe and agree on data presence runs them in one
+      multi-test engine on one shared permutation draw; each pair's result
+      is the one its own run gives with the same seed. Otherwise the pairs
+      run one after another, with a warning.
 
     ``result.profile`` holds the seconds of each phase: ``input_s`` (input
     checks, shared by every pair), ``engine_s``, ``observed_s``, ``null_s``
-    and ``perms_per_s``.
+    and ``perms_per_s`` (shared by the pairs of one multi-test run).
 
-    ``adaptive``, ``mesh``, ``vmap_tests``, ``checkpoint_dir``,
-    ``telemetry``, ``fault_policy``, ``data_only`` and ``backend='native'``
-    belong to later slices and raise ``NotImplementedError``.
+    ``adaptive``, ``mesh``, ``checkpoint_dir``, ``telemetry``,
+    ``fault_policy``, ``data_only`` and ``backend='native'`` belong to later
+    slices and raise ``NotImplementedError``.
 
     Returns ``{discovery: {test: PreservationResult}}``, collapsed by
     ``simplify``.
     """
-    given = dict(adaptive=adaptive, mesh=mesh, vmap_tests=vmap_tests,
-                 checkpoint_dir=checkpoint_dir, telemetry=telemetry,
-                 fault_policy=fault_policy, data_only=data_only)
+    given = dict(adaptive=adaptive, mesh=mesh, checkpoint_dir=checkpoint_dir,
+                 telemetry=telemetry, fault_policy=fault_policy,
+                 data_only=data_only)
     for name, (default, item) in _LATER.items():
         if given[name] is not default:
             raise NotImplementedError(
@@ -211,42 +219,85 @@ def module_preservation(
         return max(1000, pv.required_perms(0.05,
                                            n_tests=len(labels) * n_stats_eff))
 
-    results: dict[str, dict[str, PreservationResult]] = {}
+    by_disc: dict[str, list[str]] = {}
     for d_name, t_name in pairs:
-        disc_ds, test_ds = datasets[d_name], datasets[t_name]
-        labels, mod_specs, counts, pool = _overlap_setup(
-            disc_ds, test_ds, assign[d_name], modules, background_label, null
+        by_disc.setdefault(d_name, []).append(t_name)
+
+    results: dict[str, dict[str, PreservationResult]] = {}
+    for d_name, t_names in by_disc.items():
+        disc_ds = datasets[d_name]
+        can_vmap = (
+            vmap_tests
+            and len(t_names) > 1
+            and all(datasets[t].node_names == datasets[t_names[0]].node_names
+                    for t in t_names)
+            and len({datasets[t].data is not None for t in t_names}) == 1
         )
-        with_data = disc_ds.data is not None and test_ds.data is not None
-        np_this = n_perm if n_perm is not None else auto_n_perm(labels,
-                                                                with_data)
-        t1 = time.perf_counter()
-        engine = PermutationEngine(
-            disc_ds.correlation, disc_ds.network, disc_ds.data,
-            test_ds.correlation, test_ds.network, test_ds.data,
-            mod_specs, pool, config=config, device=dev,
-        )
-        _sync(dev)
-        t2 = time.perf_counter()
-        observed = engine.observed()
-        t3 = time.perf_counter()
-        if store_nulls:
-            nulls, completed = engine.run_null(np_this, key=seed,
-                                               progress=progress)
-            stream = None
-        else:
-            stream = engine.run_null_streaming(np_this, observed, key=seed,
-                                               progress=progress)
-            nulls, completed = None, stream.completed
-        t4 = time.perf_counter()
-        profile = dict(
-            input_s=input_s, engine_s=t2 - t1, observed_s=t3 - t2,
-            null_s=t4 - t3, perms_per_s=completed / max(t4 - t3, 1e-12),
-        )
-        total_space = pv.total_permutations(pool.size,
-                                            [m.size for m in mod_specs])
-        results.setdefault(d_name, {})[t_name] = _make_result(
-            d_name, t_name, labels, counts, observed, nulls, completed,
-            np_this, alternative, total_space, profile=profile, stream=stream,
-        )
+        if vmap_tests and not can_vmap and len(t_names) > 1:
+            logger.warning(
+                "vmap_tests requested but unavailable (requires the default "
+                "backend='torch' and materialized matrices; test datasets %s "
+                "must share a node universe and agree on data presence); "
+                "falling back to sequential pairs", t_names,
+            )
+        # one multi-test engine for the whole group, or one engine a pair
+        for group in ([t_names] if can_vmap else [[t] for t in t_names]):
+            multi = len(group) > 1
+            test_ds = datasets[group[0]]
+            labels, mod_specs, counts, pool = _overlap_setup(
+                disc_ds, test_ds, assign[d_name], modules, background_label,
+                null
+            )
+            with_data = disc_ds.data is not None and test_ds.data is not None
+            np_this = n_perm if n_perm is not None else auto_n_perm(labels,
+                                                                    with_data)
+            t1 = time.perf_counter()
+            if multi:
+                engine = MultiTestEngine(
+                    disc_ds.correlation, disc_ds.network, disc_ds.data,
+                    [datasets[t].correlation for t in group],
+                    [datasets[t].network for t in group],
+                    [datasets[t].data for t in group] if with_data else None,
+                    mod_specs, pool, config=config, device=dev,
+                )
+            else:
+                engine = PermutationEngine(
+                    disc_ds.correlation, disc_ds.network, disc_ds.data,
+                    test_ds.correlation, test_ds.network, test_ds.data,
+                    mod_specs, pool, config=config, device=dev,
+                )
+            _sync(dev)
+            t2 = time.perf_counter()
+            observed = engine.observed()
+            t3 = time.perf_counter()
+            if store_nulls:
+                nulls, completed = engine.run_null(np_this, key=seed,
+                                                   progress=progress)
+                stream = None
+            else:
+                stream = engine.run_null_streaming(np_this, observed,
+                                                   key=seed,
+                                                   progress=progress)
+                nulls, completed = None, stream.completed
+            t4 = time.perf_counter()
+            profile = dict(
+                input_s=input_s, engine_s=t2 - t1, observed_s=t3 - t2,
+                null_s=t4 - t3, perms_per_s=completed / max(t4 - t3, 1e-12),
+            )
+            total_space = pv.total_permutations(pool.size,
+                                                [m.size for m in mod_specs])
+            for ti, t_name in enumerate(group):
+                def pick(a):
+                    # a multi-test run carries the cohort axis first
+                    return a[ti] if multi and a is not None else a
+
+                results.setdefault(d_name, {})[t_name] = _make_result(
+                    d_name, t_name, labels, counts, pick(observed),
+                    pick(nulls), completed, np_this, alternative,
+                    total_space, profile=profile,
+                    stream=stream if stream is None or not multi
+                    else dataclasses.replace(stream, hi=stream.hi[ti],
+                                             lo=stream.lo[ti],
+                                             eff=stream.eff[ti]),
+                )
     return shape_results(results, simplify)

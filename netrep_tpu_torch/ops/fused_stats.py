@@ -233,8 +233,3 @@ fused_stats_counts.launches = 0
 
 #: the wrappers whose ``launches`` attribute counts kernel launches
 KERNELS = (fused_stats_values, fused_stats_counts)
-
-
-def reset_launches() -> None:
-    for fn in KERNELS:
-        fn.launches = 0

@@ -1,8 +1,9 @@
 """Engine configuration and device resolution for the port.
 
 :class:`EngineConfig` holds the subset of ``netrep_tpu.utils.config
-.EngineConfig`` that the dense main path reads, with the same defaults and
-the same bucket-capacity rule, so both packages bucket modules identically.
+.EngineConfig`` that the port's dense engines read, with the same names,
+defaults, error texts and bucket-capacity rule, so both packages bucket
+modules identically.
 """
 
 from __future__ import annotations
@@ -36,22 +37,40 @@ class EngineConfig:
     chunk_size : permutations drawn and evaluated per chunk; the unit of
         progress reporting and of the host transfer of the materialized
         null.
-    summary_method : summary-profile method of the null statistics. Only
+    summary_method : summary-profile method of the null statistics:
         ``'power'`` (the fixed-count power iteration the fused-statistics
-        kernel runs) is accepted; the observed pass always uses exact
-        ``eigh``.
+        kernel runs) or ``'eigh'`` (exact, ``torch.linalg.eigh``; composed
+        statistics only). The observed pass always uses ``eigh``.
     power_iters : fixed power-iteration count of the null statistics.
     bucket_rounding, cap_granularity : bucket capacity rule
         (:meth:`rounded_cap`), identical to the JAX package's.
     dtype : storage type of the test matrices; ``'float32'`` only (bf16
         storage is a later slice).
+    gather_mode : accepted for parity with the JAX package (``'auto'``,
+        ``'direct'`` or ``'fused'``); every value runs the composed null's
+        gathers through :mod:`netrep_tpu_torch.ops.fused_gather`, whose
+        kernel and plain version are both exact copies. The JAX package's
+        ``'mxu'`` (the TPU's one-hot-matmul workaround) is not ported.
+    network_from_correlation : soft-threshold power β when the network is
+        the WGCNA construction ``|correlation|**β``, or a ``(β, kind)``
+        pair with ``kind`` in ``('unsigned', 'signed', 'signed-hybrid')``.
+        The engine then stores no n×n network on the device: network
+        submatrices derive from the gathered correlation. The supplied
+        networks are sample-checked against the construction at engine
+        build (a mismatch raises).
     superchunk : streaming null only: chunks whose tallies accumulate on
         the device between two host reads (and progress calls); None means
         8, the JAX package's fallback.
+    stat_mode : ``'fused'`` runs the null through the fused-statistics
+        kernel (:mod:`netrep_tpu_torch.ops.fused_stats`), ``'xla'`` composes
+        it per bucket (gather → standardized data slice →
+        ``module_stats_masked``, the JAX package's name for that path),
+        ``'auto'`` takes ``'fused'`` when ``summary_method='power'`` and
+        ``'xla'`` otherwise (:meth:`resolved_stat_mode`).
 
-    A chunk runs as one kernel launch per bucket: a CUDA launch compiles
-    nothing per shape, so the JAX package's per-batch scan and its padding
-    have no work to do here.
+    A chunk runs as one kernel launch per bucket (and per matrix, for the
+    gather): a CUDA launch compiles nothing per shape, so the JAX package's
+    per-batch scan and its padding have no work to do here.
     """
 
     chunk_size: int = 128
@@ -60,17 +79,54 @@ class EngineConfig:
     bucket_rounding: int = 8
     cap_granularity: int = 32
     dtype: str = "float32"
+    gather_mode: str = "auto"
+    network_from_correlation: float | tuple | None = None
     superchunk: int | None = None
+    stat_mode: str = "auto"
 
     def __post_init__(self):
+        if self.network_from_correlation is not None:
+            from ..ops.stats import normalize_net_beta
+
+            knob = self.network_from_correlation
+            if isinstance(knob, list):
+                knob = tuple(knob)
+                object.__setattr__(self, "network_from_correlation", knob)
+            beta, _kind = normalize_net_beta(knob)
+            if not beta > 0:
+                raise ValueError(
+                    "network_from_correlation power must be > 0, got "
+                    f"{beta!r}"
+                )
         if self.chunk_size < 1:
             raise ValueError(f"chunk_size must be >= 1, got {self.chunk_size!r}")
-        if self.summary_method != "power":
+        if self.summary_method not in ("power", "eigh"):
             raise ValueError(
-                "the fused-statistics kernel computes coherence with the "
-                "fixed-count power iteration; summary_method="
+                "summary_method must be 'power' or 'eigh', got "
+                f"{self.summary_method!r}"
+            )
+        if self.stat_mode not in ("auto", "xla", "fused"):
+            raise ValueError(
+                f"stat_mode must be 'auto', 'xla', or 'fused', got "
+                f"{self.stat_mode!r}"
+            )
+        if self.stat_mode == "fused" and self.summary_method != "power":
+            raise ValueError(
+                "stat_mode='fused' computes coherence with the fixed-count "
+                "power iteration inside the kernel; summary_method="
                 f"{self.summary_method!r} is not kernel-supported — use "
-                "summary_method='power'"
+                "summary_method='power' or stat_mode='xla'"
+            )
+        if self.gather_mode == "mxu":
+            raise NotImplementedError(
+                "gather_mode='mxu' (the TPU's one-hot-matmul gather) is not "
+                "ported: ROADMAP.md Queue 2 lists why; use 'fused' or "
+                "'direct'"
+            )
+        if self.gather_mode not in ("auto", "direct", "fused"):
+            raise ValueError(
+                f"gather_mode must be 'auto', 'direct', or 'fused', "
+                f"got {self.gather_mode!r}"
             )
         if self.dtype != "float32":
             raise ValueError(
@@ -89,6 +145,16 @@ class EngineConfig:
     @property
     def resolved_superchunk(self) -> int:
         return 8 if self.superchunk is None else self.superchunk
+
+    def resolved_stat_mode(self) -> str:
+        """``stat_mode`` with ``'auto'`` resolved: the fused-statistics
+        kernel whenever the summary method is the power iteration it runs.
+        On the CPU the kernel's plain version is the composition itself, so
+        there is no interpreter cost to avoid and the rule does not depend
+        on the device."""
+        if self.stat_mode == "auto":
+            return "fused" if self.summary_method == "power" else "xla"
+        return self.stat_mode
 
     def rounded_cap(self, size: int) -> int:
         """Bucket capacity for a module of ``size`` nodes: powers of two up

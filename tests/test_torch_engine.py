@@ -16,7 +16,15 @@ XLA composition, so sums run in different orders (~1e-7 relative).
   damped by the later ones; node-contribution statistics of small modules
   then differ by up to ~2e-5 (cor.contrib of a 10-node module, measured on
   the example fixture).
-- Permutations, counts and p-values: exact."""
+- Permutations, counts and p-values: exact.
+
+The composed-statistics null (``stat_mode='xla'``, either ``gather_mode``
+of the JAX engine — the port runs the same gather for every value — and
+either ``summary_method``) and the derived network
+(``network_from_correlation``) are held to the same tolerances against the
+JAX engine with the same config. JAX runs with ``gather_mode='fused'`` go
+through the Pallas interpreter, so they stay at chunk 8 and ≤ 64
+permutations."""
 
 import numpy as np
 import pytest
@@ -33,6 +41,7 @@ from netrep_tpu.parallel.engine import ModuleSpec as JSpec  # noqa: E402
 from netrep_tpu.parallel.engine import PermutationEngine as JEngine  # noqa: E402
 from netrep_tpu.utils.config import EngineConfig as JConfig  # noqa: E402
 from netrep_tpu_torch.ops import pvalues as tpv  # noqa: E402
+from netrep_tpu_torch.ops.stats import normalize_net_beta  # noqa: E402
 from netrep_tpu_torch.parallel.engine import ModuleSpec  # noqa: E402
 from netrep_tpu_torch.parallel.engine import PermutationEngine  # noqa: E402
 from netrep_tpu_torch.state import DISC_FIELDS, engine_state_from_numpy  # noqa: E402
@@ -48,7 +57,7 @@ def _jax_state(e: JEngine, seed: int) -> dict:
     return dict(
         pool=np.asarray(e.pool),
         test_corr=np.asarray(e._test_corr),
-        test_net=np.asarray(e._test_net),
+        test_net=None if e._test_net is None else np.asarray(e._test_net),
         test_dataT=(None if e._test_dataT is None
                     else np.asarray(e._test_dataT)),
         n_modules=e.n_modules,
@@ -204,3 +213,137 @@ def test_engine_input_errors():
     with pytest.raises(ValueError, match="exceed the null"):
         PermutationEngine(*mats, [ModuleSpec(*s) for s in specs],
                           pool[:20], device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# Composed statistics, derived networks, config errors
+# ---------------------------------------------------------------------------
+
+def _pair(engines, jcfg: JConfig, tcfg: EngineConfig, mats=None):
+    je = JEngine(*(mats or engines["mats"]),
+                 [JSpec(*s) for s in engines["specs"]], engines["pool"],
+                 config=jcfg)
+    te, key = engine_state_from_numpy(_jax_state(je, SEED), tcfg,
+                                      device="cpu")
+    return je, te, key
+
+
+def _assert_counts_equal_jax(te, nulls_t, nulls_j, observed, n):
+    sc = te.run_null_streaming(n, observed, key=SEED)
+    want = tpv.tail_counts(observed, nulls_t)
+    for got, w, j in zip((sc.hi, sc.lo, sc.eff), want,
+                         jpv.tail_counts(observed, nulls_j)):
+        np.testing.assert_array_equal(got, w)
+        np.testing.assert_array_equal(got, j)
+
+
+@pytest.mark.parametrize("gather_mode,summary", [
+    ("direct", "power"), ("fused", "power"), ("direct", "eigh"),
+    ("fused", "eigh"),
+])
+def test_composed_null_matches_jax(engines, gather_mode, summary):
+    n, chunk = (64, 8) if gather_mode == "fused" else (N_PERM, 64)
+    kw = dict(chunk_size=chunk, stat_mode="xla", gather_mode=gather_mode,
+              summary_method=summary)
+    je, te, key = _pair(engines, JConfig(autotune=False, **kw),
+                        EngineConfig(**kw))
+    assert te.stat_mode == "xla"
+    nulls_j, _ = je.run_null(n, key=SEED)
+    nulls_j = np.asarray(nulls_j)
+    nulls_t, done = te.run_null(n, key=key)
+    assert done == n
+    assert_null_close(nulls_t, nulls_j)
+    _assert_counts_equal_jax(te, nulls_t, nulls_j, engines["observed"], n)
+
+
+def _derived_mats(mats, net_beta):
+    """The fixture with both networks rebuilt as ``net_beta``'s
+    construction of the correlations (in float64, as a user builds it)."""
+    beta, kind = normalize_net_beta(net_beta)
+
+    def construct(c):
+        c = np.asarray(c, dtype=np.float64)
+        return ((1.0 + c) / 2.0) ** beta if kind == "signed" \
+            else np.abs(c) ** beta
+
+    dc, _dn, dd, tc, _tn, td = mats
+    return dc, construct(dc), dd, tc, construct(tc), td
+
+
+@pytest.mark.parametrize("net_beta", [2.0, (3.0, "signed")], ids=str)
+def test_derived_network_matches_jax(engines, net_beta):
+    mats = _derived_mats(engines["mats"], net_beta)
+    kw = dict(chunk_size=64, network_from_correlation=net_beta)
+    je, te, key = _pair(engines, JConfig(autotune=False, **kw),
+                        EngineConfig(**kw), mats=mats)
+    assert je._test_net is None and te._test_net is None
+    observed = je.observed()
+    np.testing.assert_allclose(te.observed(), observed, rtol=0, atol=ATOL)
+    nulls_j, _ = je.run_null(N_PERM, key=SEED)
+    nulls_j = np.asarray(nulls_j)
+    # the fused-statistics path runs the kernel's derived mode
+    nulls_t, _ = te.run_null(N_PERM, key=key)
+    assert_null_close(nulls_t, nulls_j)
+    _assert_counts_equal_jax(te, nulls_t, nulls_j, observed, N_PERM)
+    # the composed path derives from the gathered correlation
+    composed, _ = engine_state_from_numpy(
+        _jax_state(je, SEED), EngineConfig(stat_mode="xla", **kw),
+        device="cpu")
+    assert_null_close(composed.run_null(N_PERM, key=key)[0], nulls_j)
+    # an engine built from the matrices checks them and keeps no network
+    built = PermutationEngine(*mats,
+                              [ModuleSpec(*s) for s in engines["specs"]],
+                              engines["pool"], config=EngineConfig(**kw),
+                              device="cpu")
+    assert built._test_net is None
+    np.testing.assert_allclose(built.observed(), observed, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("side", ["discovery", "test"])
+def test_mismatched_derived_network_raises_jax_text(engines, side):
+    dc, dn, dd, tc, tn, td = engines["mats"]
+    if side == "discovery":
+        dn = np.abs(np.asarray(dc, np.float64)) ** 3
+    else:
+        tn = np.abs(np.asarray(tc, np.float64)) ** 3
+    mats = (dc, dn, dd, tc, tn, td)
+    specs, pool = engines["specs"], engines["pool"]
+    with pytest.raises(ValueError) as jerr:
+        JEngine(*mats, [JSpec(*s) for s in specs], pool,
+                config=JConfig(network_from_correlation=2.0, autotune=False))
+    with pytest.raises(ValueError) as terr:
+        PermutationEngine(*mats, [ModuleSpec(*s) for s in specs], pool,
+                          config=EngineConfig(network_from_correlation=2.0),
+                          device="cpu")
+    assert str(terr.value) == str(jerr.value)
+    assert f"supplied {side} network" in str(terr.value)
+
+
+@pytest.mark.parametrize("kw,err", [
+    (dict(stat_mode="fusd"), ValueError),
+    (dict(stat_mode="fused", summary_method="eigh"), ValueError),
+    (dict(gather_mode="mxu"), NotImplementedError),
+    (dict(gather_mode="dirct"), ValueError),
+    (dict(network_from_correlation=(2.0, "bogus")), ValueError),
+], ids=("stat_typo", "fused_eigh", "mxu", "gather_typo", "net_kind"))
+def test_config_errors(kw, err):
+    with pytest.raises(err) as terr:
+        EngineConfig(**kw)
+    if err is NotImplementedError:
+        assert "ROADMAP.md" in str(terr.value)
+        return
+    # the options the JAX package validates at construction carry its text
+    if "gather_mode" not in kw:
+        with pytest.raises(ValueError) as jerr:
+            JConfig(**kw)
+        assert str(terr.value) == str(jerr.value)
+
+
+def test_resolved_modes():
+    assert EngineConfig().resolved_stat_mode() == "fused"
+    assert EngineConfig(summary_method="eigh").resolved_stat_mode() == "xla"
+    assert EngineConfig(stat_mode="xla").resolved_stat_mode() == "xla"
+    # the JAX package's gather values are accepted and all run the same
+    # gather (the kernel's wrapper)
+    for mode in ("auto", "direct", "fused"):
+        assert EngineConfig(gather_mode=mode).gather_mode == mode

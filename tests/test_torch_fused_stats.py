@@ -147,6 +147,8 @@ def test_unsupported_device_raises(case):
 
 
 def test_reset_launches():
+    from netrep_tpu_torch import ops as tops
+
     tfused.fused_stats_counts.launches = 5
-    tfused.reset_launches()
+    tops.reset_launches()
     assert all(fn.launches == 0 for fn in tfused.KERNELS)

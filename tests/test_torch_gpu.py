@@ -1,12 +1,13 @@
-"""The port's CUDA kernel on the card: held against its plain version on the
-same CUDA tensors. Skips without a card. This file imports nothing of JAX,
-so it runs on a machine that has only the port's dependencies:
+"""The port's CUDA kernels on the card: held against their plain versions on
+the same CUDA tensors. Skips without a card. This file imports nothing of
+JAX, so it runs on a machine that has only the port's dependencies:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 
-Tolerance kernel vs plain: 1e-4 absolute. The kernel runs the power
-iteration as ``v <- Z^T (Z v)`` and sums in its own fixed order; the plain
-version forms the Gram matrix (``csrc/fused_stats.cu`` notes).
+Tolerances, kernel vs plain: fused statistics 1e-4 absolute (the kernel
+runs the power iteration as ``v <- Z^T (Z v)`` and sums in its own fixed
+order; the plain version forms the Gram matrix, ``csrc/fused_stats.cu``
+notes); the gather none — both are copies, so they are bit-equal.
 """
 
 import numpy as np
@@ -16,7 +17,10 @@ torch = pytest.importorskip("torch")
 
 from netrep_tpu_torch.data import make_example_pair, pair_frames  # noqa: E402
 from netrep_tpu_torch.models.preservation import module_preservation  # noqa: E402
+from netrep_tpu_torch import ops as tops  # noqa: E402
+from netrep_tpu_torch.ops import fused_gather as tgather  # noqa: E402
 from netrep_tpu_torch.ops import fused_stats as tfused  # noqa: E402
+from netrep_tpu_torch.utils.config import EngineConfig  # noqa: E402
 from netrep_tpu_torch.ops import stats as T  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -107,9 +111,81 @@ def test_module_preservation_cuda_matches_cpu(cuda):
               data={"d": d["data"], "t": t["data"]},
               correlation={"d": d["correlation"], "t": t["correlation"]},
               module_assignments=pair["labels"], n_perm=300, seed=4)
-    tfused.reset_launches()
+    tops.reset_launches()
     gpu = module_preservation(**kw)
     assert tfused.fused_stats_values.launches > 0
     cpu = module_preservation(**kw, device="cpu")
     np.testing.assert_allclose(gpu.observed, cpu.observed, rtol=0, atol=TOL)
+    np.testing.assert_array_equal(gpu.p_values, cpu.p_values)
+
+
+def _gather_case(dev, batch, n=1000, cap=45, seed=1):
+    rng = np.random.default_rng(seed)
+    M = torch.as_tensor(rng.standard_normal((n, n)).astype(np.float32),
+                        device=dev)
+    idx = rng.integers(0, n, size=batch + (cap,)).astype(np.int32)
+    flat = idx.reshape(-1, cap)
+    flat[0, 3], flat[-1, 7], flat[-1, 0] = -1, n, n + 9
+    M[int(flat[0, 5]), int(flat[0, 6])] = float("nan")
+    return M, torch.as_tensor(idx, device=dev)
+
+
+def _bit_equal(a, b):
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(
+        torch.where(nan, 0.0, a), torch.where(nan, 0.0, b))
+
+
+@pytest.mark.parametrize("batch", [(), (3,), (2, 5)], ids=str)
+def test_gather_kernel_bit_equal_to_plain(cuda, batch):
+    M, idx = _gather_case(cuda, batch)
+    before = tgather.gather_submatrix_fused.launches
+    got = tgather.gather_submatrix_fused(M, idx)
+    assert tgather.gather_submatrix_fused.launches == before + 1
+    want = tgather.gather_submatrix_fused_plain(M, idx)
+    torch.cuda.synchronize()
+    assert got.shape == batch + (45, 45)
+    assert _bit_equal(got, want)
+    assert torch.isnan(got).any()
+
+
+def test_gather_local_blocks_sum_to_replicated(cuda):
+    M, idx = _gather_case(cuda, (2, 5))
+    total = torch.zeros((2, 5, 45, 45), device=cuda)
+    for r0 in (0, 300, 600, 900):
+        blk = M[r0: r0 + 300]
+        part = tgather.gather_submatrix_fused_local(blk, idx, r0)
+        assert _bit_equal(
+            part, tgather.gather_submatrix_fused_local_plain(blk, idx, r0))
+        total += part
+    assert _bit_equal(total, tgather.gather_submatrix_fused(M, idx))
+
+
+def test_gather_refuses_bad_operands(cuda):
+    M, idx = _gather_case(cuda, (2,))
+    with pytest.raises(ValueError, match="dtype"):
+        tgather.gather_submatrix_fused(M.double(), idx)
+    with pytest.raises(ValueError, match="contiguous"):
+        tgather.gather_submatrix_fused(M.T, idx)
+
+
+@pytest.mark.parametrize("options,kernel", [
+    (dict(stat_mode="xla"), "gather_submatrix_fused"),
+    (dict(network_from_correlation=2.0), "fused_stats_values"),
+], ids=("composed", "derived"))
+def test_engine_options_cuda_match_cpu(cuda, options, kernel):
+    pair = make_example_pair(np.random.default_rng(3))
+    d, t = pair_frames(pair)
+    kw = dict(network={"d": d["network"], "t": t["network"]},
+              data={"d": d["data"], "t": t["data"]},
+              correlation={"d": d["correlation"], "t": t["correlation"]},
+              module_assignments=pair["labels"], n_perm=300, seed=4,
+              config=EngineConfig(**options))
+    tops.reset_launches()
+    gpu = module_preservation(**kw)
+    assert getattr(tgather if "gather" in kernel else tfused,
+                   kernel).launches > 0
+    cpu = module_preservation(**kw, device="cpu")
+    np.testing.assert_allclose(gpu.observed, cpu.observed, rtol=0, atol=TOL)
+    np.testing.assert_allclose(gpu.nulls, cpu.nulls, rtol=0, atol=TOL)
     np.testing.assert_array_equal(gpu.p_values, cpu.p_values)

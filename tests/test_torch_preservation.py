@@ -83,6 +83,29 @@ def test_options_match_jax(frames, kw):
     _assert_same(*_both(frames, seed=3, **kw))
 
 
+@pytest.mark.parametrize("options", [
+    dict(stat_mode="xla"),
+    dict(stat_mode="xla", summary_method="eigh"),
+    dict(network_from_correlation=2.0),
+    dict(network_from_correlation=2.0, stat_mode="xla"),
+], ids=("composed", "composed_eigh", "derived", "derived_composed"))
+@pytest.mark.parametrize("store_nulls", (True, False))
+def test_engine_options_match_jax(frames, options, store_nulls):
+    from netrep_tpu.utils.config import EngineConfig as JConfig
+    from netrep_tpu_torch.utils.config import EngineConfig
+
+    kw = {**frames, "n_perm": N_PERM, "seed": 2, "store_nulls": store_nulls}
+    rt = module_preservation(**kw, config=EngineConfig(**options),
+                             device="cpu")
+    rj = netrep_tpu.module_preservation(
+        **kw, config=JConfig(autotune=False, **options))
+    _assert_same(rt, rj)
+    if not store_nulls:
+        for name in ("counts_hi", "counts_lo", "counts_eff"):
+            np.testing.assert_array_equal(getattr(rt, name),
+                                          getattr(rj, name))
+
+
 def test_data_less_run_matches_jax(frames):
     rt, rj = _both({**frames, "data": None}, seed=1)
     _assert_same(rt, rj)
@@ -157,7 +180,7 @@ def test_input_errors_match_jax(frames, case):
 
 
 @pytest.mark.parametrize("arg,value", [
-    ("adaptive", True), ("mesh", object()), ("vmap_tests", True),
+    ("adaptive", True), ("mesh", object()),
     ("checkpoint_dir", "x"), ("telemetry", True), ("fault_policy", True),
     ("data_only", 2.0), ("backend", "native"),
 ])

@@ -55,6 +55,7 @@ before = set(sys.modules)
 import netrep_tpu_torch.models.preservation
 import netrep_tpu_torch.state, netrep_tpu_torch.data
 import netrep_tpu_torch.ops.fused_stats, netrep_tpu_torch.ops._build
+import netrep_tpu_torch.ops.fused_gather, netrep_tpu_torch.parallel.multitest
 bad = [m for m in set(sys.modules) - before
        if m in ("jax", "jaxlib", "netrep_tpu") or m.startswith(("jax.", "jaxlib.", "netrep_tpu."))]
 print(",".join(sorted(bad)))
@@ -79,7 +80,8 @@ def test_no_card_means_no_run(monkeypatch):
         resolve_device("meta")
 
 
-@pytest.mark.parametrize("entry", ["build_datasets", "key", "key_from_data"])
+@pytest.mark.parametrize("entry", ["build_datasets", "key", "key_from_data",
+                                   "multitest", "vmap_tests"])
 def test_device_defaults_to_the_card(monkeypatch, entry):
     # every function that places tensors takes device=None as "cuda", so a
     # caller that names no device never lands on the CPU unawares
@@ -87,16 +89,59 @@ def test_device_defaults_to_the_card(monkeypatch, entry):
 
     from netrep_tpu_torch import random as trandom
     from netrep_tpu_torch.models.dataset import build_datasets
+    from netrep_tpu_torch.models.preservation import module_preservation
+    from netrep_tpu_torch.parallel.engine import ModuleSpec
+    from netrep_tpu_torch.parallel.multitest import MultiTestEngine
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    eye, spec = np.eye(4), [ModuleSpec("1", np.arange(2), np.arange(2))]
     call = {
         "build_datasets": lambda: build_datasets(np.eye(3),
                                                  correlation=np.eye(3)),
         "key": lambda: trandom.key(0),
         "key_from_data": lambda: trandom.ThreefryKey.from_data([0, 1]),
+        "multitest": lambda: MultiTestEngine(eye, eye, None, [eye, eye],
+                                             [eye, eye], None, spec,
+                                             np.arange(4)),
+        "vmap_tests": lambda: module_preservation(
+            {"a": eye, "b": eye, "c": eye}, correlation={"a": eye, "b": eye,
+                                                         "c": eye},
+            discovery="a", test=["b", "c"], vmap_tests=True),
     }[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()
+
+
+class _OnTheCard:
+    """Stands for a CUDA tensor on a machine that has none: the routing
+    reads only its device, type and rank."""
+
+    def __init__(self, shape, dtype):
+        self.shape, self.dtype = shape, dtype
+        self.device = torch.device("cuda", 0)
+
+    def dim(self):
+        return len(self.shape)
+
+
+@pytest.mark.parametrize("entry", ["gather_submatrix_fused",
+                                   "gather_submatrix_fused_local"])
+def test_gather_wrappers_never_fall_back(monkeypatch, entry):
+    # a CUDA tensor goes to the kernel launch (and counts it); only a CPU
+    # tensor runs the plain version, which counts nothing
+    from netrep_tpu_torch.ops import fused_gather as tgather
+
+    monkeypatch.setattr(tgather, "_launch", lambda *a: "kernel output")
+    fn = getattr(tgather, entry)
+    tail = () if entry == "gather_submatrix_fused" else (0,)
+    before = fn.launches
+    got = fn(_OnTheCard((8, 8), torch.float32),
+             _OnTheCard((3, 4), torch.int32), *tail)
+    assert got == "kernel output" and fn.launches == before + 1
+    cpu = fn(torch.zeros((8, 8)), torch.zeros((3, 4), dtype=torch.int32),
+             *tail)
+    assert cpu.shape == (3, 4, 4) and fn.launches == before + 1
+    fn.launches = before
 
 
 def test_precision_pinned():
@@ -117,7 +162,8 @@ def test_cuda_sources_are_package_data():
         project = tomllib.load(f)
     data = project["tool"]["setuptools"]["package-data"]
     assert "*.cu" in data["netrep_tpu_torch.csrc"]
-    assert os.path.exists(os.path.join(PKG, "csrc", "fused_stats.cu"))
+    for src in ("fused_stats.cu", "fused_gather.cu"):
+        assert os.path.exists(os.path.join(PKG, "csrc", src)), src
     assert "torch" in project["project"]["optional-dependencies"]
     # pyproject's package finder looks for namespace packages, so it ships
     # the port (top and csrc/ without __init__.py) under the existing
@@ -137,6 +183,7 @@ def test_cuda_sources_are_package_data():
 
 def test_kernel_build_is_lazy():
     # importing the wrappers compiled and loaded nothing
-    from netrep_tpu_torch.ops import _build, fused_stats  # noqa: F401
+    from netrep_tpu_torch.ops import _build, fused_gather, fused_stats  # noqa: F401
 
-    assert "fused_stats" not in _build._LIBS or torch.cuda.is_available()
+    for name in ("fused_stats", "fused_gather"):
+        assert name not in _build._LIBS or torch.cuda.is_available()
