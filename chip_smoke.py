@@ -18,9 +18,22 @@ launch count set to 0 just before a path and read just after:
 - ``derived_network``: ``network_from_correlation=2.0``, through the
   fused-statistics kernel in its derived-network mode and through the
   composed null;
+- ``row_sharded``: ``mesh=make_mesh(1, 4, devices=[cuda:0] * 4)`` with
+  ``matrix_sharding='row'`` — four row shards on the one card: the ring
+  path (the ring-shift kernel moves the 5,000-row blocks, the local gather
+  kernel reads them) materialized, streaming and with a derived network,
+  and the psum path (``stat_mode='xla'``), streaming;
+- ``perm_mesh``: the fused-statistics null on ``make_mesh(2, 1,
+  devices=[cuda:0] * 2)``, streaming;
+- ``multi_card``: the ring path on a 1×2 mesh over two cards, where the
+  machine has two (otherwise a line that says it did not run);
 - ``multi_test``: ``vmap_tests=True`` against two test cohorts on one
   shared permutation draw, materialized (fused statistics) and streaming
   (composed);
+- ``sequential_tests``: the same two cohorts without ``vmap_tests``, one
+  pair after another (a matrix a later pair needs waits on the host
+  meanwhile), with each pair's phase seconds and the time of one matrix's
+  round trip to the host;
 
 and checks each against the others: equal p-values where the same
 statistics run, nulls within 1e-4 where the arithmetic differs. Inputs are
@@ -33,6 +46,12 @@ the card's ``name, power.limit`` line, and as its last line
 ``{"ok": true, "device": {...}}``. Any failed phase raises and the script
 exits non-zero; without a CUDA device it exits non-zero before printing
 anything.
+
+    python3 chip_smoke.py --sequential-tests
+
+runs only the inputs and the ``sequential_tests`` call, through the
+``netrep_tpu_torch`` beside the script: copied into another checkout, it
+measures that checkout's version on the same inputs.
 """
 
 from __future__ import annotations
@@ -56,6 +75,146 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
+GENES, SAMPLES, MODULES, SIZES = 20_000, 128, 50, (30, 200)
+N_PERM, SEED, BETA = 1000, 2026, 2.0
+
+
+def make_cohorts(np):
+    """Host data ``(SAMPLES, GENES)`` float32 of the discovery, the test
+    and a second test cohort, with the module sizes and node labels, from
+    SEED: MODULES planted modules of SIZES nodes, the first half preserved
+    in both tests with the discovery loadings."""
+    rng = np.random.default_rng(SEED)
+    sizes = rng.integers(SIZES[0], SIZES[1] + 1, size=MODULES)
+    xd = rng.standard_normal((SAMPLES, GENES)).astype(np.float32)
+    xt = rng.standard_normal((SAMPLES, GENES)).astype(np.float32)
+    labels = np.full(GENES, "0", dtype=object)
+    order = rng.permutation(GENES)
+    loads = []
+    at = 0
+    for k, sz in enumerate(sizes):
+        nodes = order[at: at + sz]
+        at += sz
+        load = rng.uniform(0.6, 2.2, size=sz).astype(np.float32)
+        loads.append(load)
+        xd[:, nodes] += rng.standard_normal((SAMPLES, 1)).astype(np.float32) * load
+        if k < MODULES // 2:  # the first half is preserved in the test set
+            xt[:, nodes] += (rng.standard_normal((SAMPLES, 1))
+                             .astype(np.float32) * load)
+        labels[nodes] = str(k + 1)
+    # the second test cohort continues the seed stream
+    x2 = rng.standard_normal((SAMPLES, GENES)).astype(np.float32)
+    at = 0
+    for k, sz in enumerate(sizes):
+        nodes = order[at: at + sz]
+        at += sz
+        if k < MODULES // 2:
+            x2[:, nodes] += (rng.standard_normal((SAMPLES, 1))
+                             .astype(np.float32) * loads[k])
+    return sizes, labels, (xd, xt, x2)
+
+
+def mats(torch, x, dev):
+    """``(data, correlation, network)`` of one cohort on ``dev`` in
+    float64: the genes' Pearson correlation and ``|corr| ** BETA``."""
+    t = torch.as_tensor(x, device=dev, dtype=torch.float64)
+    z = (t - t.mean(0)) / t.std(0)
+    c = (z.T @ z) / (SAMPLES - 1)
+    c = (c + c.T) * 0.5
+    c.fill_diagonal_(1.0)
+    c.clamp_(-1.0, 1.0)
+    return t, c, c.abs() ** BETA
+
+
+def sequential_tests(torch, np, module_preservation, ops, kw, config, card,
+                     dev):
+    """One discovery against the two test cohorts without ``vmap_tests``:
+    the pairs run one after another. A matrix that a later pair needs
+    waits on the host (float32) while a pair's null runs, so each pair's
+    ``engine_s`` carries the host copies that pair makes. Also times that
+    round trip for one ``GENES``² float32 matrix. Returns the results by
+    test name."""
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    held = []
+    t0 = time.perf_counter()
+    res = module_preservation(
+        **{**kw, "test": ["test", "test2"]}, config=config,
+        vmap_tests=False, progress=lambda done, total: held.append(
+            torch.cuda.memory_allocated()))
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in ops.kernels()}
+    for name, r in res.items():
+        if r.observed.shape != (MODULES, 7) or not np.isfinite(
+                r.observed).all():
+            raise RuntimeError(f"sequential_tests {name}: observed "
+                               "statistics are not finite (MODULES, 7)")
+        if r.completed != N_PERM:
+            raise RuntimeError(f"sequential_tests {name}: completed "
+                               f"{r.completed} of {N_PERM}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    m = torch.as_tensor(kw["correlation"]["test"], device=dev,
+                        dtype=torch.float32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host = m.cpu()
+    t1 = time.perf_counter()
+    back = host.to(dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    del m, host, back
+    torch.cuda.empty_cache()
+    emit({"phase": "sequential_tests", "tests": list(res), "n_perm": N_PERM,
+          "vmap_tests": False, "wall_s": wall,
+          "input_s": next(iter(res.values())).profile["input_s"],
+          "pairs": {name: {k: r.profile[k] for k in
+                           ("engine_s", "observed_s", "null_s")}
+                    for name, r in res.items()},
+          "launches": launches, "peak_gib": peak,
+          "null_held_gib": max(held) / 2**30,
+          "matrix_round_trip_s": {"gib": GENES**2 * 4 / 2**30,
+                                  "to_host": t1 - t0, "to_card": t2 - t1},
+          "card": card})
+    return res
+
+
+def sequential_only() -> int:
+    """``--sequential-tests``: only the inputs and the sequential-tests
+    call, through the ``netrep_tpu_torch`` that lies beside this script
+    (another checkout's, to compare two versions on one card)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA device available", file=sys.stderr)
+        return 1
+    import numpy as np
+
+    from netrep_tpu_torch import ops as tops
+    from netrep_tpu_torch.models.preservation import module_preservation
+    from netrep_tpu_torch.utils.config import EngineConfig
+
+    dev = torch.device("cuda")
+    card = card_line()
+    _sizes, labels, (xd, xt, x2) = make_cohorts(np)
+    # as main() hands them over: float64, the second test float32
+    host = [[m.to(dtype).cpu().numpy() for m in mats(torch, x, dev)]
+            for x, dtype in ((xd, torch.float64), (xt, torch.float64),
+                             (x2, torch.float32))]
+    torch.cuda.empty_cache()
+    names = ("disc", "test", "test2")
+    kw = dict(
+        network={k: h[2] for k, h in zip(names, host)},
+        data={k: h[0] for k, h in zip(names, host)},
+        correlation={k: h[1] for k, h in zip(names, host)},
+        module_assignments=list(labels), discovery="disc",
+        n_perm=N_PERM, seed=SEED, device="cuda",
+    )
+    sequential_tests(torch, np, module_preservation, tops, kw,
+                     EngineConfig(), card, dev)
+    print(card_line(), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -72,10 +231,9 @@ def main() -> int:
     from netrep_tpu_torch.ops import fused_stats as fs
     from netrep_tpu_torch.ops import pvalues as pv
     from netrep_tpu_torch.parallel.engine import ModuleSpec, PermutationEngine
+    from netrep_tpu_torch.parallel.mesh import make_mesh
     from netrep_tpu_torch.utils.config import EngineConfig
 
-    GENES, SAMPLES, MODULES, SIZES = 20_000, 128, 50, (30, 200)
-    N_PERM, SEED, BETA = 1000, 2026, 2.0
     #: kernel vs plain: the kernel's power iteration runs as Z^T (Z v) and
     #: sums in its own fixed order (csrc/fused_stats.cu); the plain version
     #: forms the Gram matrix — float32 rounding apart, ~1e-5 at most
@@ -83,6 +241,8 @@ def main() -> int:
     #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s outside
     #: the tensor cores (the kernel does scalar f32 arithmetic)
     HBM_BPS, F32_FLOPS = 3.35e12, 67e12
+    #: NVLink between two H100 SXM cards, each way (NVIDIA data sheet)
+    NVLINK_BPS = 450e9
     SECTOR = 32
     dev = torch.device("cuda")
     card = card_line()
@@ -94,10 +254,11 @@ def main() -> int:
 
     # ---- build every kernel source of the paths, all nvcc runs at once ---
     t0 = time.perf_counter()
-    sources = ["fused_stats", "fused_gather"]
+    sources = list(_build.SOURCES)
     _build.build(sources)
     lib = fs._lib()
     fg._lib()
+    fs._ring_lib()
     for cap, s, hd in ((224, 128, 1), (32, 0, 0), (96, 40, 1)):
         if lib.fused_stats_smem_bytes(cap, s, hd) != fs.resolve_smem_bytes(
                 cap, s, bool(hd)):
@@ -119,35 +280,8 @@ def main() -> int:
 
     # ---- inputs at the north-star width, from one seed -------------------
     t0 = time.perf_counter()
-    rng = np.random.default_rng(SEED)
-    sizes = rng.integers(SIZES[0], SIZES[1] + 1, size=MODULES)
-    xd = rng.standard_normal((SAMPLES, GENES)).astype(np.float32)
-    xt = rng.standard_normal((SAMPLES, GENES)).astype(np.float32)
-    labels = np.full(GENES, "0", dtype=object)
-    order = rng.permutation(GENES)
-    loads = []
-    at = 0
-    for k, sz in enumerate(sizes):
-        nodes = order[at: at + sz]
-        at += sz
-        load = rng.uniform(0.6, 2.2, size=sz).astype(np.float32)
-        loads.append(load)
-        xd[:, nodes] += rng.standard_normal((SAMPLES, 1)).astype(np.float32) * load
-        if k < MODULES // 2:  # the first half is preserved in the test set
-            xt[:, nodes] += (rng.standard_normal((SAMPLES, 1))
-                             .astype(np.float32) * load)
-        labels[nodes] = str(k + 1)
-
-    def mats(x):
-        t = torch.as_tensor(x, device=dev, dtype=torch.float64)
-        z = (t - t.mean(0)) / t.std(0)
-        c = (z.T @ z) / (SAMPLES - 1)
-        c = (c + c.T) * 0.5
-        c.fill_diagonal_(1.0)
-        c.clamp_(-1.0, 1.0)
-        return t, c, c.abs() ** BETA
-
-    (dd, dc, dn), (td, tc, tn) = mats(xd), mats(xt)
+    sizes, labels, (xd, xt, x2) = make_cohorts(np)
+    (dd, dc, dn), (td, tc, tn) = mats(torch, xd, dev), mats(torch, xt, dev)
     torch.cuda.synchronize()
     emit({"phase": "inputs", "genes": GENES, "samples": SAMPLES,
           "modules": MODULES, "module_sizes": [int(v) for v in sizes],
@@ -415,6 +549,64 @@ def main() -> int:
           "library_note": "no single PyTorch call zeroes the rows a block "
                           "does not own, so the local entry has none",
           "card": card})
+    # ---- the ring-shift kernel against its plain version, on the row-
+    # sharded path's own blocks: both test matrices split into R = 4 blocks
+    # of 5,000 rows, every step of the ring, bit for bit; then a block whose
+    # element count is not a multiple of 4 (the tail of the vector loop) and
+    # an unaligned one (the scalar loop)
+    R = 4
+    rows_per = GENES // R
+    r_checked, ring_err = 0, 0.0
+    for M in (tc32, tn32):
+        ring = [M[r0: r0 + rows_per] for r0 in range(0, GENES, rows_per)]
+        for _step in range(R - 1):
+            got = fs.ring_shift_dma(ring)
+            want = fs.ring_shift_collective(ring)
+            for g, w in zip(got, want):
+                ring_err = max(ring_err, abs_err(g, w))
+                if not same(g, w) or g.data_ptr() == w.data_ptr():
+                    raise RuntimeError("ring shift kernel != plain")
+                r_checked += 1
+            ring = got
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    odd = [torch.randn((4999, 20001), device=dev, generator=gen)
+           for _ in range(2)]
+    flat = torch.randn(4999 * 20001 + 1, device=dev, generator=gen)
+    unaligned = [flat[1:].view(4999, 20001), odd[0]]
+    for ring in (odd, unaligned):
+        got = fs.ring_shift_dma(ring)
+        for g, w in zip(got, fs.ring_shift_collective(ring)):
+            ring_err = max(ring_err, abs_err(g, w))
+            if not same(g, w):
+                raise RuntimeError("ring shift kernel != plain (odd block)")
+            r_checked += 1
+    torch.cuda.synchronize()
+    # the loop variables still hold tn32 (1.6 GB) and two 400 MB blocks
+    del odd, flat, unaligned, ring, got, want, M, g, w
+    emit({"phase": "ring_vs_plain", "bit_equal": True,
+          "launches_checked": r_checked, "blocks": [rows_per, GENES],
+          "odd_block": [4999, 20001], "unaligned_block_checked": True,
+          "max_abs_err": ring_err})
+
+    # ---- ring times: one step of the ring (R launches, one per block) ----
+    ring = [tc32[r0: r0 + rows_per] for r0 in range(0, GENES, rows_per)]
+    dst = torch.empty_like(ring[0])
+    block_bytes = ring[0].numel() * 4
+    r_times = interleaved(lambda: fs.ring_shift_collective(ring),
+                          lambda: fs.ring_shift_dma(ring))
+    r_times = {k: v / R for k, v in r_times.items()}
+    r_times["library_ms"] = timed(lambda: [dst.copy_(b) for b in ring]) / R
+    r_times["bound_ms"] = 1e3 * 2 * block_bytes / HBM_BPS
+    r_times["nvlink_bound_ms"] = 1e3 * block_bytes / NVLINK_BPS
+    del ring, dst
+    emit({"phase": "ring_times", "unit": f"one launch: a {rows_per} x "
+          f"{GENES} float32 block copied on one card", "bytes": 2 * block_bytes,
+          "times_ms": r_times, "bound_by": "bytes",
+          "library_call": "dst.copy_(src) (a yardstick, never called by the "
+                          "port)",
+          "plain_note": "the plain version rotates the block list; on one "
+                        "card it moves no bytes",
+          "card": card})
     del engine, chunk, perm, obs, tc32, tn32, tdT, long_idx, blocks
     torch.cuda.empty_cache()
 
@@ -473,6 +665,8 @@ def main() -> int:
                   "null_held_gib": max(held) / 2**30}
         emit({"phase": phase, "store_nulls": store,
               "stat_mode": call["config"].stat_mode, "n_perm": N_PERM,
+              "mesh": None if call.get("mesh") is None
+              else call["mesh"].shape,
               "wall_s": wall, "input_s": prof["input_s"],
               "engine_s": prof["engine_s"], "observed_s": prof["observed_s"],
               "null_s": prof["null_s"], "perms_per_s": prof["perms_per_s"],
@@ -559,20 +753,87 @@ def main() -> int:
           "memory": {"stored": memory[True], "derived": memory["auto"],
                      "derived_composed": memory["xla"]}})
 
+    # ---- the row-sharded null on four row shards of the one card: the
+    # ring path (materialized, streaming, derived network) and the psum
+    # path (streaming); and the perm mesh over replicated matrices
+    def mesh_checks(phase, res, store, same_kernel=False):
+        """p-values equal to main_path's; a materialized null within TOL of
+        its null; streaming tallies equal to its streaming run's where the
+        same kernel computed them."""
+        if not np.array_equal(res.p_values, fused_run.p_values):
+            raise RuntimeError(f"{phase}: p-values differ from main_path's")
+        err = None
+        if store:
+            err = null_err(res.nulls, fused_run.nulls)
+            if err > TOL:
+                raise RuntimeError(f"{phase}: null differs from main_path's "
+                                   f"by {err}")
+        elif same_kernel:
+            stream_ref = runs[False]
+            if not all(np.array_equal(getattr(res, f),
+                                      getattr(stream_ref, f))
+                       for f in ("counts_hi", "counts_lo", "counts_eff")):
+                raise RuntimeError(f"{phase}: tallies differ from "
+                                   "main_path's streaming run")
+        return err
+
+    row_mesh = make_mesh(1, 4, devices=[dev] * 4)
+    ring_cfg = EngineConfig(matrix_sharding="row")
+    row_runs = {}
+    for label, store, config, needs in (
+            ("ring", True, ring_cfg,
+             ["ring_shift_dma", "gather_submatrix_fused_local"]),
+            ("ring", False, ring_cfg,
+             ["ring_shift_dma", "gather_submatrix_fused_local"]),
+            ("psum", False, EngineConfig(matrix_sharding="row",
+                                         stat_mode="xla"),
+             ["gather_submatrix_fused_local"]),
+            ("ring_derived", True, EngineConfig(
+                matrix_sharding="row", network_from_correlation=BETA),
+             ["ring_shift_dma", "gather_submatrix_fused_local"])):
+        res, used, mem = drive("row_sharded", needs, config=config,
+                               store_nulls=store, mesh=row_mesh)
+        if used["fused_stats_values"] or used["fused_stats_counts"]:
+            raise RuntimeError("the row-sharded path launched the "
+                               "fused-statistics kernel")
+        row_runs[(label, store)] = (used, mem,
+                                    mesh_checks(label, res, store))
+        launches[("row", label, store)] = used
+    emit({"phase": "row_sharded_check", "mesh": row_mesh.shape,
+          "p_values_equal_main": True, "tolerance": TOL,
+          "max_abs_null_vs_main": {f"{k[0]}/{'mat' if k[1] else 'stream'}":
+                                   v[2] for k, v in row_runs.items()},
+          "ring_shift_launches": {f"{k[0]}/{'mat' if k[1] else 'stream'}":
+                                  v[0]["ring_shift_dma"]
+                                  for k, v in row_runs.items()},
+          "expected_ring_launches": {"stored": 3 * 4 * 2 * 8,
+                                     "derived": 3 * 4 * 1 * 8}})
+    perm_mesh = make_mesh(2, 1, devices=[dev] * 2)
+    res, used, _ = drive("perm_mesh", ["fused_stats_counts"], config=cfg,
+                         store_nulls=False, mesh=perm_mesh)
+    mesh_checks("perm_mesh", res, False, same_kernel=True)
+    emit({"phase": "perm_mesh_check", "mesh": perm_mesh.shape,
+          "p_values_equal_main": True, "tallies_equal_main": True})
+    if torch.cuda.device_count() >= 2:
+        two = make_mesh(1, 2, devices=[torch.device("cuda", 0),
+                                       torch.device("cuda", 1)])
+        res, used, _ = drive(
+            "multi_card", ["ring_shift_dma", "gather_submatrix_fused_local"],
+            config=ring_cfg, mesh=two)
+        err = mesh_checks("multi_card", res, True)
+        emit({"phase": "multi_card", "run": True,
+              "cards": torch.cuda.device_count(), "mesh": two.shape,
+              "p_values_equal_main": True, "max_abs_null_vs_main": err})
+    else:
+        emit({"phase": "multi_card", "run": False,
+              "cards": torch.cuda.device_count()})
+
     # ---- two test cohorts on one shared permutation draw -----------------
-    # the second cohort continues the seed stream; it is built in float32 on
-    # the host to spare host memory (float64 would be 6.4 GB more)
+    # the second cohort is built in float32 on the host to spare host
+    # memory (float64 would be 6.4 GB more)
     t0 = time.perf_counter()
-    # (the first half of the modules preserved, with the discovery loadings)
-    x2 = rng.standard_normal((SAMPLES, GENES)).astype(np.float32)
-    at = 0
-    for k, sz in enumerate(sizes):
-        nodes = order[at: at + sz]
-        at += sz
-        if k < MODULES // 2:
-            x2[:, nodes] += (rng.standard_normal((SAMPLES, 1))
-                             .astype(np.float32) * loads[k])
-    t2d, t2c, t2n = [m.to(torch.float32).cpu().numpy() for m in mats(x2)]
+    t2d, t2c, t2n = [m.to(torch.float32).cpu().numpy()
+                     for m in mats(torch, x2, dev)]
     torch.cuda.empty_cache()
     emit({"phase": "second_cohort", "dtype": str(t2c.dtype),
           "seconds": time.perf_counter() - t0})
@@ -602,7 +863,20 @@ def main() -> int:
           "cohort2_modules_preserved": int(
               (multi[True]["test2"].p_values.max(axis=1)
                < 0.05 / MODULES).sum())})
-    del kw, runs, a, b, comp, der, multi, fused_run
+    # ---- the same two cohorts one pair after another -------------------
+    seq = sequential_tests(torch, np, module_preservation, tops, kw, cfg,
+                           card, dev)
+    if not np.array_equal(seq["test"].p_values, fused_run.p_values):
+        raise RuntimeError("sequential_tests: test p-values differ from "
+                           "main_path's")
+    if not np.array_equal(seq["test2"].p_values,
+                          multi[True]["test2"].p_values):
+        raise RuntimeError("sequential_tests: test2 p-values differ from "
+                           "multi_test's cohort 2")
+    emit({"phase": "sequential_tests_check",
+          "test_p_equal_main_path": True,
+          "test2_p_equal_multi_test_cohort2": True})
+    del kw, runs, a, b, comp, der, multi, fused_run, res, seq
     del dd, dc, dn, td, tc, tn, t2d, t2c, t2n
     torch.cuda.empty_cache()
 
@@ -635,6 +909,7 @@ def main() -> int:
 
     stats_src = "netrep_tpu_torch/csrc/fused_stats.cu"
     gather_src = "netrep_tpu_torch/csrc/fused_gather.cu"
+    ring_used = launches[("row", "ring", True)]
     rows = [
         {"name": name, "route": "cuda", "source": stats_src,
          "replaces": f"netrep_tpu/ops/fused_stats.py:{line}",
@@ -657,9 +932,18 @@ def main() -> int:
         for name, line, path, note in (
             ("gather_submatrix_fused", 290, ("composed", True),
              "composed_path store_nulls=True"),
-            ("gather_submatrix_fused_local", 319, None,
-             "none yet: its path, the row-sharded null, is not ported"))
+            ("gather_submatrix_fused_local", 319, ("row", "ring", True),
+             "row_sharded ring store_nulls=True"))
     ]
+    rows.append(
+        {"name": "ring_shift_dma", "route": "cuda",
+         "source": "netrep_tpu_torch/csrc/ring_shift.cu",
+         "replaces": "netrep_tpu/ops/fused_stats.py:414",
+         "launches": ring_used["ring_shift_dma"], "max_abs_err": ring_err,
+         "ms": r_times["ms"], "plain_ms": r_times["plain_ms"],
+         "bound_ms": r_times["bound_ms"], "bound_by": "bytes",
+         "library_ms": r_times["library_ms"],
+         "path": "row_sharded ring store_nulls=True"})
     emit({"kernels": rows})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
@@ -669,4 +953,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(sequential_only() if sys.argv[1:] == ["--sequential-tests"]
+             else main())

@@ -6,8 +6,9 @@ go to the run's device anyway, so the symmetry, finiteness and range checks
 run there, in float64, with the same comparison as ``np.allclose``
 (``|a - b| <= atol + rtol * |b|``, ``rtol=1e-5``, ``atol=1e-8``). At
 genome scale the host version of these checks costs minutes; on the card
-they cost well under a second. A :class:`Dataset` holds float32 tensors on
-the device, which is the precision the engine runs in.
+they cost well under a second. A :class:`Dataset` comes out of the checks
+holding float32 tensors on the device, the precision the engine runs in;
+:func:`place` then moves each matrix to where the call next needs it.
 """
 
 from __future__ import annotations
@@ -31,11 +32,16 @@ _SYM_RTOL = 1e-5
 _SYM_BLOCK = 2048
 
 
+#: the matrices a :class:`Dataset` holds
+FIELDS = ("correlation", "network", "data")
+
+
 @dataclasses.dataclass
 class Dataset:
-    """One dataset's aligned matrices, as float32 tensors on the run's
-    device: ``correlation`` and ``network`` ``(n, n)``, ``data``
-    ``(n_samples, n)`` or None (data-less variant)."""
+    """One dataset's aligned matrices, as float32 tensors: ``correlation``
+    and ``network`` ``(n, n)``, ``data`` ``(n_samples, n)`` or None
+    (data-less variant). :func:`build_datasets` leaves them on the run's
+    device; :func:`place` may move one to the host or let it go (None)."""
 
     name: str
     correlation: torch.Tensor
@@ -188,6 +194,28 @@ def build_datasets(network, data=None, correlation=None,
             sample_names=samp_names,
         )
     return out
+
+
+def place(datasets: dict[str, Dataset], now: Mapping[str, set],
+          later: Mapping[str, set], device) -> None:
+    """Put each dataset matrix where the call needs it next: the
+    ``FIELDS`` named in ``now[name]`` on ``device``, those only in
+    ``later[name]`` on the host (float32, for a later pair), and every
+    other one released (set to None). A tensor an engine holds stays alive
+    through the engine's own reference; a released one the engine does not
+    hold is freed, so while a pair's null runs the device holds only what
+    its engine reads."""
+    for name, d in datasets.items():
+        for field in FIELDS:
+            t = getattr(d, field)
+            if t is None:
+                continue
+            if field in now.get(name, ()):
+                setattr(d, field, t.to(device))
+            elif field in later.get(name, ()):
+                setattr(d, field, t.cpu())
+            else:
+                setattr(d, field, None)
 
 
 def normalize_module_assignments(

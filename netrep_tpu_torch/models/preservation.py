@@ -6,8 +6,18 @@ The port of the dense path of ``netrep_tpu/models/preservation.py``, with
 the same argument names and defaults and the same seeding contract (same
 seed ⇒ the same permutations, counts and p-values as the JAX package),
 including ``vmap_tests`` (one discovery against several test cohorts on a
-shared permutation draw, :mod:`netrep_tpu_torch.parallel.multitest`). Runs
+shared permutation draw, :mod:`netrep_tpu_torch.parallel.multitest`) and
+``mesh`` (the null split over a grid of devices, with the test matrices
+replicated or split by rows, :mod:`netrep_tpu_torch.parallel.mesh`). Runs
 on the card unless ``device="cpu"`` is passed.
+
+Device memory: the input checks run on the device, after which the
+datasets hand their matrices to the engines pair by pair
+(:func:`~netrep_tpu_torch.models.dataset.place`). While a pair's null runs
+the device holds only what that pair's engine reads — the test
+correlation, the test network unless ``network_from_correlation`` derives
+it, the test data — and no discovery matrix; a matrix a later pair needs
+waits in host memory as float32.
 """
 
 from __future__ import annotations
@@ -21,9 +31,12 @@ import numpy as np
 import torch
 
 from ..ops import pvalues as pv
-from ..parallel.engine import ModuleSpec, PermutationEngine
+from ..parallel import mesh as tmesh
+from ..parallel.engine import (
+    ModuleSpec, PermutationEngine, build_discovery, check_derived_network,
+)
 from ..parallel.multitest import MultiTestEngine
-from ..utils.config import EngineConfig, resolve_device
+from ..utils.config import EngineConfig
 from . import dataset as ds
 from .results import PreservationResult, shape_results
 
@@ -33,7 +46,6 @@ logger = logging.getLogger("netrep_tpu_torch")
 #: port, with the ROADMAP.md Queue 1 item that brings each
 _LATER = {
     "adaptive": (False, "item 8 (adaptive nulls)"),
-    "mesh": (None, "item 14 (mesh and sharding)"),
     "checkpoint_dir": (None, "item 7 (checkpoint/resume)"),
     "telemetry": (None, "item 16 (device-touching utils and CLI)"),
     "fault_policy": (None, "item 16 (device-touching utils and CLI)"),
@@ -164,20 +176,37 @@ def module_preservation(
       share one node universe and agree on data presence runs them in one
       multi-test engine on one shared permutation draw; each pair's result
       is the one its own run gives with the same seed. Otherwise the pairs
-      run one after another, with a warning.
+      run one after another, with a warning. With a ``mesh`` it raises
+      ``NotImplementedError`` for a group of several cohorts (the
+      multi-test engine on a mesh is a later slice);
+    - ``mesh`` — optional :class:`~netrep_tpu_torch.parallel.mesh.Mesh`
+      (:func:`~netrep_tpu_torch.parallel.mesh.make_mesh`); permutation
+      chunks are split across the mesh's ``perm`` axis, and with
+      ``config.matrix_sharding='row'`` the n×n matrices are split by rows
+      over its row axis, with module gathers assembled from the row
+      blocks. Same seed ⇒ the same permutations, counts and p-values at
+      every mesh shape. A mesh of cards needs ``device`` None or
+      ``"cuda"``; a CPU mesh needs ``device="cpu"``.
 
     ``result.profile`` holds the seconds of each phase: ``input_s`` (input
-    checks, shared by every pair), ``engine_s``, ``observed_s``, ``null_s``
-    and ``perms_per_s`` (shared by the pairs of one multi-test run).
+    checks, shared by every pair), ``engine_s`` (the pair's discovery side,
+    built for every pair before the first null, then its test matrices put
+    on the device and its engine built), ``observed_s``, ``null_s`` and
+    ``perms_per_s`` (shared by the pairs of one multi-test run).
 
-    ``adaptive``, ``mesh``, ``checkpoint_dir``, ``telemetry``,
-    ``fault_policy``, ``data_only`` and ``backend='native'`` belong to later
-    slices and raise ``NotImplementedError``.
+    Device memory: every pair's discovery side is built first; then, while
+    a pair's null runs, the device holds only what that pair's engine
+    reads. A test matrix that a later pair needs waits on the host as
+    float32 meanwhile, and goes back to the device for that pair.
+
+    ``adaptive``, ``checkpoint_dir``, ``telemetry``, ``fault_policy``,
+    ``data_only`` and ``backend='native'`` belong to later slices and raise
+    ``NotImplementedError``.
 
     Returns ``{discovery: {test: PreservationResult}}``, collapsed by
     ``simplify``.
     """
-    given = dict(adaptive=adaptive, mesh=mesh, checkpoint_dir=checkpoint_dir,
+    given = dict(adaptive=adaptive, checkpoint_dir=checkpoint_dir,
                  telemetry=telemetry, fault_policy=fault_policy,
                  data_only=data_only)
     for name, (default, item) in _LATER.items():
@@ -199,7 +228,7 @@ def module_preservation(
             "alternative must be one of 'greater', 'less', 'two.sided', "
             f"got {alternative!r}"
         )
-    dev = resolve_device(device)
+    dev = tmesh.resolve_device(mesh, device)
     config = config or EngineConfig()
 
     t0 = time.perf_counter()
@@ -223,7 +252,10 @@ def module_preservation(
     for d_name, t_name in pairs:
         by_disc.setdefault(d_name, []).append(t_name)
 
-    results: dict[str, dict[str, PreservationResult]] = {}
+    # every group's discovery side first, while every dataset is still on
+    # the device (one multi-test engine for a group of cohorts, or one
+    # engine a pair): after it no discovery matrix is read again
+    plan = []
     for d_name, t_names in by_disc.items():
         disc_ds = datasets[d_name]
         can_vmap = (
@@ -233,6 +265,12 @@ def module_preservation(
                     for t in t_names)
             and len({datasets[t].data is not None for t in t_names}) == 1
         )
+        if can_vmap and mesh is not None:
+            raise NotImplementedError(
+                "vmap_tests=True with a mesh is not ported yet: ROADMAP.md "
+                "Queue 1 item 14 (the multi-test engine on a mesh); run the "
+                "cohorts without vmap_tests or without a mesh"
+            )
         if vmap_tests and not can_vmap and len(t_names) > 1:
             logger.warning(
                 "vmap_tests requested but unavailable (requires the default "
@@ -240,64 +278,89 @@ def module_preservation(
                 "must share a node universe and agree on data presence); "
                 "falling back to sequential pairs", t_names,
             )
-        # one multi-test engine for the whole group, or one engine a pair
         for group in ([t_names] if can_vmap else [[t] for t in t_names]):
-            multi = len(group) > 1
             test_ds = datasets[group[0]]
-            labels, mod_specs, counts, pool = _overlap_setup(
-                disc_ds, test_ds, assign[d_name], modules, background_label,
-                null
-            )
             with_data = disc_ds.data is not None and test_ds.data is not None
-            np_this = n_perm if n_perm is not None else auto_n_perm(labels,
-                                                                    with_data)
+            setup = _overlap_setup(disc_ds, test_ds, assign[d_name], modules,
+                                   background_label, null)
             t1 = time.perf_counter()
-            if multi:
-                engine = MultiTestEngine(
-                    disc_ds.correlation, disc_ds.network, disc_ds.data,
-                    [datasets[t].correlation for t in group],
-                    [datasets[t].network for t in group],
-                    [datasets[t].data for t in group] if with_data else None,
-                    mod_specs, pool, config=config, device=dev,
-                )
-            else:
-                engine = PermutationEngine(
-                    disc_ds.correlation, disc_ds.network, disc_ds.data,
-                    test_ds.correlation, test_ds.network, test_ds.data,
-                    mod_specs, pool, config=config, device=dev,
-                )
-            _sync(dev)
-            t2 = time.perf_counter()
-            observed = engine.observed()
-            t3 = time.perf_counter()
-            if store_nulls:
-                nulls, completed = engine.run_null(np_this, key=seed,
-                                                   progress=progress)
-                stream = None
-            else:
-                stream = engine.run_null_streaming(np_this, observed,
-                                                   key=seed,
-                                                   progress=progress)
-                nulls, completed = None, stream.completed
-            t4 = time.perf_counter()
-            profile = dict(
-                input_s=input_s, engine_s=t2 - t1, observed_s=t3 - t2,
-                null_s=t4 - t3, perms_per_s=completed / max(t4 - t3, 1e-12),
+            buckets = build_discovery(
+                disc_ds.correlation, disc_ds.network,
+                disc_ds.data if with_data else None, setup[1], setup[3],
+                config, dev, mesh,
             )
-            total_space = pv.total_permutations(pool.size,
-                                                [m.size for m in mod_specs])
-            for ti, t_name in enumerate(group):
-                def pick(a):
-                    # a multi-test run carries the cohort axis first
-                    return a[ti] if multi and a is not None else a
+            _sync(dev)
+            fields = {"correlation", "network"} | ({"data"} if with_data
+                                                    else set())
+            plan.append((d_name, group, with_data, setup, buckets, fields,
+                         time.perf_counter() - t1))
 
-                results.setdefault(d_name, {})[t_name] = _make_result(
-                    d_name, t_name, labels, counts, pick(observed),
-                    pick(nulls), completed, np_this, alternative,
-                    total_space, profile=profile,
-                    stream=stream if stream is None or not multi
-                    else dataclasses.replace(stream, hi=stream.hi[ti],
-                                             lo=stream.lo[ti],
-                                             eff=stream.eff[ti]),
-                )
+    results: dict[str, dict[str, PreservationResult]] = {}
+    for gi, (d_name, group, with_data, (labels, mod_specs, counts, pool),
+             buckets, fields, disc_s) in enumerate(plan):
+        # the group's test matrices on the device; those of a later group
+        # wait on the host; the rest (every discovery-only matrix) go
+        later: dict[str, set] = {}
+        for _d, g, *_, f, _s in plan[gi + 1:]:
+            for t in g:
+                later.setdefault(t, set()).update(f)
+        multi = len(group) > 1
+        np_this = n_perm if n_perm is not None else auto_n_perm(labels,
+                                                                with_data)
+        t1 = time.perf_counter()
+        ds.place(datasets, {t: fields for t in group}, later, dev)
+        tests = [datasets[t] for t in group]
+        if config.network_from_correlation is not None:
+            for i, t in enumerate(tests):
+                check_derived_network(t.correlation, t.network,
+                                      config.network_from_correlation,
+                                      f"test[{i}]" if multi else "test")
+        parts = (pool, buckets, len(mod_specs), config, dev)
+        if multi:
+            engine = MultiTestEngine.from_parts(
+                [t.correlation for t in tests], [t.network for t in tests],
+                [t.data.T for t in tests] if with_data else None, *parts,
+            )
+        else:
+            engine = PermutationEngine.from_parts(
+                tests[0].correlation, tests[0].network,
+                tests[0].data.T if with_data else None, *parts, mesh=mesh,
+            )
+        # the engine holds what its null reads; the datasets let go of the
+        # rest (a matrix of a later group waits on the host)
+        ds.place(datasets, {}, later, dev)
+        _sync(dev)
+        t2 = time.perf_counter()
+        observed = engine.observed()
+        t3 = time.perf_counter()
+        if store_nulls:
+            nulls, completed = engine.run_null(np_this, key=seed,
+                                               progress=progress)
+            stream = None
+        else:
+            stream = engine.run_null_streaming(np_this, observed, key=seed,
+                                               progress=progress)
+            nulls, completed = None, stream.completed
+        t4 = time.perf_counter()
+        del engine
+        profile = dict(
+            input_s=input_s, engine_s=disc_s + t2 - t1, observed_s=t3 - t2,
+            null_s=t4 - t3, perms_per_s=completed / max(t4 - t3, 1e-12),
+        )
+        total_space = pv.total_permutations(pool.size,
+                                            [m.size for m in mod_specs])
+        for ti, t_name in enumerate(group):
+            def pick(a):
+                # a multi-test run carries the cohort axis first
+                return a[ti] if multi and a is not None else a
+
+            results.setdefault(d_name, {})[t_name] = _make_result(
+                d_name, t_name, labels, counts, pick(observed),
+                pick(nulls), completed, np_this, alternative,
+                total_space, profile=profile,
+                stream=stream if stream is None or not multi
+                else dataclasses.replace(stream, hi=stream.hi[ti],
+                                         lo=stream.lo[ti],
+                                         eff=stream.eff[ti]),
+            )
     return shape_results(results, simplify)

@@ -1,5 +1,5 @@
-"""Statistics, the port's kernels (fused statistics, submatrix gather) and
-p-values."""
+"""Statistics, the port's kernels (fused statistics, submatrix gather, ring
+shift) and p-values."""
 
 from .. import utils  # noqa: F401  (pins full-float32 matrix products)
 

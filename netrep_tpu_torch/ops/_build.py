@@ -22,6 +22,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
+#: every kernel source of the port, built together by :func:`build`
+SOURCES = ("fused_stats", "fused_gather", "ring_shift")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "netrep_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

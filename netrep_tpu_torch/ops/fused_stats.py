@@ -24,6 +24,17 @@ Contracts, as in the JAX package:
 Each wrapper counts its kernel launches in a plain integer attribute
 (``fused_stats_values.launches``), so a run can show its path went through
 the kernel; the plain version and the CPU path never count.
+
+The ring exchange of the row-sharded path lives here too, as in the JAX
+module: :func:`ring_shift_dma` (``csrc/ring_shift.cu``, one launch per
+block moved), its plain version :func:`ring_shift_collective`, and
+:func:`ring_gather_all`, which assembles module submatrices by streaming
+the row blocks around the ring. One process drives every shard, so a ring
+step is a list of blocks in and a list out. On a CUDA tensor the step is
+always the kernel: the JAX package's ``NETREP_RING_DMA`` switch is not
+read, because both of its routes compute the same exact copy and its
+collective route is the stand-in its CPU tests run; here that stand-in is
+the plain version, for CPU tensors only.
 """
 
 from __future__ import annotations
@@ -43,6 +54,7 @@ _NWARP = _NT // 32
 _NQ_MAX = 8
 _NET_KIND = {"unsigned": 0, "signed": 1, "signed-hybrid": 2}
 _SOURCE = "fused_stats"
+_RING_SOURCE = "ring_shift"
 
 
 def resolve_smem_bytes(cap: int, s: int, has_data: bool) -> int:
@@ -228,8 +240,155 @@ def fused_stats_counts(tc, tn, tdT, disc, idx, pvalid, obs, *, net_beta=None,
     return vals, hi, lo, eff
 
 
+# ---------------------------------------------------------------------------
+# Ring exchange (row-sharded path)
+# ---------------------------------------------------------------------------
+
+def ring_shift_collective(blocks, devices=None) -> list:
+    """Plain version of :func:`ring_shift_dma`: rotate the ring's block
+    list by one, so that shard j's block ends at shard ``j + 1`` (mod R) —
+    what ``lax.ppermute`` with ``perm=[(j, (j + 1) % R)]`` does in the JAX
+    package. ``devices[j]`` is shard j's device (default: where each block
+    lies); a block already there is not copied."""
+    R = len(blocks)
+    devices = [b.device for b in blocks] if devices is None else devices
+    return [blocks[(j - 1) % R].to(devices[j]) for j in range(R)]
+
+
+_RING_DECLARED = False
+_PEERS: set[tuple[int, int]] = set()
+
+
+def _ring_lib():
+    global _RING_DECLARED
+    lib = load(_RING_SOURCE)
+    if not _RING_DECLARED:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.ring_shift_launch.argtypes = [p, p, ctypes.c_longlong, i, p]
+        lib.ring_shift_launch.restype = i
+        lib.ring_shift_enable_peer.argtypes = [i, i]
+        lib.ring_shift_enable_peer.restype = i
+        lib.ring_shift_error_string.argtypes = [i]
+        lib.ring_shift_error_string.restype = ctypes.c_char_p
+        _RING_DECLARED = True
+    return lib
+
+
+def _enable_peer(lib, src: int, dst: int) -> None:
+    """Let card ``src`` store into card ``dst``, once per pair; raise when
+    the pair has no peer path (the ring never copies through the host)."""
+    if (src, dst) in _PEERS:
+        return
+    rc = lib.ring_shift_enable_peer(src, dst)
+    if rc == -1:
+        raise RuntimeError(
+            f"cards cuda:{src} and cuda:{dst} cannot reach each other's "
+            "memory (cudaDeviceCanAccessPeer is false): a mesh across them "
+            "cannot run the row ring"
+        )
+    if rc != 0:
+        msg = lib.ring_shift_error_string(rc).decode()
+        raise RuntimeError(f"enabling peer access failed: {msg} ({rc})")
+    _PEERS.add((src, dst))
+
+
+def _ring_launch(src: torch.Tensor, dst_dev: torch.device) -> torch.Tensor:
+    """One kernel launch: a copy of ``src`` in a new buffer on ``dst_dev``,
+    written by the source card."""
+    _check(src, "block", torch.float32, tuple(src.shape), src.device)
+    lib = _ring_lib()
+    cross = dst_dev != src.device
+    if cross:
+        _enable_peer(lib, src.device.index, dst_dev.index)
+    dst = torch.empty(src.shape, dtype=src.dtype, device=dst_dev)
+    s_src = torch.cuda.current_stream(src.device)
+    if cross:
+        # the source card writes dst only once the destination stream is
+        # done with whatever last used that memory
+        s_dst = torch.cuda.current_stream(dst_dev)
+        ready = torch.cuda.Event()
+        ready.record(s_dst)
+        s_src.wait_event(ready)
+    rc = lib.ring_shift_launch(src.data_ptr(), dst.data_ptr(), src.numel(),
+                               src.device.index, s_src.cuda_stream)
+    if rc != 0:
+        msg = lib.ring_shift_error_string(rc).decode()
+        raise RuntimeError(f"ring_shift kernel launch failed: {msg} ({rc})")
+    if cross:
+        # the counterpart of the send/recv semaphores: the destination card
+        # reads the block only after the copy
+        sent = torch.cuda.Event()
+        sent.record(s_src)
+        s_dst.wait_event(sent)
+    return dst
+
+
+def ring_shift_dma(blocks, devices=None) -> list:
+    """One ring step: shard j's ``(rows_per, n)`` float32 block copied into
+    a new buffer on shard ``j + 1``'s device (mod R) by the hand-written
+    kernel, one launch per block, each counted in
+    ``ring_shift_dma.launches``; returns the new list, shard by shard.
+    ``devices[j]`` is shard j's device (default: where each block lies).
+    CPU blocks run the plain version; CUDA blocks launch the kernel or
+    raise — across cards without peer access too."""
+    R = len(blocks)
+    devices = [b.device for b in blocks] if devices is None else [
+        torch.device(d) for d in devices]
+    types = {b.device.type for b in blocks} | {d.type for d in devices}
+    if types == {"cpu"}:
+        return ring_shift_collective(blocks, devices)
+    if types != {"cuda"}:
+        raise ValueError(
+            f"ring_shift_dma needs every block and shard on CUDA cards (or "
+            f"all on the CPU), got {sorted(types)}"
+        )
+    out = [None] * R
+    for j, blk in enumerate(blocks):
+        out[(j + 1) % R] = _ring_launch(blk, devices[(j + 1) % R])
+        ring_shift_dma.launches += 1
+    return out
+
+
+def ring_gather_all(mats, idx_lists, rows_per: int, devices=None) -> list:
+    """Assemble full ``(..., cap, cap)`` submatrices from row-sharded
+    matrices by streaming the row blocks around one ring of R shards (the
+    JAX package's ``ring_gather_all``, for every shard of the ring at
+    once). At step t shard j holds the block first owned by shard ``(j -
+    t) mod R`` and adds its local-gather share
+    (:func:`~netrep_tpu_torch.ops.fused_gather.gather_submatrix_fused_local`)
+    for every bucket's index set and every matrix; then the blocks move one
+    shard on (:func:`ring_shift_dma`). After R steps every entry has
+    received exactly one nonzero share, so the assembly is exact — equal to
+    the replicated gather bit for bit. Each step's blocks replace the
+    previous step's, which are then free.
+
+    ``mats``: one list of R blocks per matrix, block j ``(rows_per, n)``
+    holding global rows ``[j * rows_per, (j + 1) * rows_per)`` on shard j;
+    ``idx_lists[j]``: shard j's ``(..., cap)`` GLOBAL index batch per
+    bucket, on its device; ``devices[j]``: shard j's device. Returns
+    ``subs[j][mat][bucket]`` on shard j's device."""
+    from .fused_gather import gather_submatrix_fused_local
+
+    R = len(idx_lists)
+    subs = [[[None] * len(ix) for _ in mats] for ix in idx_lists]
+    rings = [list(m) for m in mats]
+    for t in range(R):
+        for j in range(R):
+            row_start = ((j - t) % R) * rows_per
+            for mi, ring in enumerate(rings):
+                for bi, idx in enumerate(idx_lists[j]):
+                    part = gather_submatrix_fused_local(ring[j], idx,
+                                                        row_start)
+                    acc = subs[j][mi][bi]
+                    subs[j][mi][bi] = part if acc is None else acc.add_(part)
+        if t < R - 1:
+            rings = [ring_shift_dma(ring, devices) for ring in rings]
+    return subs
+
+
 fused_stats_values.launches = 0
 fused_stats_counts.launches = 0
+ring_shift_dma.launches = 0
 
 #: the wrappers whose ``launches`` attribute counts kernel launches
-KERNELS = (fused_stats_values, fused_stats_counts)
+KERNELS = (fused_stats_values, fused_stats_counts, ring_shift_dma)

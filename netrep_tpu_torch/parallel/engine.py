@@ -25,14 +25,28 @@ The port of the main path of ``netrep_tpu/parallel/engine.py``'s
   tallies, folded on the device in int32;
 - with ``network_from_correlation`` the engine stores no test network:
   network submatrices derive from the gathered correlation
-  (:func:`check_derived_network` first checks the supplied networks).
+  (:func:`check_derived_network` first checks the supplied networks);
+- with a ``mesh`` (:mod:`netrep_tpu_torch.parallel.mesh`) the chunk splits
+  over its shards (:func:`~netrep_tpu_torch.parallel.sharded.chunk_shards`)
+  and each shard runs on its device, one after another from this process.
+  Replicated matrices (``matrix_sharding='replicated'``): each perm shard
+  runs the body above on its slice (the JAX package's perm-axis
+  ``shard_map``). Row-sharded matrices (``'row'``) are held only as row
+  blocks; ``stat_mode='fused'`` then takes the ring path (the chunk splits
+  over perm × row, each shard streams the blocks around its ring —
+  :func:`~netrep_tpu_torch.ops.fused_stats.ring_gather_all` — and computes
+  the composed statistics on its slice), ``'xla'`` the psum path (each
+  perm shard's composed body gathers by summing the row blocks' shares).
+  The observed pass and the discovery side of a row-sharded engine gather
+  by that sum too.
 
-Checkpoints, fault handling, telemetry, meshes, the screened and adaptive
-nulls are later slices (ROADMAP.md, Queue 1).
+Checkpoints, fault handling, telemetry, the multi-test engine on a mesh,
+the screened and adaptive nulls are later slices (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Callable, Sequence
 
@@ -42,9 +56,17 @@ import torch
 from .. import random as trandom
 from ..ops import stats as tstats
 from ..ops.fused_gather import gather_submatrix_fused
-from ..ops.fused_stats import fused_stats_counts, fused_stats_values
+from ..ops.fused_stats import (
+    fused_stats_counts, fused_stats_values, ring_gather_all,
+)
 from ..ops.oracle import N_STATS
-from ..utils.config import EngineConfig, resolve_device
+from ..utils.config import EngineConfig
+from . import mesh as tmesh
+from .mesh import PERM_AXIS, ROW_AXIS, Mesh
+from .sharded import (
+    chunk_shards, gather_corr_net, make_sharded_gatherer,
+    pad_square_to_multiple, shard_rows,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -189,13 +211,17 @@ def _idx_blocks(perm: torch.Tensor, cap: int, slices) -> torch.Tensor:
 
 
 def build_buckets(disc_corr, disc_net, disc_data, modules, pool,
-                  config: EngineConfig, dev) -> list[dict]:
+                  config: EngineConfig, dev, mesh: Mesh | None = None
+                  ) -> list[dict]:
     """Bucket the modules by capacity and compute each bucket's
     discovery-side properties (exact ``eigh`` summary): the buckets
     :meth:`PermutationEngine.from_parts` takes. Raises on a module with
     fewer than two nodes or module sizes beyond the pool. With
     ``config.network_from_correlation`` the discovery network submatrices
-    derive from the gathered correlation and ``disc_net`` is not read."""
+    derive from the gathered correlation and ``disc_net`` is not read. With
+    a ``mesh`` (one perm row of a row-sharded engine's) the discovery
+    matrices are split by rows over it and gathered by the sum of the row
+    blocks' shares, as the JAX package's row-sharded engine does."""
     modules = list(modules)
     sizes = [m.size for m in modules]
     if min(sizes, default=1) < 2:
@@ -214,6 +240,20 @@ def build_buckets(disc_corr, disc_net, disc_data, modules, pool,
     dc = _as_f32(disc_corr, dev)
     dn = None if net_beta is not None else _as_f32(disc_net, dev)
     dd = None if disc_data is None else _as_f32(disc_data, dev)
+    if mesh is not None:
+        R = mesh.shape[ROW_AXIS]
+        gather = make_sharded_gatherer(mesh)
+        dc = shard_rows(pad_square_to_multiple(dc, R), mesh)
+        dn = None if dn is None else shard_rows(
+            pad_square_to_multiple(dn, R), mesh)
+
+        def submatrices(didx):
+            return gather_corr_net(gather, dc, dn, didx, net_beta)
+    else:
+        def submatrices(didx):
+            sub_c = tstats.gather_submatrix(dc, didx)
+            return sub_c, (tstats.derived_net(sub_c, net_beta) if dn is None
+                           else tstats.gather_submatrix(dn, didx))
     offsets = np.concatenate([[0], np.cumsum(sizes)])
     by_cap: dict[int, list[int]] = {}
     for k, m in enumerate(modules):
@@ -228,11 +268,8 @@ def build_buckets(disc_corr, disc_net, disc_data, modules, pool,
         mask = np.zeros((len(pos), cap), np.float32)
         for r, k in enumerate(pos):
             mask[r, : modules[k].size] = 1.0
-        sub_c = tstats.gather_submatrix(dc, didx)
         disc = tstats.make_disc_props(
-            sub_c,
-            tstats.derived_net(sub_c, net_beta) if dn is None
-            else tstats.gather_submatrix(dn, didx),
+            *submatrices(didx),
             dd[:, didx].permute(1, 0, 2) if dd is not None else None,
             torch.as_tensor(mask, device=dev),
         )
@@ -246,18 +283,21 @@ def build_buckets(disc_corr, disc_net, disc_data, modules, pool,
 
 
 def _run_chunks(key, n_perm: int, C: int, chunk: Callable, write: Callable,
-                progress) -> int:
+                progress, full: bool = False) -> int:
     """The materialized null loop: ``chunk(keys)`` for permutations
-    ``[start, start + C)``, ``write(outs, start, take)`` once they land.
-    Chunk k+1 is enqueued before chunk k is copied back, so the device
-    works while the host waits on the copy."""
+    ``[start, start + C)``, ``write(outs, start, take)`` once they land
+    (``outs`` may run past ``take``: with ``full`` every chunk, the tail
+    too, draws all ``C`` keys, so that a mesh splits it evenly). Chunk k+1
+    is enqueued before chunk k is copied back, so the device works while
+    the host waits on the copy."""
     pending = None
     completed = 0
     for start in list(range(0, n_perm, C)) + [None]:
         nxt = None
         if start is not None:
             take = min(C, n_perm - start)
-            nxt = (chunk(trandom.perm_keys(key, start, take)), start, take)
+            nxt = (chunk(trandom.perm_keys(key, start, C if full else take)),
+                   start, take)
         if pending is not None:
             outs, at, take_p = pending
             write(outs, at, take_p)
@@ -300,6 +340,39 @@ def root_key(key, device) -> trandom.ThreefryKey:
     return trandom.key(int(key), device=device)
 
 
+def _check_sharding(config: EngineConfig, mesh: Mesh | None) -> bool:
+    """Whether the engine row-shards its test matrices; raises the JAX
+    package's errors for an unknown ``matrix_sharding`` or ``'row'``
+    without a mesh."""
+    if config.matrix_sharding not in ("replicated", "row"):
+        raise ValueError(
+            f"matrix_sharding must be 'replicated' or 'row', got "
+            f"{config.matrix_sharding!r}"
+        )
+    if config.matrix_sharding == "row" and mesh is None:
+        raise ValueError("matrix_sharding='row' requires a mesh")
+    return mesh is not None and config.matrix_sharding == "row"
+
+
+def build_discovery(disc_corr, disc_net, disc_data, modules, pool,
+                    config: EngineConfig, dev, mesh: Mesh | None = None
+                    ) -> list[dict]:
+    """The discovery half of an engine build: the buckets of
+    :func:`build_buckets`, after the checks that come first (the
+    ``matrix_sharding`` knob against ``mesh``; with
+    ``config.network_from_correlation`` the discovery network against the
+    construction). On a row-sharded mesh the discovery matrices are
+    gathered through perm shard 0's row blocks. Once every pair's buckets
+    exist, no discovery matrix is read again (``from_parts`` takes them)."""
+    row = _check_sharding(config, mesh)
+    net_beta = config.network_from_correlation
+    if net_beta is not None:
+        check_derived_network(disc_corr, disc_net, net_beta, "discovery")
+    return build_buckets(disc_corr, disc_net, disc_data, modules,
+                         np.asarray(pool, dtype=np.int32), config, dev,
+                         mesh=mesh.perm_row(0) if row else None)
+
+
 class PermutationEngine:
     """Permutation-null engine for one (discovery, test) dataset pair.
 
@@ -311,52 +384,58 @@ class PermutationEngine:
     test_data : (n_samples_t, n_t) test data, or None.
     modules : ordered module specs (global module order = this order).
     pool : candidate test-node indices the null draws from.
-    config : engine knobs (``stat_mode`` and ``network_from_correlation``
-        choose the null's path).
+    config : engine knobs (``stat_mode``, ``network_from_correlation`` and
+        ``matrix_sharding`` choose the null's path).
     device : where the engine's operands live and its kernels run; None
-        means ``"cuda"`` (raises without a card).
+        means ``"cuda"`` (raises without a card). With a mesh it names the
+        mesh's device type, and the operands go to the mesh's devices.
+    mesh : optional :class:`~netrep_tpu_torch.parallel.mesh.Mesh`;
+        permutation chunks split over the ``perm`` axis (and, on the
+        ring path, over the row axis too).
 
     Inputs may be numpy arrays or tensors; they are copied to the device as
-    float32. With ``config.network_from_correlation`` both networks are
-    checked against the construction (:func:`check_derived_network`) and
-    only the correlations are kept.
+    float32 (a float32 tensor already there is used as it is). With
+    ``config.network_from_correlation`` both networks are checked against
+    the construction (:func:`check_derived_network`) and only the
+    correlations are kept.
     """
 
     def __init__(self, disc_corr, disc_net, disc_data, test_corr, test_net,
                  test_data, modules: Sequence[ModuleSpec], pool,
-                 config: EngineConfig = EngineConfig(), device=None):
-        dev = resolve_device(device)
+                 config: EngineConfig = EngineConfig(), device=None,
+                 mesh: Mesh | None = None):
+        dev = tmesh.resolve_device(mesh, device)
         modules = list(modules)
         has_data = disc_data is not None and test_data is not None
         net_beta = config.network_from_correlation
-        if net_beta is not None:
-            check_derived_network(disc_corr, disc_net, net_beta, "discovery")
-            check_derived_network(test_corr, test_net, net_beta, "test")
         pool = np.asarray(pool, dtype=np.int32)
-        buckets = build_buckets(disc_corr, disc_net,
-                                disc_data if has_data else None, modules,
-                                pool, config, dev)
+        buckets = build_discovery(disc_corr, disc_net,
+                                  disc_data if has_data else None, modules,
+                                  pool, config, dev, mesh)
+        if net_beta is not None:
+            check_derived_network(test_corr, test_net, net_beta, "test")
         # the test data is kept TRANSPOSED, (n, n_samples): a module's data
         # slice is then a gather of contiguous rows
         self._setup(
             _as_f32(test_corr, dev),
             None if net_beta is not None else _as_f32(test_net, dev),
             _as_f32(test_data, dev).T if has_data else None,
-            pool, buckets, len(modules), config, dev,
+            pool, buckets, len(modules), config, dev, mesh,
         )
         self.modules = modules
 
     @classmethod
     def from_parts(cls, test_corr, test_net, test_dataT, pool, buckets,
                    n_modules: int, config: EngineConfig = EngineConfig(),
-                   device=None) -> "PermutationEngine":
+                   device=None, mesh: Mesh | None = None
+                   ) -> "PermutationEngine":
         """An engine from its device operands directly (see
         :mod:`netrep_tpu_torch.state`): ``buckets`` is a list of dicts with
         ``cap``, ``module_pos``, ``disc`` (:class:`DiscProps`), ``obs_idx``
         ``(K, cap)`` and ``slices``. ``test_net`` is not read when
         ``config.network_from_correlation`` is set."""
         self = cls.__new__(cls)
-        dev = resolve_device(device)
+        dev = tmesh.resolve_device(mesh, device)
 
         def f32(a):
             return _as_f32(a, dev)
@@ -369,12 +448,13 @@ class PermutationEngine:
             np.asarray(pool, dtype=np.int32),
             [dict(b, disc=tstats.DiscProps(*(f32(a) for a in b["disc"])))
              for b in buckets],
-            n_modules, config, dev,
+            n_modules, config, dev, mesh,
         )
         self.modules = None
         return self
 
-    def _setup(self, tc, tn, tdT, pool, buckets, n_modules, config, dev):
+    def _setup(self, tc, tn, tdT, pool, buckets, n_modules, config, dev,
+               mesh=None):
         self.config = config
         self.device = dev
         self.net_beta = config.network_from_correlation
@@ -384,7 +464,20 @@ class PermutationEngine:
             )
         self.stat_mode = config.resolved_stat_mode()
         self.n_modules = int(n_modules)
-        self._test_corr = tc.contiguous()
+        self.mesh = mesh
+        self.row_sharded = _check_sharding(config, mesh)
+        #: row-sharded test matrices, ``blocks[p][r]`` (None: replicated)
+        self._rows_c = self._rows_n = self._gather_rep = None
+        if self.row_sharded:
+            # only the row blocks are kept: on a one-device mesh they are
+            # views of the (padded) matrix, never a second copy beside it
+            R = mesh.shape[ROW_AXIS]
+            self._rows_c = shard_rows(pad_square_to_multiple(tc, R), mesh)
+            if tn is not None:
+                self._rows_n = shard_rows(pad_square_to_multiple(tn, R), mesh)
+            self._gather_rep = make_sharded_gatherer(mesh)
+            tc = tn = None
+        self._test_corr = None if tc is None else tc.contiguous()
         self._test_net = None if tn is None else tn.contiguous()
         self._test_dataT = None if tdT is None else tdT.contiguous()
         self.has_data = tdT is not None
@@ -404,6 +497,118 @@ class PermutationEngine:
             )
             for b in buckets
         ]
+        self._shards = None
+
+    # ------------------------------------------------------------------
+    # Mesh
+    # ------------------------------------------------------------------
+
+    def _stat_fused_ring(self) -> bool:
+        """Whether null chunks take the ring path: the chunk splits over
+        BOTH mesh axes and each shard assembles its submatrices by
+        streaming the row blocks around its ring."""
+        return self.stat_mode == "fused" and self.row_sharded
+
+    def effective_chunk(self) -> int:
+        """Chunk size, rounded to a multiple of the mesh's permutation axis
+        — or of the whole mesh (perm × row) on the ring path, where the row
+        axis carries its own permutation shard."""
+        C = self.config.chunk_size
+        if self.mesh is not None:
+            ax = self.mesh.shape[PERM_AXIS]
+            if self._stat_fused_ring():
+                ax *= self.mesh.shape[ROW_AXIS]
+            C = max(ax, (C // ax) * ax)
+        return C
+
+    def _on(self, p: int, r: int, placed: dict) -> "PermutationEngine":
+        """A mesh-free view of this engine for the shard at ``(p, r)``: the
+        pool, discovery properties, test data and (replicated) test
+        matrices on its device — the tensors themselves where they are
+        already there, one copy per device otherwise (``placed`` keeps
+        them) — and, row-sharded, perm shard p's row blocks with their
+        gatherer."""
+        dev = self.mesh.devices[p, r]
+        rep = copy.copy(self)
+        rep.mesh, rep.device, rep._shards = None, dev, None
+
+        def mv(a):
+            if a is None:
+                return None
+            if (id(a), dev) not in placed:
+                placed[(id(a), dev)] = a.to(dev)
+            return placed[(id(a), dev)]
+
+        rep._test_corr, rep._test_net = mv(self._test_corr), mv(self._test_net)
+        rep._test_dataT, rep._pool_dev = mv(self._test_dataT), mv(self._pool_dev)
+        rep.buckets = [
+            dataclasses.replace(b, disc=tstats.DiscProps(*map(mv, b.disc)),
+                                obs_idx=mv(b.obs_idx), take=mv(b.take))
+            for b in self.buckets
+        ]
+        if self.row_sharded:
+            rep._rows_c = self._rows_c[p: p + 1]
+            rep._rows_n = (None if self._rows_n is None
+                           else self._rows_n[p: p + 1])
+            rep._gather_rep = make_sharded_gatherer(self.mesh.perm_row(p))
+        return rep
+
+    def _shard_plan(self) -> list:
+        """``(p, r, slice, engine view)`` per shard, in chunk order
+        (:func:`~netrep_tpu_torch.parallel.sharded.chunk_shards`)."""
+        if self._shards is None:
+            placed: dict = {}
+            self._shards = [
+                (p, r, sl, self._on(p, r, placed))
+                for p, r, sl in chunk_shards(
+                    self.mesh, self.effective_chunk(),
+                    self._stat_fused_ring())
+            ]
+        return self._shards
+
+    def _ring_values(self, keys: trandom.ThreefryKey) -> list:
+        """The ring chunk body: each shard draws its slice of ``keys`` and
+        builds its index blocks; each perm row's shards assemble their
+        submatrices by :func:`ring_gather_all`; each shard then computes
+        the composed statistics of its slice. Per shard, per-bucket ``(C /
+        (P·R), K, 7)`` on its device."""
+        plan = self._shard_plan()
+        R = self.mesh.shape[ROW_AXIS]
+        rows_per = self._rows_c[0][0].shape[0]
+        out = []
+        for p0 in range(0, len(plan), R):
+            ring = plan[p0: p0 + R]
+            p = ring[0][0]
+            idx = []
+            for _p, _r, sl, eng in ring:
+                perm = trandom.permutation(
+                    trandom.ThreefryKey(keys.words[sl]).to(eng.device),
+                    eng._pool_dev)
+                idx.append([eng._bucket_idx(perm, b) for b in eng.buckets])
+            mats = [self._rows_c[p]] + (
+                [] if self._rows_n is None else [self._rows_n[p]])
+            subs = ring_gather_all(mats, idx, rows_per,
+                                   devices=list(self.mesh.devices[p]))
+            for j, (_p, _r, _sl, eng) in enumerate(ring):
+                sub_n = subs[j][1] if len(mats) > 1 else [None] * len(idx[j])
+                out.append([
+                    eng._stats(b, ix, sc, sn) for b, ix, sc, sn in zip(
+                        eng.buckets, idx[j], subs[j][0], sub_n)
+                ])
+            del subs
+        return out
+
+    def _shard_values(self, keys: trandom.ThreefryKey) -> list:
+        """Per shard, per-bucket null statistics of its slice of ``keys``,
+        on its device: the ring path, or each perm shard's own body."""
+        if self._stat_fused_ring():
+            return self._ring_values(keys)
+        return [
+            eng._values(trandom.permutation(
+                trandom.ThreefryKey(keys.words[sl]).to(eng.device),
+                eng._pool_dev))
+            for _p, _r, sl, eng in self._shard_plan()
+        ]
 
     # ------------------------------------------------------------------
     # Observed statistics
@@ -411,14 +616,19 @@ class PermutationEngine:
 
     def observed(self) -> np.ndarray:
         """(n_modules, 7) observed statistics on the actual overlap sets,
-        with the exact ``eigh`` summary."""
+        with the exact ``eigh`` summary (row-sharded: through the sum of
+        the row blocks' shares)."""
         out = np.full((self.n_modules, N_STATS), np.nan)
         for b in self.buckets:
-            res = tstats.gather_and_stats(
-                b.disc, b.obs_idx, self._test_corr, self._test_net,
-                self._test_dataT, n_iter=self.config.power_iters,
-                summary_method="eigh", net_beta=self.net_beta,
-            )
+            if self.row_sharded:
+                res = self._stats(b, b.obs_idx, *self._gather(b.obs_idx),
+                                  summary_method="eigh")
+            else:
+                res = tstats.gather_and_stats(
+                    b.disc, b.obs_idx, self._test_corr, self._test_net,
+                    self._test_dataT, n_iter=self.config.power_iters,
+                    summary_method="eigh", net_beta=self.net_beta,
+                )
             out[b.module_pos] = res.cpu().numpy().astype(np.float64)
         return out
 
@@ -429,31 +639,45 @@ class PermutationEngine:
     def _bucket_idx(self, perm: torch.Tensor, b: _Bucket) -> torch.Tensor:
         return _take_blocks(perm, b.take).to(torch.int32).contiguous()
 
-    def _composed(self, b: _Bucket, idx: torch.Tensor) -> torch.Tensor:
-        """The composed statistics of one bucket, ``(C, K, 7)``: gathered
-        (or derived) test submatrices, the standardized data slice, then
-        ``module_stats_masked`` batched over (C, K) by broadcasting against
-        the bucket's ``(K, …)`` discovery properties."""
+    def _gather(self, idx: torch.Tensor) -> tuple:
+        """The test correlation and network submatrices of ``idx`` (the
+        network derived from the correlation in derived-network mode):
+        the gather kernel on replicated matrices, or the sum of the row
+        blocks' shares on row-sharded ones."""
+        if self.row_sharded:
+            return gather_corr_net(self._gather_rep, self._rows_c,
+                                   self._rows_n, idx, self.net_beta)
         sub_c = gather_submatrix_fused(self._test_corr, idx)
         sub_n = (
             tstats.derived_net(sub_c, self.net_beta)
             if self._test_net is None
             else gather_submatrix_fused(self._test_net, idx)
         )
+        return sub_c, sub_n
+
+    def _stats(self, b: _Bucket, idx: torch.Tensor, sub_c, sub_n,
+               summary_method: str | None = None) -> torch.Tensor:
+        """The composed statistics of one bucket from its gathered
+        submatrices (``sub_n`` None: derived from ``sub_c``): the
+        standardized data slice, then ``module_stats_masked`` batched over
+        (C, K) by broadcasting against the bucket's ``(K, …)`` discovery
+        properties."""
+        if sub_n is None:
+            sub_n = tstats.derived_net(sub_c, self.net_beta)
         zd = (
             tstats.gather_zdata(self._test_dataT, idx, b.disc.mask)
             if self.has_data else None
         )
         return tstats.module_stats_masked(
             b.disc, sub_c, sub_n, zd, n_iter=self.config.power_iters,
-            summary_method=self.config.summary_method,
+            summary_method=summary_method or self.config.summary_method,
         )
 
     def _values(self, perm: torch.Tensor) -> list[torch.Tensor]:
         """Per-bucket ``(C, K, 7)`` null statistics of the drawn
         permutations ``perm`` ``(C, P)``: one fused-statistics launch per
-        bucket, or the composed statistics (one gather launch per bucket
-        and stored matrix)."""
+        bucket, or the composed statistics (gathered submatrices, then
+        :meth:`_stats`)."""
         outs = []
         for b in self.buckets:
             idx = self._bucket_idx(perm, b)
@@ -464,7 +688,7 @@ class PermutationEngine:
                     n_iter=self.config.power_iters,
                 ))
             else:
-                outs.append(self._composed(b, idx))
+                outs.append(self._stats(b, idx, *self._gather(idx)))
         return outs
 
     def _count(self, perm: torch.Tensor, valid: int,
@@ -487,12 +711,14 @@ class PermutationEngine:
             ]
         else:
             deltas = count_buckets(self._values(perm), obs, keep)
-        for acc, d in zip(tallies, deltas):
-            for t, x in zip(acc, d):
-                t += x
+        _add_tallies(tallies, deltas)
 
     def _chunk(self, keys: trandom.ThreefryKey) -> list[torch.Tensor]:
-        return self._values(trandom.permutation(keys, self._pool_dev))
+        if self.mesh is None:
+            return self._values(trandom.permutation(keys, self._pool_dev))
+        shards = self._shard_values(keys)
+        return [torch.cat([s[i].to(self.device) for s in shards])
+                for i in range(len(self.buckets))]
 
     def _obs_buckets(self, observed) -> list[torch.Tensor]:
         return [
@@ -518,25 +744,66 @@ class PermutationEngine:
                 o[b.module_pos] = t.cpu().numpy()
         return tuple(out)
 
+    def _stream_parts(self, observed):
+        """``(count(keys, valid), pull())`` of the streaming null. On a
+        mesh each shard keeps its own tallies on its device, gated by the
+        validity mask offset by its slice's first column; ``pull`` sums
+        them on the host."""
+        if self.mesh is None:
+            obs = self._obs_buckets(observed)
+            tallies = self._zero_tallies()
+
+            def count(keys, valid):
+                self._count(trandom.permutation(keys, self._pool_dev), valid,
+                            obs, tallies)
+
+            return count, lambda: self._pull(tallies)
+
+        plan = self._shard_plan()
+        obs = [eng._obs_buckets(observed) for *_, eng in plan]
+        tallies = [eng._zero_tallies() for *_, eng in plan]
+        ring = self._stat_fused_ring()
+
+        def count(keys, valid):
+            vals = self._ring_values(keys) if ring else None
+            for s, (_p, _r, sl, eng) in enumerate(plan):
+                own = max(0, min(sl.stop, valid) - sl.start)
+                if ring:
+                    keep = torch.arange(sl.stop - sl.start,
+                                        device=eng.device) < own
+                    _add_tallies(tallies[s], count_buckets(vals[s], obs[s],
+                                                           keep))
+                else:
+                    eng._count(trandom.permutation(
+                        trandom.ThreefryKey(keys.words[sl]).to(eng.device),
+                        eng._pool_dev), own, obs[s], tallies[s])
+
+        def pull():
+            parts = [eng._pull(t) for (*_, eng), t in zip(plan, tallies)]
+            return tuple(sum(x) for x in zip(*parts))
+
+        return count, pull
+
     def run_null(self, n_perm: int, key=0,
                  progress: Callable[[int, int], None] | None = None,
                  ) -> tuple[np.ndarray, int]:
         """The materialized permutation null: ``(nulls, completed)`` with
         ``nulls`` ``(n_perm, n_modules, 7)`` float64. ``key`` is an integer
         seed or a :class:`~netrep_tpu_torch.random.ThreefryKey`; the same
-        key gives the same null regardless of chunk size. ``progress(done,
-        total)`` is called after each chunk lands on the host."""
+        key gives the same null regardless of chunk size and mesh.
+        ``progress(done, total)`` is called after each chunk lands on the
+        host."""
         nulls = np.full((n_perm, self.n_modules, N_STATS), np.nan)
 
         def write(outs, at, take):
             for b, o in zip(self.buckets, outs):
                 nulls[at: at + take, b.module_pos] = (
-                    o.cpu().numpy().astype(np.float64)
+                    o[:take].cpu().numpy().astype(np.float64)
                 )
 
         completed = _run_chunks(root_key(key, self.device), n_perm,
-                                self.config.chunk_size, self._chunk, write,
-                                progress)
+                                self.effective_chunk(), self._chunk, write,
+                                progress, full=self.mesh is not None)
         return nulls, completed
 
     def run_null_streaming(self, n_perm: int, observed: np.ndarray, key=0,
@@ -547,16 +814,17 @@ class PermutationEngine:
         over ``config.superchunk`` chunks between host reads. For the same
         key the tallies equal ``tail_counts`` of :meth:`run_null`'s
         null."""
-        obs = self._obs_buckets(observed)
-        tallies = self._zero_tallies()
-
-        def count(keys, valid):
-            self._count(trandom.permutation(keys, self._pool_dev), valid,
-                        obs, tallies)
-
+        count, pull = self._stream_parts(observed)
         (hi, lo, eff), completed = _run_stream(
-            root_key(key, self.device), n_perm, self.config.chunk_size,
-            self.config.resolved_superchunk, count,
-            lambda: self._pull(tallies), progress,
+            root_key(key, self.device), n_perm, self.effective_chunk(),
+            self.config.resolved_superchunk, count, pull, progress,
         )
         return StreamCounts(hi=hi, lo=lo, eff=eff, completed=completed)
+
+
+def _add_tallies(tallies, deltas) -> None:
+    """Fold per-bucket ``(hi, lo, eff)`` deltas into ``tallies`` in
+    place."""
+    for acc, d in zip(tallies, deltas):
+        for t, x in zip(acc, d):
+            t += x

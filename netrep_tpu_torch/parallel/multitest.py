@@ -32,7 +32,7 @@ from ..ops.oracle import N_STATS
 from ..utils.config import EngineConfig, resolve_device
 from .engine import (
     ModuleSpec, PermutationEngine, StreamCounts, _as_f32, _run_chunks,
-    _run_stream, build_buckets, check_derived_network, root_key,
+    _run_stream, build_discovery, check_derived_network, root_key,
 )
 
 
@@ -58,16 +58,15 @@ class MultiTestEngine:
         modules = list(modules)
         self.T = len(test_corrs)
         net_beta = config.network_from_correlation
-        if net_beta is not None:
-            check_derived_network(disc_corr, disc_net, net_beta, "discovery")
-            for t in range(self.T):
-                check_derived_network(test_corrs[t], test_nets[t], net_beta,
-                                      f"test[{t}]")
         pool = np.asarray(pool, dtype=np.int32)
-        buckets = build_buckets(
+        buckets = build_discovery(
             disc_corr, disc_net, disc_data if test_datas is not None else None,
             modules, pool, config, dev,
         )
+        if net_beta is not None:
+            for t in range(self.T):
+                check_derived_network(test_corrs[t], test_nets[t], net_beta,
+                                      f"test[{t}]")
         self._setup([
             PermutationEngine.from_parts(
                 _as_f32(test_corrs[t], dev),

@@ -17,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 
 from .parallel.engine import PermutationEngine
+from .parallel.mesh import Mesh
 from .parallel.multitest import MultiTestEngine
 from .random import ThreefryKey
 from .utils.config import EngineConfig
@@ -39,8 +40,8 @@ def _buckets(d: dict) -> list[dict]:
 
 
 def engine_state_from_numpy(d: dict, config: EngineConfig | None = None,
-                            device=None) -> tuple[PermutationEngine,
-                                                  ThreefryKey]:
+                            device=None, mesh: Mesh | None = None
+                            ) -> tuple[PermutationEngine, ThreefryKey]:
     """Build ``(engine, root_key)`` from numpy state.
 
     ``d`` holds ``pool`` ``(P,)``, ``test_corr`` ``(n, n)``, ``test_net``
@@ -49,12 +50,15 @@ def engine_state_from_numpy(d: dict, config: EngineConfig | None = None,
     ``n_modules``, ``key_data`` ``(2,)`` uint32, and ``buckets``: a list
     of dicts with ``cap``, ``module_pos`` ``(K,)``, ``slices`` ``(K, 2)``
     (offset, size), ``obs_idx`` ``(K, cap)`` and the :data:`DISC_FIELDS`
-    arrays ``(K, cap[, cap])``. ``device`` None means ``"cuda"``.
+    arrays ``(K, cap[, cap])``. ``device`` None means ``"cuda"``. With a
+    ``mesh`` the engine is built over it (``config.matrix_sharding`` says
+    whether the test matrices are split by rows), so a JAX engine on a mesh
+    of the same shape can be held against it.
     """
     engine = PermutationEngine.from_parts(
         d["test_corr"], d.get("test_net"), d.get("test_dataT"), d["pool"],
         _buckets(d), int(d["n_modules"]), config or EngineConfig(),
-        device=device,
+        device=device, mesh=mesh,
     )
     return engine, ThreefryKey.from_data(d["key_data"], device=engine.device)
 

@@ -61,6 +61,14 @@ class EngineConfig:
     superchunk : streaming null only: chunks whose tallies accumulate on
         the device between two host reads (and progress calls); None means
         8, the JAX package's fallback.
+    mesh_axis : name of the permutation axis of a mesh
+        (:func:`netrep_tpu_torch.parallel.mesh.make_mesh`), kept under the
+        JAX package's name; a port mesh's axes are always ``('perm',
+        'row')``, so ``'perm'`` is the one value accepted.
+    matrix_sharding : ``'replicated'`` (every perm shard holds the whole
+        test matrices) or ``'row'`` (the n×n matrices are split by rows
+        over the mesh's row axis; needs a mesh). Checked by the engine, as
+        in the JAX package.
     stat_mode : ``'fused'`` runs the null through the fused-statistics
         kernel (:mod:`netrep_tpu_torch.ops.fused_stats`), ``'xla'`` composes
         it per bucket (gather → standardized data slice →
@@ -83,6 +91,8 @@ class EngineConfig:
     network_from_correlation: float | tuple | None = None
     superchunk: int | None = None
     stat_mode: str = "auto"
+    mesh_axis: str = "perm"
+    matrix_sharding: str = "replicated"
 
     def __post_init__(self):
         if self.network_from_correlation is not None:
@@ -127,6 +137,11 @@ class EngineConfig:
             raise ValueError(
                 f"gather_mode must be 'auto', 'direct', or 'fused', "
                 f"got {self.gather_mode!r}"
+            )
+        if self.mesh_axis != "perm":
+            raise ValueError(
+                "mesh_axis must be 'perm' (the permutation axis of "
+                f"make_mesh's ('perm', 'row') mesh), got {self.mesh_axis!r}"
             )
         if self.dtype != "float32":
             raise ValueError(

@@ -112,6 +112,7 @@ def test_reset_launches_clears_every_kernel():
         fn.launches = 3
     assert set(tops.kernels()) == {
         tgather.gather_submatrix_fused, tgather.gather_submatrix_fused_local,
-        tfused.fused_stats_values, tfused.fused_stats_counts}
+        tfused.fused_stats_values, tfused.fused_stats_counts,
+        tfused.ring_shift_dma}
     tops.reset_launches()
     assert all(fn.launches == 0 for fn in tops.kernels())

@@ -7,7 +7,8 @@ JAX, so it runs on a machine that has only the port's dependencies:
 Tolerances, kernel vs plain: fused statistics 1e-4 absolute (the kernel
 runs the power iteration as ``v <- Z^T (Z v)`` and sums in its own fixed
 order; the plain version forms the Gram matrix, ``csrc/fused_stats.cu``
-notes); the gather none — both are copies, so they are bit-equal.
+notes); the gather and the ring shift none — both are copies, so they are
+bit-equal.
 """
 
 import numpy as np
@@ -186,6 +187,68 @@ def test_engine_options_cuda_match_cpu(cuda, options, kernel):
     assert getattr(tgather if "gather" in kernel else tfused,
                    kernel).launches > 0
     cpu = module_preservation(**kw, device="cpu")
+    np.testing.assert_allclose(gpu.observed, cpu.observed, rtol=0, atol=TOL)
+    np.testing.assert_allclose(gpu.nulls, cpu.nulls, rtol=0, atol=TOL)
+    np.testing.assert_array_equal(gpu.p_values, cpu.p_values)
+
+
+def _ring_blocks(dev, R=4, rows=250, seed=2):
+    rng = np.random.default_rng(seed)
+    n = R * rows
+    M = torch.as_tensor(rng.standard_normal((n, n)).astype(np.float32),
+                        device=dev)
+    return M, [M[r * rows: (r + 1) * rows] for r in range(R)]
+
+
+def test_ring_kernel_bit_equal_to_plain(cuda):
+    _M, ring = _ring_blocks(cuda)
+    flat = torch.randn(49 * 201 + 1, device=cuda)
+    for blocks in (ring, [torch.randn((49, 201), device=cuda)],
+                   [flat[1:].view(49, 201), torch.randn((49, 201),
+                                                        device=cuda)]):
+        before = tfused.ring_shift_dma.launches
+        got = tfused.ring_shift_dma(blocks)
+        assert tfused.ring_shift_dma.launches == before + len(blocks)
+        want = tfused.ring_shift_collective(blocks)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert g.data_ptr() != w.data_ptr() and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("rows", [250, 300])
+def test_ring_gather_all_equals_gather_kernel(cuda, rows):
+    # a square matrix of 4 * rows nodes in 4 blocks of ``rows`` rows, with
+    # indices over all of its nodes
+    M, ring = _ring_blocks(cuda, rows=rows)
+    n = M.shape[0]
+    rng = np.random.default_rng(3)
+    idx = [[torch.as_tensor(rng.integers(0, n, (5, 3, c)).astype(np.int32),
+                            device=cuda) for c in (16, 40)] for _ in ring]
+    subs = tfused.ring_gather_all([ring], idx, rows)
+    for j, ix in enumerate(idx):
+        for b, i in enumerate(ix):
+            assert _bit_equal(subs[j][0][b],
+                              tgather.gather_submatrix_fused(M, i))
+
+
+@pytest.mark.parametrize("stat_mode", ["auto", "xla"])
+def test_row_sharded_cuda_matches_cpu(cuda, stat_mode):
+    from netrep_tpu_torch.parallel.mesh import make_mesh
+
+    pair = make_example_pair(np.random.default_rng(3))
+    d, t = pair_frames(pair)
+    kw = dict(network={"d": d["network"], "t": t["network"]},
+              data={"d": d["data"], "t": t["data"]},
+              correlation={"d": d["correlation"], "t": t["correlation"]},
+              module_assignments=pair["labels"], n_perm=300, seed=4,
+              config=EngineConfig(matrix_sharding="row",
+                                  stat_mode=stat_mode))
+    tops.reset_launches()
+    gpu = module_preservation(**kw, mesh=make_mesh(2, 2, devices=[cuda] * 4))
+    assert tgather.gather_submatrix_fused_local.launches > 0
+    assert (tfused.ring_shift_dma.launches > 0) == (stat_mode == "auto")
+    cpu = module_preservation(**kw, device="cpu", mesh=make_mesh(
+        2, 2, devices=[torch.device("cpu")] * 4))
     np.testing.assert_allclose(gpu.observed, cpu.observed, rtol=0, atol=TOL)
     np.testing.assert_allclose(gpu.nulls, cpu.nulls, rtol=0, atol=TOL)
     np.testing.assert_array_equal(gpu.p_values, cpu.p_values)

@@ -180,7 +180,7 @@ def test_input_errors_match_jax(frames, case):
 
 
 @pytest.mark.parametrize("arg,value", [
-    ("adaptive", True), ("mesh", object()),
+    ("adaptive", True),
     ("checkpoint_dir", "x"), ("telemetry", True), ("fault_policy", True),
     ("data_only", 2.0), ("backend", "native"),
 ])

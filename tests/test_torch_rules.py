@@ -56,6 +56,7 @@ import netrep_tpu_torch.models.preservation
 import netrep_tpu_torch.state, netrep_tpu_torch.data
 import netrep_tpu_torch.ops.fused_stats, netrep_tpu_torch.ops._build
 import netrep_tpu_torch.ops.fused_gather, netrep_tpu_torch.parallel.multitest
+import netrep_tpu_torch.parallel.mesh, netrep_tpu_torch.parallel.sharded
 bad = [m for m in set(sys.modules) - before
        if m in ("jax", "jaxlib", "netrep_tpu") or m.startswith(("jax.", "jaxlib.", "netrep_tpu."))]
 print(",".join(sorted(bad)))
@@ -162,8 +163,12 @@ def test_cuda_sources_are_package_data():
         project = tomllib.load(f)
     data = project["tool"]["setuptools"]["package-data"]
     assert "*.cu" in data["netrep_tpu_torch.csrc"]
-    for src in ("fused_stats.cu", "fused_gather.cu"):
-        assert os.path.exists(os.path.join(PKG, "csrc", src)), src
+    from netrep_tpu_torch.ops import _build as build
+
+    for src in build.SOURCES:
+        assert os.path.exists(os.path.join(PKG, "csrc", src + ".cu")), src
+    assert set(build.SOURCES) == {"fused_stats", "fused_gather",
+                                  "ring_shift"}
     assert "torch" in project["project"]["optional-dependencies"]
     # pyproject's package finder looks for namespace packages, so it ships
     # the port (top and csrc/ without __init__.py) under the existing
@@ -185,5 +190,61 @@ def test_kernel_build_is_lazy():
     # importing the wrappers compiled and loaded nothing
     from netrep_tpu_torch.ops import _build, fused_gather, fused_stats  # noqa: F401
 
-    for name in ("fused_stats", "fused_gather"):
+    for name in _build.SOURCES:
         assert name not in _build._LIBS or torch.cuda.is_available()
+
+
+def test_ring_wrapper_never_falls_back(monkeypatch):
+    # CUDA blocks go to the kernel, one counted launch per block; CPU blocks
+    # run the plain rotation and count nothing; a mix is refused
+    from netrep_tpu_torch.ops import fused_stats as tfused
+
+    monkeypatch.setattr(tfused, "_ring_launch",
+                        lambda src, dst_dev: ("kernel", src))
+    before = tfused.ring_shift_dma.launches
+    cards = [_OnTheCard((4, 8), torch.float32) for _ in range(3)]
+    got = tfused.ring_shift_dma(cards)
+    assert got == [("kernel", cards[2]), ("kernel", cards[0]),
+                   ("kernel", cards[1])]
+    assert tfused.ring_shift_dma.launches == before + 3
+    cpu = [torch.zeros((4, 8)) for _ in range(3)]
+    assert tfused.ring_shift_dma(cpu)[0] is cpu[2]
+    assert tfused.ring_shift_dma.launches == before + 3
+    with pytest.raises(ValueError, match="all on the CPU"):
+        tfused.ring_shift_dma(cpu, devices=[torch.device("cuda", 0)] * 3)
+    tfused.ring_shift_dma.launches = before
+
+
+def test_ring_refuses_cards_without_a_peer_path():
+    # no copy through the host: a pair of cards that cannot reach each
+    # other's memory raises
+    from netrep_tpu_torch.ops import fused_stats as tfused
+
+    class NoPeer:
+        def ring_shift_enable_peer(self, src, dst):
+            return -1
+
+    with pytest.raises(RuntimeError, match="cannot reach each other"):
+        tfused._enable_peer(NoPeer(), 0, 1)
+    assert (0, 1) not in tfused._PEERS
+
+
+def test_mesh_is_ported():
+    # mesh= runs; a mesh of cards never runs on the CPU
+    import numpy as np
+
+    from netrep_tpu_torch.data import make_example_pair, pair_frames
+    from netrep_tpu_torch.models.preservation import module_preservation
+    from netrep_tpu_torch.parallel.mesh import make_mesh
+
+    pair = make_example_pair(np.random.default_rng(3))
+    d, t = pair_frames(pair)
+    kw = dict(network={"d": d["network"], "t": t["network"]},
+              correlation={"d": d["correlation"], "t": t["correlation"]},
+              module_assignments=pair["labels"], n_perm=16)
+    res = module_preservation(**kw, device="cpu", mesh=make_mesh(
+        2, 1, devices=[torch.device("cpu")] * 2))
+    assert res.completed == 16
+    with pytest.raises(ValueError, match="mesh's devices"):
+        module_preservation(**kw, device="cpu", mesh=make_mesh(
+            1, 1, devices=[torch.device("cuda", 0)]))
