@@ -5,8 +5,10 @@
 Builds the port's CUDA kernels from ``netrep_tpu_torch/csrc`` with nvcc
 (one process per source, started together), holds each kernel against its
 plain PyTorch version on the card and times both (and, where one PyTorch
-call computes the same function, that call) at the main path's shapes.
-Then it drives the public entry point
+call computes the same function, that call) at the main path's shapes,
+and splits the fused-statistics kernel's time bucket by bucket
+(``kernel_split``: full, ``n_iter=0``, ``tdT=None``). Then it drives the
+public entry point
 ``netrep_tpu_torch.models.preservation.module_preservation`` at the
 north-star width — 20,000 genes, 50 planted modules of 30–200 nodes, 128
 samples per dataset, 1,000 permutations — along each of its paths, every
@@ -34,6 +36,10 @@ launch count set to 0 just before a path and read just after:
   pair after another (a matrix a later pair needs waits on the host
   meanwhile), with each pair's phase seconds and the time of one matrix's
   round trip to the host;
+- ``wide_samples``: the same widths with 1,000-sample cohorts, a shape
+  whose module data slices no block's shared memory holds: the kernel
+  against its plain version in every bucket, then a streaming null of
+  1,000 permutations;
 
 and checks each against the others: equal p-values where the same
 statistics run, nulls within 1e-4 where the arithmetic differs. Inputs are
@@ -49,7 +55,17 @@ anything.
 
     python3 chip_smoke.py --sequential-tests
 
-runs only the inputs and the ``sequential_tests`` call, through the
+runs only the inputs and the ``sequential_tests`` call, and
+
+    python3 chip_smoke.py --kernels
+
+only the fused-statistics kernel's split and chunk times and the ring
+step's times, and
+
+    python3 chip_smoke.py --p-values
+
+only the p-values and counts of the main path, the derived network, the
+row-sharded ring, the perm mesh and two cohorts, each through the
 ``netrep_tpu_torch`` beside the script: copied into another checkout, it
 measures that checkout's version on the same inputs.
 """
@@ -77,17 +93,29 @@ def card_line() -> str:
 
 GENES, SAMPLES, MODULES, SIZES = 20_000, 128, 50, (30, 200)
 N_PERM, SEED, BETA = 1000, 2026, 2.0
+#: the wide_samples phase: cohorts of this many samples at the same widths
+WIDE_SAMPLES, WIDE_PERM = 1000, 1000
+#: kernel vs plain: the kernel sums in its own fixed order and may iterate
+#: on the other Gram matrix (csrc/fused_stats.cu); the plain version forms
+#: the node-space Gram matrix — float32 rounding apart, ~1e-5 at most
+TOL = 1e-4
+#: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s outside
+#: the tensor cores (the kernel does scalar f32 arithmetic)
+HBM_BPS, F32_FLOPS = 3.35e12, 67e12
+#: NVLink between two H100 SXM cards, each way (NVIDIA data sheet)
+NVLINK_BPS = 450e9
+SECTOR = 32
 
 
-def make_cohorts(np):
-    """Host data ``(SAMPLES, GENES)`` float32 of the discovery, the test
+def make_cohorts(np, samples=SAMPLES):
+    """Host data ``(samples, GENES)`` float32 of the discovery, the test
     and a second test cohort, with the module sizes and node labels, from
     SEED: MODULES planted modules of SIZES nodes, the first half preserved
     in both tests with the discovery loadings."""
     rng = np.random.default_rng(SEED)
     sizes = rng.integers(SIZES[0], SIZES[1] + 1, size=MODULES)
-    xd = rng.standard_normal((SAMPLES, GENES)).astype(np.float32)
-    xt = rng.standard_normal((SAMPLES, GENES)).astype(np.float32)
+    xd = rng.standard_normal((samples, GENES)).astype(np.float32)
+    xt = rng.standard_normal((samples, GENES)).astype(np.float32)
     labels = np.full(GENES, "0", dtype=object)
     order = rng.permutation(GENES)
     loads = []
@@ -97,19 +125,19 @@ def make_cohorts(np):
         at += sz
         load = rng.uniform(0.6, 2.2, size=sz).astype(np.float32)
         loads.append(load)
-        xd[:, nodes] += rng.standard_normal((SAMPLES, 1)).astype(np.float32) * load
+        xd[:, nodes] += rng.standard_normal((samples, 1)).astype(np.float32) * load
         if k < MODULES // 2:  # the first half is preserved in the test set
-            xt[:, nodes] += (rng.standard_normal((SAMPLES, 1))
+            xt[:, nodes] += (rng.standard_normal((samples, 1))
                              .astype(np.float32) * load)
         labels[nodes] = str(k + 1)
     # the second test cohort continues the seed stream
-    x2 = rng.standard_normal((SAMPLES, GENES)).astype(np.float32)
+    x2 = rng.standard_normal((samples, GENES)).astype(np.float32)
     at = 0
     for k, sz in enumerate(sizes):
         nodes = order[at: at + sz]
         at += sz
         if k < MODULES // 2:
-            x2[:, nodes] += (rng.standard_normal((SAMPLES, 1))
+            x2[:, nodes] += (rng.standard_normal((samples, 1))
                              .astype(np.float32) * loads[k])
     return sizes, labels, (xd, xt, x2)
 
@@ -119,11 +147,115 @@ def mats(torch, x, dev):
     float64: the genes' Pearson correlation and ``|corr| ** BETA``."""
     t = torch.as_tensor(x, device=dev, dtype=torch.float64)
     z = (t - t.mean(0)) / t.std(0)
-    c = (z.T @ z) / (SAMPLES - 1)
+    c = (z.T @ z) / (x.shape[0] - 1)
     c = (c + c.T) * 0.5
     c.fill_diagonal_(1.0)
     c.clamp_(-1.0, 1.0)
     return t, c, c.abs() ** BETA
+
+
+def make_timer(torch):
+    """``timed(fn, reps=5)``: mean ms of ``fn()`` over ``reps`` runs after one
+    warm-up, by CUDA events."""
+    def timed(fn, reps=5):
+        fn()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(reps):
+            fn()
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1) / reps
+    return timed
+
+
+def first_chunk(torch, np, labels, disc, test, cfg, dev):
+    """The engine of one (discovery, test) pair, each side ``(data,
+    correlation, network)`` on the card, and the first chunk of its null:
+    ``(engine, chunk, obs)``, ``chunk`` a list of ``(bucket, idx)`` and
+    ``obs`` each bucket's observed statistics as float32 on the card."""
+    from netrep_tpu_torch import random as trandom
+    from netrep_tpu_torch.parallel.engine import ModuleSpec, PermutationEngine
+
+    mods = sorted(set(labels) - {"0"}, key=int)
+    specs = [ModuleSpec(k, np.flatnonzero(labels == k),
+                        np.flatnonzero(labels == k)) for k in mods]
+    (dd, dc, dn), (td, tc, tn) = disc, test
+    engine = PermutationEngine(dc, dn, dd, tc, tn, td, specs,
+                               np.arange(len(labels)), config=cfg, device=dev)
+    perm = trandom.permutation(
+        trandom.perm_keys(trandom.key(SEED, device=dev), 0, cfg.chunk_size),
+        engine._pool_dev,
+    )
+    chunk = [(b, engine._bucket_idx(perm, b)) for b in engine.buckets]
+    observed = engine.observed()
+    obs = [torch.as_tensor(observed[b.module_pos], dtype=torch.float32,
+                           device=dev)
+           for b in engine.buckets]
+    return engine, chunk, obs
+
+
+def kernel_split(fs, engine, chunk, n_iter, timed, card):
+    """Where the fused-statistics kernel's time goes, bucket by bucket, read
+    through arguments its wrapper takes: the full kernel, the kernel with
+    no power iteration (``n_iter=0``) and the topology alone (``tdT=None``).
+    The differences are the power iteration and the rest of the data phase
+    (the data rows, the profile and the node contributions)."""
+    tc, tn, tdT = engine._test_corr, engine._test_net, engine._test_dataT
+    rows = []
+    for b, idx in chunk:
+        def run(td, it):
+            return lambda: fs.fused_stats_values(tc, tn, td, b.disc, idx,
+                                                 n_iter=it)
+        rows.append({"cap": b.cap, "modules": len(b.module_pos),
+                     "batch": int(idx.shape[0]),
+                     "full_ms": timed(run(tdT, n_iter)),
+                     "n_iter0_ms": timed(run(tdT, 0)),
+                     "topology_ms": timed(run(None, n_iter))})
+    total = {k: sum(r[k] for r in rows)
+             for k in ("full_ms", "n_iter0_ms", "topology_ms")}
+    total["power_iteration_ms"] = total["full_ms"] - total["n_iter0_ms"]
+    total["data_rest_ms"] = total["n_iter0_ms"] - total["topology_ms"]
+    emit({"phase": "kernel_split", "n_iter": n_iter,
+          "samples": int(tdT.shape[-1]), "per_bucket": rows, "total": total,
+          "card": card})
+    return rows, total
+
+
+def ring_times(torch, fs, M, timed, card):
+    """One ring step's launch on a ``GENES / 4``-row block of ``M``, beside
+    its plain version and ``copy_`` into a fresh block of the same kind as
+    the kernel's (``torch.empty_like``) and into one reused block."""
+    R = 4
+    rows_per = GENES // R
+    ring = [M[r0: r0 + rows_per] for r0 in range(0, GENES, rows_per)]
+    dst = torch.empty_like(ring[0])
+    block_bytes = ring[0].numel() * 4
+    p1 = timed(lambda: fs.ring_shift_collective(ring))
+    k1 = timed(lambda: fs.ring_shift_dma(ring))
+    l1 = timed(lambda: [torch.empty_like(b).copy_(b) for b in ring])
+    l2 = timed(lambda: [torch.empty_like(b).copy_(b) for b in ring])
+    k2 = timed(lambda: fs.ring_shift_dma(ring))
+    p2 = timed(lambda: fs.ring_shift_collective(ring))
+    t = {"ms": (k1 + k2) / 2 / R, "plain_ms": (p1 + p2) / 2 / R,
+         "library_ms": (l1 + l2) / 2 / R,
+         "library_reused_dst_ms": timed(lambda: [dst.copy_(b)
+                                                 for b in ring]) / R,
+         "bound_ms": 1e3 * 2 * block_bytes / HBM_BPS,
+         "nvlink_bound_ms": 1e3 * block_bytes / NVLINK_BPS}
+    emit({"phase": "ring_times", "unit": f"one launch: a {rows_per} x "
+          f"{GENES} float32 block copied on one card", "bytes": 2 * block_bytes,
+          "times_ms": t, "bound_by": "bytes",
+          "library_call": "torch.empty_like(src).copy_(src), a fresh block "
+                          "as the kernel's wrapper allocates (a yardstick, "
+                          "never called by the port); library_reused_dst_ms: "
+                          "dst.copy_(src) into one reused block",
+          "plain_note": "the plain version rotates the block list; on one "
+                        "card it moves no bytes",
+          "order": "plain, kernel, library, library, kernel, plain",
+          "card": card})
+    return t
 
 
 def sequential_tests(torch, np, module_preservation, ops, kw, config, card,
@@ -215,6 +347,184 @@ def sequential_only() -> int:
     return 0
 
 
+def wide_samples(torch, np, fs, ops, module_preservation, cfg, card, dev):
+    """The north-star widths with cohorts of WIDE_SAMPLES samples, a shape
+    whose data slices no block's shared memory holds: the fused-statistics
+    kernel against its plain version on one chunk in every bucket, then a
+    streaming ``module_preservation`` of WIDE_PERM permutations through
+    it."""
+    _sizes, labels, (xd, xt, _x2) = make_cohorts(np, WIDE_SAMPLES)
+    disc, test = mats(torch, xd, dev), mats(torch, xt, dev)
+    engine, chunk, _obs = first_chunk(torch, np, labels, disc, test, cfg, dev)
+    tc, tn, tdT = engine._test_corr, engine._test_net, engine._test_dataT
+    buckets = []
+    for b, idx in chunk:
+        got = fs.fused_stats_values(tc, tn, tdT, b.disc, idx,
+                                    n_iter=cfg.power_iters)
+        want = fs.fused_stats_values_plain(tc, tn, tdT, b.disc, idx,
+                                           n_iter=cfg.power_iters)
+        torch.cuda.synchronize()
+        if not torch.equal(torch.isnan(got), torch.isnan(want)):
+            raise RuntimeError(f"wide_samples: NaN pattern differs (cap "
+                               f"{b.cap})")
+        err = torch.nan_to_num((got - want).abs(), nan=0.0).max().item()
+        buckets.append({"cap": b.cap, "modules": len(b.module_pos),
+                        "tier": fs.kernel_tier(b.cap, WIDE_SAMPLES, True),
+                        "max_abs_err": err})
+    del engine, chunk, _obs, tc, tn, tdT, got, want
+    worst = max(r["max_abs_err"] for r in buckets)
+    if worst > TOL:
+        raise RuntimeError(f"wide_samples: kernel disagrees with plain by "
+                           f"{worst}")
+    # handed over as host float32, as a user might hold them
+    host = [[m.to(torch.float32).cpu().numpy() for m in side]
+            for side in (disc, test)]
+    del disc, test
+    torch.cuda.empty_cache()
+    names = ("disc", "test")
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    held = []
+    t0 = time.perf_counter()
+    res = module_preservation(
+        network={k: h[2] for k, h in zip(names, host)},
+        data={k: h[0] for k, h in zip(names, host)},
+        correlation={k: h[1] for k, h in zip(names, host)},
+        module_assignments=list(labels), discovery="disc", test="test",
+        n_perm=WIDE_PERM, seed=SEED, device="cuda", config=cfg,
+        store_nulls=False, progress=lambda done, total: held.append(
+            torch.cuda.memory_allocated()))
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in ops.kernels()}
+    if launches["fused_stats_counts"] == 0:
+        raise RuntimeError("wide_samples launched no fused_stats_counts "
+                           "kernel")
+    if res.observed.shape != (MODULES, 7) or not np.isfinite(
+            res.observed).all():
+        raise RuntimeError("wide_samples: observed statistics are not "
+                           "finite (MODULES, 7)")
+    if not ((res.p_values > 0) & (res.p_values <= 1)).all():
+        raise RuntimeError("wide_samples: p-values outside (0, 1]")
+    if res.completed != WIDE_PERM:
+        raise RuntimeError(f"wide_samples: completed {res.completed}")
+    prof = res.profile
+    emit({"phase": "wide_samples", "samples": WIDE_SAMPLES, "genes": GENES,
+          "modules": MODULES, "n_perm": WIDE_PERM, "store_nulls": False,
+          "kernel_vs_plain": buckets, "tolerance": TOL, "wall_s": wall,
+          **{k: prof[k] for k in ("input_s", "engine_s", "observed_s",
+                                  "null_s", "perms_per_s")},
+          "launches": launches,
+          "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "null_held_gib": max(held) / 2**30,
+          "modules_preserved": int((res.p_values.max(axis=1)
+                                    < 0.05 / MODULES).sum()),
+          "card": card})
+    return res
+
+
+def p_values_only() -> int:
+    """``--p-values``: the p-values and exceedance counts of the main path
+    (both null modes), the derived network, the row-sharded ring, the perm
+    mesh and two cohorts with ``vmap_tests``, on float32 host inputs,
+    through the ``netrep_tpu_torch`` beside this script (another
+    checkout's, to hold two versions to the same answers on one card)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA device available", file=sys.stderr)
+        return 1
+    import numpy as np
+
+    from netrep_tpu_torch.models.preservation import module_preservation
+    from netrep_tpu_torch.ops import pvalues as pv
+    from netrep_tpu_torch.parallel.mesh import make_mesh
+    from netrep_tpu_torch.utils.config import EngineConfig
+
+    dev = torch.device("cuda")
+    card = card_line()
+    _sizes, labels, cohorts = make_cohorts(np)
+    host = [[m.to(torch.float32).cpu().numpy() for m in mats(torch, x, dev)]
+            for x in cohorts]
+    torch.cuda.empty_cache()
+    names = ("disc", "test", "test2")
+    base = dict(network={k: h[2] for k, h in zip(names, host)},
+                data={k: h[0] for k, h in zip(names, host)},
+                correlation={k: h[1] for k, h in zip(names, host)},
+                module_assignments=list(labels), discovery="disc",
+                n_perm=N_PERM, seed=SEED, device="cuda")
+    runs = {
+        "main_path/materialized": dict(config=EngineConfig()),
+        "main_path/streaming": dict(config=EngineConfig(), store_nulls=False),
+        "derived_network": dict(config=EngineConfig(
+            network_from_correlation=BETA)),
+        "row_sharded/ring": dict(config=EngineConfig(matrix_sharding="row"),
+                                 mesh=make_mesh(1, 4, devices=[dev] * 4)),
+        "perm_mesh": dict(config=EngineConfig(), store_nulls=False,
+                          mesh=make_mesh(2, 1, devices=[dev] * 2)),
+        "multi_test": dict(config=EngineConfig(), test=["test", "test2"],
+                           vmap_tests=True),
+    }
+    for name, kw in runs.items():
+        res = module_preservation(**{"test": "test", **base, **kw})
+        out = {}
+        for cohort, r in (res.items() if isinstance(res, dict)
+                          else [("test", res)]):
+            hi, lo, _eff = ((r.counts_hi, r.counts_lo, r.counts_eff)
+                            if r.nulls is None
+                            else pv.tail_counts(r.observed, r.nulls))
+            out[cohort] = {"p_values": r.p_values.tolist(),
+                           "hi": np.asarray(hi).tolist(),
+                           "lo": np.asarray(lo).tolist(),
+                           "null_s": r.profile["null_s"]}
+        emit({"phase": "p_values", "run": name, "cohorts": out,
+              "card": card})
+    print(card_line(), flush=True)
+    return 0
+
+
+def kernels_only() -> int:
+    """``--kernels``: the fused-statistics kernel's split and its time per
+    chunk (both entries), and the ring step's times, at the main path's
+    shapes, through the ``netrep_tpu_torch`` beside this script (another
+    checkout's, to compare two versions on one card)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA device available", file=sys.stderr)
+        return 1
+    import numpy as np
+
+    from netrep_tpu_torch.ops import fused_stats as fs
+    from netrep_tpu_torch.utils.config import EngineConfig
+
+    dev = torch.device("cuda")
+    card = card_line()
+    cfg = EngineConfig()
+    _sizes, labels, (xd, xt, _x2) = make_cohorts(np)
+    engine, chunk, obs = first_chunk(torch, np, labels, mats(torch, xd, dev),
+                                     mats(torch, xt, dev), cfg, dev)
+    torch.cuda.empty_cache()
+    timed = make_timer(torch)
+    kernel_split(fs, engine, chunk, cfg.power_iters, timed, card)
+    tc, tn, tdT = engine._test_corr, engine._test_net, engine._test_dataT
+    pvalid = torch.ones(cfg.chunk_size, dtype=torch.int32, device=dev)
+    emit({"phase": "kernel_times", "unit": "one chunk of "
+          f"{cfg.chunk_size} permutations x {MODULES} modules",
+          "times_ms": {
+              "fused_stats_values": timed(lambda: [
+                  fs.fused_stats_values(tc, tn, tdT, b.disc, idx,
+                                        n_iter=cfg.power_iters)
+                  for b, idx in chunk]),
+              "fused_stats_counts": timed(lambda: [
+                  fs.fused_stats_counts(tc, tn, tdT, b.disc, idx, pvalid, ob,
+                                        n_iter=cfg.power_iters)
+                  for (b, idx), ob in zip(chunk, obs)])},
+          "card": card})
+    ring_times(torch, fs, tc, timed, card)
+    print(card_line(), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -224,26 +534,14 @@ def main() -> int:
     import numpy as np
 
     from netrep_tpu_torch import ops as tops
-    from netrep_tpu_torch import random as trandom
     from netrep_tpu_torch.models.preservation import module_preservation
     from netrep_tpu_torch.ops import _build
     from netrep_tpu_torch.ops import fused_gather as fg
     from netrep_tpu_torch.ops import fused_stats as fs
     from netrep_tpu_torch.ops import pvalues as pv
-    from netrep_tpu_torch.parallel.engine import ModuleSpec, PermutationEngine
     from netrep_tpu_torch.parallel.mesh import make_mesh
     from netrep_tpu_torch.utils.config import EngineConfig
 
-    #: kernel vs plain: the kernel's power iteration runs as Z^T (Z v) and
-    #: sums in its own fixed order (csrc/fused_stats.cu); the plain version
-    #: forms the Gram matrix — float32 rounding apart, ~1e-5 at most
-    TOL = 1e-4
-    #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s outside
-    #: the tensor cores (the kernel does scalar f32 arithmetic)
-    HBM_BPS, F32_FLOPS = 3.35e12, 67e12
-    #: NVLink between two H100 SXM cards, each way (NVIDIA data sheet)
-    NVLINK_BPS = 450e9
-    SECTOR = 32
     dev = torch.device("cuda")
     card = card_line()
     cfg = EngineConfig()
@@ -256,14 +554,9 @@ def main() -> int:
     t0 = time.perf_counter()
     sources = list(_build.SOURCES)
     _build.build(sources)
-    lib = fs._lib()
+    fs._lib()
     fg._lib()
     fs._ring_lib()
-    for cap, s, hd in ((224, 128, 1), (32, 0, 0), (96, 40, 1)):
-        if lib.fused_stats_smem_bytes(cap, s, hd) != fs.resolve_smem_bytes(
-                cap, s, bool(hd)):
-            raise RuntimeError("shared-memory layout of the kernel and its "
-                               "Python guard disagree")
     built = {}
     for name in sources:
         info = _build.BUILD_INFO[name]
@@ -288,21 +581,9 @@ def main() -> int:
           "seconds": time.perf_counter() - t0})
 
     # ---- the kernels against their plain versions, at the path's shapes --
-    specs = [ModuleSpec(str(k + 1), np.flatnonzero(labels == str(k + 1)),
-                        np.flatnonzero(labels == str(k + 1)))
-             for k in range(MODULES)]
-    engine = PermutationEngine(dc, dn, dd, tc, tn, td, specs,
-                               np.arange(GENES), config=cfg, device=dev)
+    engine, chunk, obs = first_chunk(torch, np, labels, (dd, dc, dn),
+                                     (td, tc, tn), cfg, dev)
     tc32, tn32, tdT = engine._test_corr, engine._test_net, engine._test_dataT
-    perm = trandom.permutation(
-        trandom.perm_keys(trandom.key(SEED, device=dev), 0, cfg.chunk_size),
-        engine._pool_dev,
-    )
-    chunk = [(b, engine._bucket_idx(perm, b)) for b in engine.buckets]
-    observed = engine.observed()
-    obs = [torch.as_tensor(observed[b.module_pos], dtype=torch.float32,
-                           device=dev)
-           for b in engine.buckets]
 
     def run(values_or_counts, impl, batch):
         outs = []
@@ -356,38 +637,38 @@ def main() -> int:
           "counts_equal_tail_counts": True})
 
     # ---- times at the main path's shapes (one chunk: every bucket) -------
-    bytes_, flops = 0.0, 0.0
+    bytes_, flops, flops_kernel = 0.0, 0.0, 0.0
     per_bucket = []
     for b, idx in chunk:
         m = b.disc.mask.sum(-1).double()
         K, cap, B = len(b.module_pos), b.cap, idx.shape[0]
-        # per cell: one sector per scattered correlation and stored-network
-        # entry, the module's data rows, its indices and its 7 outputs
-        cell_bytes = (m * (m - 1) * SECTOR * 2 + m * SAMPLES * 4 + cap * 4
-                      + 7 * 4)
+        # per cell: one sector per distinct scattered correlation and
+        # stored-network entry (the matrices are symmetric: m(m-1)/2 pairs),
+        # the module's data rows, its indices and its 7 outputs
+        cell_bytes = (m * (m - 1) / 2 * SECTOR * 2 + m * SAMPLES * 4
+                      + cap * 4 + 7 * 4)
         bb = B * float(cell_bytes.sum()) + K * cap * cap * 4 * 2 + K * cap * 16
         ff = B * float((15 * m * (m - 1)
                         + (4 * cfg.power_iters + 12) * SAMPLES * m).sum())
+        # the kernel's own count: the Gram matrix of the smaller side (upper
+        # triangle), its n_iter products, and the streamed passes
+        f_, r_ = m.clamp(max=SAMPLES), m.clamp(min=SAMPLES)
+        fk = B * float((15 * m * (m - 1) + f_ * f_ * r_
+                        + 2 * f_ * f_ * cfg.power_iters
+                        + 12 * SAMPLES * m).sum())
         bytes_ += bb
         flops += ff
+        flops_kernel += fk
         per_bucket.append({"cap": cap, "modules": K, "batch": B,
+                           "tier": fs.kernel_tier(cap, SAMPLES, True),
                            "bound_ms": 1e3 * max(bb / HBM_BPS,
-                                                 ff / F32_FLOPS)})
+                                                 ff / F32_FLOPS),
+                           "kernel_ops_ms": 1e3 * fk / F32_FLOPS})
     t_bytes, t_ops = 1e3 * bytes_ / HBM_BPS, 1e3 * flops / F32_FLOPS
     bound_ms = max(t_bytes, t_ops)
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
 
-    def timed(fn, reps=5):
-        """Mean ms of ``fn()`` over ``reps`` runs, after one warm-up."""
-        fn()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(reps):
-            fn()
-        e1.record()
-        torch.cuda.synchronize()
-        return e0.elapsed_time(e1) / reps
+    timed = make_timer(torch)
 
     def interleaved(plain, kernel):
         """plain, kernel, kernel, plain: drift on the card hits both
@@ -401,21 +682,17 @@ def main() -> int:
         times[f"fused_stats_{mode}"] = interleaved(
             lambda: run(mode, "plain", cfg.chunk_size),
             lambda: run(mode, "kernel", cfg.chunk_size))
-    for b_info, (b, idx) in zip(per_bucket, chunk):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(5):
-            fs.fused_stats_values(tc32, tn32, tdT, b.disc, idx,
-                                  n_iter=cfg.power_iters)
-        e1.record()
-        torch.cuda.synchronize()
-        b_info["ms"] = e0.elapsed_time(e1) / 5
+    split_rows, _ = kernel_split(fs, engine, chunk, cfg.power_iters, timed,
+                                 card)
+    for b_info, row in zip(per_bucket, split_rows):
+        b_info["ms"] = row["full_ms"]
     emit({"phase": "kernel_times", "unit": "one chunk of "
           f"{cfg.chunk_size} permutations x {MODULES} modules "
           f"({len(chunk)} launches, one per bucket)",
           "launches_per_chunk": len(chunk), "bytes": bytes_, "flops": flops,
           "bytes_ms": t_bytes, "ops_ms": t_ops, "bound_ms": bound_ms,
+          "kernel_flops": flops_kernel,
+          "kernel_ops_ms": 1e3 * flops_kernel / F32_FLOPS,
           "bound_by": bound_by, "times_ms": times, "per_bucket": per_bucket,
           "library_ms": None,
           "library_note": "no single PyTorch call computes the seven "
@@ -589,25 +866,8 @@ def main() -> int:
           "max_abs_err": ring_err})
 
     # ---- ring times: one step of the ring (R launches, one per block) ----
-    ring = [tc32[r0: r0 + rows_per] for r0 in range(0, GENES, rows_per)]
-    dst = torch.empty_like(ring[0])
-    block_bytes = ring[0].numel() * 4
-    r_times = interleaved(lambda: fs.ring_shift_collective(ring),
-                          lambda: fs.ring_shift_dma(ring))
-    r_times = {k: v / R for k, v in r_times.items()}
-    r_times["library_ms"] = timed(lambda: [dst.copy_(b) for b in ring]) / R
-    r_times["bound_ms"] = 1e3 * 2 * block_bytes / HBM_BPS
-    r_times["nvlink_bound_ms"] = 1e3 * block_bytes / NVLINK_BPS
-    del ring, dst
-    emit({"phase": "ring_times", "unit": f"one launch: a {rows_per} x "
-          f"{GENES} float32 block copied on one card", "bytes": 2 * block_bytes,
-          "times_ms": r_times, "bound_by": "bytes",
-          "library_call": "dst.copy_(src) (a yardstick, never called by the "
-                          "port)",
-          "plain_note": "the plain version rotates the block list; on one "
-                        "card it moves no bytes",
-          "card": card})
-    del engine, chunk, perm, obs, tc32, tn32, tdT, long_idx, blocks
+    r_times = ring_times(torch, fs, tc32, timed, card)
+    del engine, chunk, obs, tc32, tn32, tdT, long_idx, blocks
     torch.cuda.empty_cache()
 
     # ---- the main path, through the public entry point -------------------
@@ -880,6 +1140,10 @@ def main() -> int:
     del dd, dc, dn, td, tc, tn, t2d, t2c, t2n
     torch.cuda.empty_cache()
 
+    # ---- 1,000-sample cohorts: every shape the JAX package computes ------
+    wide_samples(torch, np, fs, tops, module_preservation, cfg, card, dev)
+    torch.cuda.empty_cache()
+
     # ---- a small reference: the same call on the card and on the CPU -----
     from netrep_tpu_torch.data import make_example_pair, pair_frames
 
@@ -953,5 +1217,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(sequential_only() if sys.argv[1:] == ["--sequential-tests"]
-             else main())
+    modes = {"--sequential-tests": sequential_only, "--kernels": kernels_only,
+             "--p-values": p_values_only}
+    args = sys.argv[1:]
+    if len(args) > 1 or (args and args[0] not in modes):
+        sys.exit(f"usage: {sys.argv[0]} [{' | '.join(modes)}]")
+    sys.exit(modes[args[0]]() if args else main())

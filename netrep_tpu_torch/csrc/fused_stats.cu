@@ -4,51 +4,105 @@
 // Replaces the Pallas mega-kernel `_kernel` of netrep_tpu/ops/fused_stats.py
 // (:135, launched by `_call` :250 through `fused_stats_values` :345 and
 // `fused_stats_counts` :363). It computes what that kernel computes —
-// `module_stats_masked` with the fixed-count power-iteration summary — but
-// is laid out for Hopper rather than carried over block by block:
+// `module_stats_masked` with the fixed-count power-iteration summary — laid
+// out for Hopper rather than carried over block by block. The TPU kernel
+// DMAs the module's rows into an 8 MiB VMEM window; a Hopper block has at
+// most 227 KB of shared memory, so nothing here needs the module's data
+// slice (cap x s floats) to fit: every shape the JAX package computes runs.
 //
-// * The TPU kernel DMAs the module's cap rows into an 8 MiB VMEM window and
-//   selects columns with one-hot MXU products. A Hopper block has at most
-//   227 KB of shared memory, and one f32 224x224 submatrix is already
-//   200 KB (corr + net: 400 KB). So only the data slice (cap x s floats,
-//   115 KB at cap 224, s 128) stays resident; the correlation and network
-//   entries are read straight from global memory (L2) in two row sweeps.
-// * masked_pearson is two-pass (means, then centred products), as in
-//   netrep_tpu/ops/stats.py:49-64. The second sweep re-reads the
-//   correlation entries instead of holding the submatrix.
-// * The power iteration runs as v <- Z^T (Z v) on the resident data instead
-//   of forming the cap x cap Gram matrix (which would not fit). In exact
-//   arithmetic the two are the same map; in f32 they round differently, by
-//   about 1e-7 relative per step, and the iteration does not amplify it
-//   (each step is linear and renormalised). chip_smoke.py holds the kernel
-//   to its plain version at 1e-4 absolute on every statistic.
-// * Every reduction is a fixed warp-shuffle tree plus a fixed-order sum over
-//   warps, so a cell's statistics do not depend on scheduling. The counts
+// What bounds it. Per cell the kernel needs m(m-1)/2 scattered test
+// correlation entries (and as many network entries when the network is
+// stored), each from its own 32-byte sector: at the main path's shapes
+// (m 30-200, s 128) that traffic at 3.35 TB/s is the bound (bytes). A
+// first version kept the data slice resident and ran the power iteration
+// as v <- Z^T (Z v): a split of its time on the card (chip_smoke.py
+// `kernel_split`, PERF.md) put 45% in the iteration (60 serial steps, each
+// a cap-long dependent chain per thread and ~5 barriers) and 47% in the
+// topology (one scattered load in flight per lane, every pair read twice
+// and its correlation twice more). The design:
+//
+// * Topology with bytes in flight. A warp per node row; every lane issues
+//   UNROLL predicated loads (correlation, network, discovery entries) before
+//   using any, so a block keeps thousands of sectors requested. Where
+//   cap (cap + 1) floats fit in shared memory, each unordered pair is read
+//   once (the test matrices are symmetric) and cached there: the second
+//   (centred) sweep of cor.cor and the degrees read no device memory, and
+//   the space is reused by the data phase afterwards.
+// * The data slice streams. A first pass takes each node row's mean and
+//   standard deviation (two-pass, as ops/stats.py); every later pass
+//   standardizes on the fly from them, so each pass computes the same z.
+// * The power iteration runs on a Gram matrix in shared memory, formed once
+//   from streamed tiles by 4x4 register tiles (upper triangle, mirrored):
+//   - node tier (cap <= s): G = Z Z^T (cap x cap), the reference's own
+//     `gram`, masked by w each step;
+//   - sample tier (s < cap): C = Z^T Z (s x s), started from u0 = Z^T w
+//     (the anchor): with masked rows zero, n steps of C from Z^T v0 give the
+//     direction n steps of G then Z^T give;
+//   - stream tier, where neither Gram fits (min(cap, s) above ~224): each
+//     step streams Z twice, v <- w * Z (Z^T v).
+//   A step is a matrix-vector product (16-byte loads, four products each,
+//   the j range split over four thread groups), one reduction for the norm
+//   and three barriers; no thread runs a cap-long dependent chain.
+// * Every sum runs in a fixed order (warp trees, then warps or groups in
+//   order), so a cell's statistics do not depend on scheduling. The counts
 //   compare the very values this block writes, and integer atomics commute,
 //   so hi == sum((values >= obs) & pvalid) holds bit for bit.
-//
-// What bounds it: per cell the kernel reads m(m-1) scattered correlation
-// entries (and as many network entries when the network is stored), each
-// from its own 32-byte sector, plus m contiguous data rows of s floats,
-// and does ~15 m(m-1) + (4 n_iter + 12) s m floating-point operations,
-// most of them in the power iteration. At the main path's shapes (m
-// 30-200, s 128, n_iter 60, stored network) the sector traffic at
-// 3.35 TB/s takes about five times as long as the operations at the card's
-// 67 TFLOP/s scalar f32 rate: the bound is bytes. chip_smoke.py computes
-// both from each run's module sizes and prints the kernel's distance from
-// the bound; this first version makes no attempt to close it (no cp.async
-// or TMA, one 120 KB block per SM at cap 224, 4-byte scattered loads).
 
 #include <cuda_runtime.h>
 #include <math.h>
 
-#define NT 256
+#define NT 512
 #define NWARP (NT / 32)
 #define NQ_MAX 8
 #define N_STATS 7
 #define EPS 1e-30f
+#define UNROLL 4          // scattered loads a lane issues before using any
+#define TR 16             // reduction rows of one streamed Gram tile
+#define SMEM_LIMIT 232448 // dynamic shared memory of one H100 block
 
 enum { NET_STORED = -1, NET_UNSIGNED = 0, NET_SIGNED = 1, NET_HYBRID = 2 };
+enum { TIER_NONE = 0, TIER_NODE = 1, TIER_SAMPLE = 2, TIER_STREAM = 3 };
+
+// Shared memory of one block: `big` (the topology cache, then the Gram
+// matrix and its tile) followed by the per-node vectors.
+struct Layout {
+    int tier;
+    int F, Fp;        // Gram order, and it rounded up to 4 (G's row stride)
+    int cache;        // the gathered correlations stay in `big`
+    long long big;    // floats of `big`, a multiple of 4
+    long long bytes;  // dynamic shared memory of one block
+};
+
+// part (4 NT); red; sc; st; w, deg, nc, v, mu, sd, sidx (int)
+__host__ __device__ inline long long vec_floats(int cap) {
+    return 7LL * cap + 4 * NT + NWARP * NQ_MAX + NQ_MAX + 8;
+}
+
+__host__ __device__ inline Layout make_layout(int cap, int s, int has_data) {
+    Layout L;
+    const long long vec = vec_floats(cap);
+    long long data = 0;
+    L.tier = TIER_NONE;
+    L.F = L.Fp = 0;
+    if (has_data) {
+        const int F = cap < s ? cap : s;
+        const int Fp = (F + 3) / 4 * 4;
+        data = (long long)Fp * Fp + (long long)TR * (Fp + 4);
+        if (4 * (vec + data) <= SMEM_LIMIT) {
+            L.tier = cap <= s ? TIER_NODE : TIER_SAMPLE;
+            L.F = F;
+            L.Fp = Fp;
+        } else {
+            L.tier = TIER_STREAM;
+            data = 0;
+        }
+    }
+    const long long cc = ((long long)cap * (cap + 1) + 3) / 4 * 4;
+    L.cache = 4 * (vec + (cc > data ? cc : data)) <= SMEM_LIMIT;
+    L.big = L.cache && cc > data ? cc : data;
+    L.bytes = 4 * (vec + L.big);
+    return L;
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -111,7 +165,232 @@ __device__ float block_pearson(const float* __restrict__ x, const float* y,
     return r;
 }
 
-__global__ void __launch_bounds__(NT) fused_stats_kernel(
+// The standardized value of one data entry of a node row: as
+// standardize_masked, (x - mean) / sd, and 0 for a masked or constant row
+// (sd 0).
+__device__ __forceinline__ float zval(float x, float mu, float sd) {
+    return sd > 0.f ? (x - mu) / fmaxf(sd, EPS) : 0.f;
+}
+
+// The data rows a cell reads: node i's s samples start at tdT + sidx[i] * s.
+struct Rows {
+    const float* __restrict__ tdT;
+    const int* sidx;
+    const float* mu;
+    const float* sd;
+    int cap, s;
+    __device__ __forceinline__ const float* row(int i) const {
+        return tdT + (size_t)sidx[i] * s;
+    }
+    __device__ __forceinline__ float z(int i, int t) const {
+        return zval(__ldg(row(i) + t), mu[i], sd[i]);
+    }
+};
+
+// out_a[t] = sum_i z_it a[i] and, where out_b is set, out_b[t] = sum_i z_it,
+// for t < s (global scratch). Rows of sd 0 contribute nothing and are
+// skipped. With s < NT the rows are split over NT / s thread groups whose
+// sums are added in group order.
+__device__ void col_pass(const Rows& R, const float* a, float* out_a,
+                         float* out_b, float* part) {
+    const int s = R.s;
+    if (s >= NT) {
+        for (int t = threadIdx.x; t < s; t += NT) {
+            float ra = 0.f, rb = 0.f;
+#pragma unroll 4
+            for (int i = 0; i < R.cap; ++i) {
+                if (R.sd[i] > 0.f) {
+                    const float z = R.z(i, t);
+                    ra += z * a[i];
+                    rb += z;
+                }
+            }
+            out_a[t] = ra;
+            if (out_b) out_b[t] = rb;
+        }
+    } else {
+        const int ng = NT / s;
+        const int g = threadIdx.x / s, t = threadIdx.x - g * s;
+        if (g < ng) {
+            float ra = 0.f, rb = 0.f;
+#pragma unroll 4
+            for (int i = g; i < R.cap; i += ng) {
+                if (R.sd[i] > 0.f) {
+                    const float z = R.z(i, t);
+                    ra += z * a[i];
+                    rb += z;
+                }
+            }
+            part[g * s + t] = ra;
+            part[NT + g * s + t] = rb;
+        }
+        __syncthreads();
+        if (threadIdx.x < s) {
+            float ra = 0.f, rb = 0.f;
+            for (int gg = 0; gg < ng; ++gg) {
+                ra += part[gg * s + threadIdx.x];
+                rb += part[NT + gg * s + threadIdx.x];
+            }
+            out_a[threadIdx.x] = ra;
+            if (out_b) out_b[threadIdx.x] = rb;
+        }
+    }
+    __syncthreads();
+}
+
+// out[i] = sum_t z_it q[t] (q global), a warp per node row; 0 for rows of
+// sd 0.
+__device__ void row_pass(const Rows& R, const float* q, float* out) {
+    const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+    for (int i = wid; i < R.cap; i += NWARP) {
+        float acc = 0.f;
+        if (R.sd[i] > 0.f) {
+            const float* src = R.row(i);
+            const float m = R.mu[i], d = R.sd[i];
+#pragma unroll 4
+            for (int t = lane; t < R.s; t += 32)
+                acc += zval(__ldg(src + t), m, d) * q[t];
+        }
+        acc = warp_sum(acc);
+        if (lane == 0) out[i] = acc;
+    }
+    __syncthreads();
+}
+
+// Linear index L of the upper triangle (a <= b) of a q x q grid of tiles.
+__device__ __forceinline__ void upper_tile(int L, int q, int& a, int& b) {
+    const float qf = q + 0.5f;
+    int x = (int)(qf - sqrtf(fmaxf(qf * qf - 2.f * L, 0.f)));
+    x = max(0, min(x, q - 1));
+    while (x > 0 && x * (2 * q - x + 1) / 2 > L) --x;
+    while (x + 1 < q && (x + 1) * (2 * q - x) / 2 <= L) ++x;
+    a = x;
+    b = x + (L - x * (2 * q - x + 1) / 2);
+}
+
+// The Gram matrix of the smaller side into G (Fp x Fp, row stride Fp),
+// streamed in tiles T of TR reduction rows (row stride Fp + 4): node tier
+// G = Z Z^T (reduction over samples), sample tier C = Z^T Z (over nodes,
+// and the anchor sum_i z_it into anchor[t]). Each thread owns 4x4 tiles of
+// the upper triangle, accumulated in registers over a tile's rows; the
+// lower triangle is mirrored at the end.
+__device__ void gram_form(const Rows& R, int node, int F, int Fp, float* G,
+                          float* T, float* anchor) {
+    const int ldt = Fp + 4, q = Fp / 4, nup = q * (q + 1) / 2;
+    const int red_len = node ? R.s : R.cap;
+    for (int e = threadIdx.x; e < Fp * Fp; e += NT) G[e] = 0.f;
+    float anc = 0.f;
+    for (int r0 = 0; r0 < red_len; r0 += TR) {
+        if (node) {
+            // T[r][i] = z(i, r0 + r); r fastest, so a warp reads row runs
+            for (int e = threadIdx.x; e < TR * Fp; e += NT) {
+                const int r = e % TR, i = e / TR, t = r0 + r;
+                T[r * ldt + i] =
+                    (i < F && t < R.s && R.sd[i] > 0.f) ? R.z(i, t) : 0.f;
+            }
+        } else {
+            // T[r][t] = z(r0 + r, t)
+            for (int e = threadIdx.x; e < TR * Fp; e += NT) {
+                const int t = e % Fp, r = e / Fp, i = r0 + r;
+                T[r * ldt + t] =
+                    (t < F && i < R.cap && R.sd[i] > 0.f) ? R.z(i, t) : 0.f;
+            }
+        }
+        __syncthreads();
+        if (!node && threadIdx.x < F) {
+            for (int r = 0; r < TR; ++r) anc += T[r * ldt + threadIdx.x];
+        }
+        for (int L = threadIdx.x; L < nup; L += NT) {
+            int a, b;
+            upper_tile(L, q, a, b);
+            float acc[4][4];
+#pragma unroll
+            for (int x = 0; x < 4; ++x) {
+                const float4 g =
+                    *reinterpret_cast<const float4*>(G + (4 * a + x) * Fp + 4 * b);
+                acc[x][0] = g.x;
+                acc[x][1] = g.y;
+                acc[x][2] = g.z;
+                acc[x][3] = g.w;
+            }
+#pragma unroll 4
+            for (int r = 0; r < TR; ++r) {
+                const float4 xa =
+                    *reinterpret_cast<const float4*>(T + r * ldt + 4 * a);
+                const float4 xb =
+                    *reinterpret_cast<const float4*>(T + r * ldt + 4 * b);
+                const float av[4] = {xa.x, xa.y, xa.z, xa.w};
+                const float bv[4] = {xb.x, xb.y, xb.z, xb.w};
+#pragma unroll
+                for (int x = 0; x < 4; ++x)
+#pragma unroll
+                    for (int y = 0; y < 4; ++y) acc[x][y] += av[x] * bv[y];
+            }
+#pragma unroll
+            for (int x = 0; x < 4; ++x)
+                *reinterpret_cast<float4*>(G + (4 * a + x) * Fp + 4 * b) =
+                    make_float4(acc[x][0], acc[x][1], acc[x][2], acc[x][3]);
+        }
+        __syncthreads();
+    }
+    for (int e = threadIdx.x; e < Fp * Fp; e += NT) {
+        const int a = e / Fp, b = e - (e / Fp) * Fp;
+        if ((b >> 2) < (a >> 2)) G[e] = G[b * Fp + a];
+    }
+    if (!node && threadIdx.x < F) anchor[threadIdx.x] = anc;
+    __syncthreads();
+}
+
+// n_iter steps of v <- y / max(|y|, EPS), y = G v (times w where w is set),
+// on the F-vector v in shared memory. Thread (g, c) sums rows 4c..4c+3 of
+// G v over group g's quarter of j: one 16-byte load of G[j][4c..4c+3] (G
+// is symmetric, so a row of G is its column) and one of v[j] serve four
+// products. Threads i < F add the NG groups' sums in group order. A step
+// is latency-bound, so the groups stay few: each sum of partials is a
+// short chain.
+#define NG 4
+__device__ void gram_iterate(const float* G, int F, int Fp, const float* w,
+                             float* v, float* part, float* red, int n_iter) {
+    const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+    const int q = Fp / 4;
+    const int g = threadIdx.x / q, c = threadIdx.x - g * q;
+    const int J = (F + NG - 1) / NG;
+    const int j0 = g * J, j1 = min(F, j0 + J);
+    const bool active = g < NG;
+    for (int it = 0; it < n_iter; ++it) {
+        if (active) {
+            float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+            for (int j = j0; j < j1; ++j) {
+                const float4 gj =
+                    *reinterpret_cast<const float4*>(G + j * Fp + 4 * c);
+                const float vj = v[j];
+                acc.x += gj.x * vj;
+                acc.y += gj.y * vj;
+                acc.z += gj.z * vj;
+                acc.w += gj.w * vj;
+            }
+            *reinterpret_cast<float4*>(part + g * Fp + 4 * c) = acc;
+        }
+        __syncthreads();
+        float y = 0.f;
+        if (threadIdx.x < F) {
+            const int i = threadIdx.x;
+            y = (part[i] + part[Fp + i]) + (part[2 * Fp + i] + part[3 * Fp + i]);
+            if (w) y *= w[i];
+        }
+        const float sq = warp_sum(y * y);
+        if (lane == 0) red[wid] = sq;
+        __syncthreads();
+        float tot = 0.f;
+#pragma unroll
+        for (int r = 0; r < NWARP; ++r) tot += red[r];
+        if (threadIdx.x < F) v[threadIdx.x] = y / fmaxf(sqrtf(tot), EPS);
+        __syncthreads();
+    }
+}
+
+__global__ void __launch_bounds__(NT, 2) fused_stats_kernel(
     const float* __restrict__ tc, const float* __restrict__ tn,
     const float* __restrict__ tdT, const float* __restrict__ dcorr,
     const float* __restrict__ dsign, const float* __restrict__ ddeg,
@@ -119,26 +398,27 @@ __global__ void __launch_bounds__(NT) fused_stats_kernel(
     const float* __restrict__ dmask, const int* __restrict__ idx,
     const int* __restrict__ pvalid, const float* __restrict__ obs,
     float* __restrict__ vals, int* __restrict__ hi, int* __restrict__ lo,
-    int* __restrict__ eff, int n, int s, int K, int cap, int n_iter,
-    int net_kind, float beta, int counts) {
-    extern __shared__ float smem[];
+    int* __restrict__ eff, float* __restrict__ ws, int n, int s, int K,
+    int cap, int n_iter, int net_kind, float beta, int counts) {
+    extern __shared__ float4 smem4[];
+    const Layout lay = make_layout(cap, s, tdT != nullptr);
     const int cell = blockIdx.x;
     const int b = cell / K, k = cell - b * K;
     const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
     const bool has_data = tdT != nullptr;
-    const int s1 = s > 0 ? s : 1;
 
-    float* Z = smem;                              // cap * s (data mode)
-    float* w = Z + (has_data ? cap * s : 0);      // cap
-    float* deg = w + cap;                         // cap
-    float* v = deg + cap;                         // cap
-    float* nc = v + cap;                          // cap
-    float* u = nc + cap;                          // s1
-    float* an = u + s1;                           // s1
-    float* red = an + s1;                         // NWARP * NQ_MAX
-    float* sc = red + NWARP * NQ_MAX;             // NQ_MAX
-    float* st = sc + NQ_MAX;                      // N_STATS
-    int* sidx = reinterpret_cast<int*>(st + N_STATS + 1);  // cap
+    float* big = reinterpret_cast<float*>(smem4);  // lay.big
+    float* part = big + lay.big;                   // 4 NT (16-byte aligned)
+    float* red = part + 4 * NT;                    // NWARP * NQ_MAX
+    float* sc = red + NWARP * NQ_MAX;              // NQ_MAX
+    float* st = sc + NQ_MAX;                       // 8
+    float* w = st + 8;                             // cap
+    float* deg = w + cap;                          // cap
+    float* nc = deg + cap;                         // cap
+    float* v = nc + cap;                           // cap
+    float* mu = v + cap;                           // cap
+    float* sd = mu + cap;                          // cap
+    int* sidx = reinterpret_cast<int*>(sd + cap);  // cap
 
     for (int i = threadIdx.x; i < cap; i += NT) {
         // out-of-range slots clip like the TPU kernel's src_row; padded
@@ -149,6 +429,16 @@ __global__ void __launch_bounds__(NT) fused_stats_kernel(
     __syncthreads();
 
     // ---- topology, sweep 1: sums for the means, degrees, avg.cor -------
+    // With the cache, each unordered pair is read once, from the upper
+    // triangle: the test correlation and network are symmetric (the
+    // datasets' checks hold them so), and every statistic of the sweep is a
+    // ratio of pair sums, which summing each pair once leaves as it is.
+    // The cache keeps the pair's correlation above the diagonal and its
+    // network entry below (row stride cap + 1: a column is bank-free), and
+    // the degrees, which need whole rows, are read from it. Without the
+    // cache every row is read whole.
+    const bool sym = lay.cache;
+    const int ldc = cap + 1;
     const float* dc_k = dcorr + (size_t)k * cap * cap;
     const float* ds_k = dsign + (size_t)k * cap * cap;
     float t1[5] = {0.f, 0.f, 0.f, 0.f, 0.f};  // sx, sy, snet, savg, npair
@@ -157,20 +447,42 @@ __global__ void __launch_bounds__(NT) fused_stats_kernel(
         if (w[i] != 0.f) {
             const float* rc = tc + (size_t)sidx[i] * n;
             const float* rn = tn ? tn + (size_t)sidx[i] * n : nullptr;
-            for (int j = lane; j < cap; j += 32) {
-                if (j == i || w[j] == 0.f) continue;
-                const float c = rc[sidx[j]];
-                const float net = rn ? rn[sidx[j]] : derived(c, net_kind, beta);
-                t1[0] += dc_k[i * cap + j];
-                t1[1] += c;
-                t1[2] += net;
-                t1[3] += ds_k[i * cap + j] * c;
-                t1[4] += 1.f;
-                drow += net;
+            for (int j0 = sym ? i + 1 : 0; j0 < cap; j0 += 32 * UNROLL) {
+                float c[UNROLL], nt[UNROLL], dcv[UNROLL], dsv[UNROLL];
+                bool ok[UNROLL];
+#pragma unroll
+                for (int u = 0; u < UNROLL; ++u) {
+                    const int j = j0 + u * 32 + lane;
+                    ok[u] = j < cap && j != i && w[j] != 0.f;
+                    const int sj = ok[u] ? sidx[j] : 0;
+                    c[u] = ok[u] ? __ldg(rc + sj) : 0.f;
+                    nt[u] = (ok[u] && rn) ? __ldg(rn + sj) : 0.f;
+                    dcv[u] = ok[u] ? dc_k[i * cap + j] : 0.f;
+                    dsv[u] = ok[u] ? ds_k[i * cap + j] : 0.f;
+                }
+#pragma unroll
+                for (int u = 0; u < UNROLL; ++u) {
+                    const int j = j0 + u * 32 + lane;
+                    const float net =
+                        ok[u] ? (rn ? nt[u] : derived(c[u], net_kind, beta))
+                              : 0.f;
+                    t1[0] += dcv[u];
+                    t1[1] += c[u];
+                    t1[2] += net;
+                    t1[3] += dsv[u] * c[u];
+                    t1[4] += ok[u] ? 1.f : 0.f;
+                    drow += net;
+                    if (sym && j < cap) {
+                        big[i * ldc + j] = c[u];
+                        big[j * ldc + i] = net;
+                    }
+                }
             }
         }
-        drow = warp_sum(drow);
-        if (lane == 0) deg[i] = drow;
+        if (!sym) {
+            drow = warp_sum(drow);
+            if (lane == 0) deg[i] = drow;
+        }
     }
     block_sum<5>(t1, red, sc);
     const float npair = fmaxf(sc[4], EPS);
@@ -178,19 +490,46 @@ __global__ void __launch_bounds__(NT) fused_stats_kernel(
     const float avg_weight = sc[2] / npair;
     const float avg_cor = sc[3] / npair;
     __syncthreads();
+    if (sym) {
+        // deg[i]: row i left of the diagonal, column i below it; published
+        // by the barriers of sweep 2's sum
+        for (int i = wid; i < cap; i += NWARP) {
+            float d = 0.f;
+            if (w[i] != 0.f) {
+                for (int j = lane; j < cap; j += 32) {
+                    if (j != i && w[j] != 0.f)
+                        d += j < i ? big[i * ldc + j] : big[j * ldc + i];
+                }
+            }
+            d = warp_sum(d);
+            if (lane == 0) deg[i] = d;
+        }
+    }
 
     // ---- topology, sweep 2: centred products of cor.cor -----------------
     float t2[3] = {0.f, 0.f, 0.f};
     for (int i = wid; i < cap; i += NWARP) {
-        if (w[i] == 0.f) continue;
+        if (w[i] == 0.f) continue;  // the whole warp
         const float* rc = tc + (size_t)sidx[i] * n;
-        for (int j = lane; j < cap; j += 32) {
-            if (j == i || w[j] == 0.f) continue;
-            const float xc = dc_k[i * cap + j] - mx;
-            const float yc = rc[sidx[j]] - my;
-            t2[0] += xc * yc;
-            t2[1] += xc * xc;
-            t2[2] += yc * yc;
+        for (int j0 = sym ? i + 1 : 0; j0 < cap; j0 += 32 * UNROLL) {
+            float yv[UNROLL], xv[UNROLL];
+            bool ok[UNROLL];
+#pragma unroll
+            for (int u = 0; u < UNROLL; ++u) {
+                const int j = j0 + u * 32 + lane;
+                ok[u] = j < cap && j != i && w[j] != 0.f;
+                yv[u] = ok[u] ? (sym ? big[i * ldc + j] : __ldg(rc + sidx[j]))
+                              : 0.f;
+                xv[u] = ok[u] ? dc_k[i * cap + j] : 0.f;
+            }
+#pragma unroll
+            for (int u = 0; u < UNROLL; ++u) {
+                const float xc = ok[u] ? xv[u] - mx : 0.f;
+                const float yc = ok[u] ? yv[u] - my : 0.f;
+                t2[0] += xc * yc;
+                t2[1] += xc * xc;
+                t2[2] += yc * yc;
+            }
         }
     }
     block_sum<3>(t2, red, sc);
@@ -203,111 +542,157 @@ __global__ void __launch_bounds__(NT) fused_stats_kernel(
 
     float coherence = nanf(""), cor_contrib = nanf(""), avg_contrib = nanf("");
     if (has_data) {
-        // ---- resident data slice, standardized per node row -------------
-        for (int i = wid; i < cap; i += NWARP) {
-            float* zr = Z + (size_t)i * s;
-            const float* src = tdT + (size_t)sidx[i] * s;
-            const float wi = w[i];
-            float sum = 0.f;
-            for (int t = lane; t < s; t += 32) {
-                const float d = src[t] * wi;
-                zr[t] = d;
-                sum += d;
+        // ---- each node row's mean and sd (two-pass), rows streamed; a
+        // warp takes two rows at a time, so their loads and shuffle chains
+        // overlap
+        for (int i0 = wid; i0 < cap; i0 += 2 * NWARP) {
+            const float* src[2];
+            bool on[2];
+            float sum[2] = {0.f, 0.f}, ss[2] = {0.f, 0.f}, m[2];
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+                const int i = i0 + r * NWARP;
+                on[r] = i < cap && w[i] != 0.f;
+                src[r] = tdT + (size_t)(on[r] ? sidx[i] : 0) * s;
             }
-            const float mu = warp_sum(sum) / (float)s;
-            float ss = 0.f;
+#pragma unroll 4
             for (int t = lane; t < s; t += 32) {
-                const float xc = zr[t] - mu;
-                ss += xc * xc;
+#pragma unroll
+                for (int r = 0; r < 2; ++r)
+                    if (on[r]) sum[r] += __ldg(src[r] + t);
             }
-            const float sd = sqrtf(warp_sum(ss) / (float)(s > 1 ? s - 1 : 1));
+#pragma unroll
+            for (int r = 0; r < 2; ++r) m[r] = warp_sum(sum[r]) / (float)s;
+#pragma unroll 4
             for (int t = lane; t < s; t += 32) {
-                const float xc = zr[t] - mu;
-                zr[t] = (sd > 0.f ? xc / fmaxf(sd, EPS) : 0.f) * wi;
+#pragma unroll
+                for (int r = 0; r < 2; ++r) {
+                    if (on[r]) {
+                        const float xc = __ldg(src[r] + t) - m[r];
+                        ss[r] += xc * xc;
+                    }
+                }
+            }
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+                const int i = i0 + r * NWARP;
+                const float d =
+                    sqrtf(warp_sum(ss[r]) / (float)(s > 1 ? s - 1 : 1));
+                if (lane == 0 && i < cap) {
+                    mu[i] = on[r] ? m[r] : 0.f;
+                    sd[i] = on[r] ? d : 0.f;
+                }
             }
         }
         float q1[1] = {0.f};
         for (int i = threadIdx.x; i < cap; i += NT) q1[0] += w[i] * w[i];
-        block_sum<1>(q1, red, sc);
+        block_sum<1>(q1, red, sc);  // its barriers publish mu and sd too
         const float wn = fmaxf(sqrtf(sc[0]), EPS);
-        for (int i = threadIdx.x; i < cap; i += NT) v[i] = w[i] / wn;
-        __syncthreads();
+        const Rows R{tdT, sidx, mu, sd, cap, s};
+        float* anchor = ws + (size_t)cell * 2 * s;  // s, global scratch
+        float* prof = anchor + s;                    // s
 
-        // ---- power iteration: v <- w * Z^T (Z v), renormalised ----------
-        for (int it = 0; it < n_iter; ++it) {
-            for (int t = threadIdx.x; t < s; t += NT) {
-                float acc = 0.f;
-                for (int i = 0; i < cap; ++i) acc += Z[(size_t)i * s + t] * v[i];
-                u[t] = acc;
-            }
+        // ---- summary profile: power iteration, then prof = Z^T v ---------
+        if (lay.tier == TIER_SAMPLE) {
+            gram_form(R, 0, lay.F, lay.Fp, big, big + lay.Fp * lay.Fp,
+                      anchor);
+            for (int t = threadIdx.x; t < s; t += NT) v[t] = anchor[t];
             __syncthreads();
-            float ss[1] = {0.f};
-            for (int i = wid; i < cap; i += NWARP) {
-                const float* zr = Z + (size_t)i * s;
-                float acc = 0.f;
-                for (int t = lane; t < s; t += 32) acc += zr[t] * u[t];
-                acc = warp_sum(acc) * w[i];
-                if (lane == 0) {
-                    nc[i] = acc;
-                    ss[0] += acc * acc;
+            gram_iterate(big, lay.F, lay.Fp, nullptr, v, part, red, n_iter);
+            for (int t = threadIdx.x; t < s; t += NT) prof[t] = v[t];
+            __syncthreads();
+        } else {
+            for (int i = threadIdx.x; i < cap; i += NT) v[i] = w[i] / wn;
+            __syncthreads();
+            if (lay.tier == TIER_NODE) {
+                gram_form(R, 1, lay.F, lay.Fp, big, big + lay.Fp * lay.Fp,
+                          nullptr);
+                gram_iterate(big, lay.F, lay.Fp, w, v, part, red, n_iter);
+            } else {
+                for (int it = 0; it < n_iter; ++it) {
+                    col_pass(R, v, prof, nullptr, part);  // u = Z^T v
+                    row_pass(R, prof, nc);                // Z u
+                    float ss[1] = {0.f};
+                    for (int i = threadIdx.x; i < cap; i += NT) {
+                        const float y = nc[i] * w[i];
+                        nc[i] = y;
+                        ss[0] += y * y;
+                    }
+                    block_sum<1>(ss, red, sc);
+                    const float vn = fmaxf(sqrtf(sc[0]), EPS);
+                    for (int i = threadIdx.x; i < cap; i += NT)
+                        v[i] = nc[i] / vn;
+                    __syncthreads();
                 }
             }
-            block_sum<1>(ss, red, sc);
-            const float vn = fmaxf(sqrtf(sc[0]), EPS);
-            for (int i = threadIdx.x; i < cap; i += NT) v[i] = nc[i] / vn;
-            __syncthreads();
+            col_pass(R, v, prof, anchor, part);
         }
 
-        // ---- summary profile, sign-anchored to the mean node profile ----
+        // ---- the profile normalised and sign-anchored to the mean node
+        // profile, then centred
         float q2[1] = {0.f};
-        for (int t = threadIdx.x; t < s; t += NT) {
-            float p = 0.f, a = 0.f;
-            for (int i = 0; i < cap; ++i) {
-                const float z = Z[(size_t)i * s + t];
-                p += z * v[i];
-                a += z;
-            }
-            u[t] = p;
-            an[t] = a;
-            q2[0] += p * p;
-        }
+        for (int t = threadIdx.x; t < s; t += NT) q2[0] += prof[t] * prof[t];
         block_sum<1>(q2, red, sc);
         const float pn = fmaxf(sqrtf(sc[0]), EPS);
         float q3[1] = {0.f};
         for (int t = threadIdx.x; t < s; t += NT) {
-            u[t] = u[t] / pn;
-            q3[0] += u[t] * an[t];
+            const float p = prof[t] / pn;
+            prof[t] = p;
+            q3[0] += p * anchor[t];
         }
         block_sum<1>(q3, red, sc);
         const float sgn = sc[0] > 0.f ? 1.f : (sc[0] < 0.f ? -1.f : 1.f);
         float q4[1] = {0.f};
         for (int t = threadIdx.x; t < s; t += NT) {
-            u[t] *= sgn;
-            q4[0] += u[t];
+            const float p = prof[t] * sgn;
+            prof[t] = p;
+            q4[0] += p;
         }
         block_sum<1>(q4, red, sc);
         const float pmean = sc[0] / (float)s;
         float q5[1] = {0.f};
         for (int t = threadIdx.x; t < s; t += NT) {
-            u[t] -= pmean;
-            q5[0] += u[t] * u[t];
+            const float p = prof[t] - pmean;
+            prof[t] = p;
+            q5[0] += p * p;
         }
         block_sum<1>(q5, red, sc);
         const float pcn = sqrtf(sc[0]);
 
-        // ---- node contributions and the three data statistics -----------
-        for (int i = wid; i < cap; i += NWARP) {
-            const float* zr = Z + (size_t)i * s;
-            float num = 0.f, xx = 0.f;
-            for (int t = lane; t < s; t += 32) {
-                num += zr[t] * u[t];
-                xx += zr[t] * zr[t];
+        // ---- node contributions and the three data statistics, two rows
+        // per warp at a time -----------------------------------------------
+        for (int i0 = wid; i0 < cap; i0 += 2 * NWARP) {
+            const float* src[2];
+            bool on[2];
+            float num[2] = {0.f, 0.f}, xx[2] = {0.f, 0.f}, m[2], d[2];
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+                const int i = i0 + r * NWARP;
+                on[r] = i < cap && sd[i] > 0.f;
+                src[r] = tdT + (size_t)(on[r] ? sidx[i] : 0) * s;
+                m[r] = on[r] ? mu[i] : 0.f;
+                d[r] = on[r] ? sd[i] : 1.f;
             }
-            num = warp_sum(num);
-            xx = warp_sum(xx);
-            if (lane == 0) {
-                const float denom = sqrtf(xx) * pcn;
-                nc[i] = (denom > 0.f ? num / fmaxf(denom, EPS) : 0.f) * w[i];
+#pragma unroll 4
+            for (int t = lane; t < s; t += 32) {
+                const float p = prof[t];
+#pragma unroll
+                for (int r = 0; r < 2; ++r) {
+                    if (on[r]) {
+                        const float z = zval(__ldg(src[r] + t), m[r], d[r]);
+                        num[r] += z * p;
+                        xx[r] += z * z;
+                    }
+                }
+            }
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+                const int i = i0 + r * NWARP;
+                const float nu = warp_sum(num[r]), x2 = warp_sum(xx[r]);
+                if (lane == 0 && i < cap) {
+                    const float denom = sqrtf(x2) * pcn;
+                    nc[i] = (denom > 0.f ? nu / fmaxf(denom, EPS) : 0.f) * w[i];
+                }
             }
         }
         __syncthreads();
@@ -350,12 +735,10 @@ __global__ void __launch_bounds__(NT) fused_stats_kernel(
     }
 }
 
-extern "C" size_t fused_stats_smem_bytes(int cap, int s, int has_data) {
-    const int s1 = s > 0 ? s : 1;
-    return sizeof(float) * ((has_data ? (size_t)cap * s : 0) + 4 * (size_t)cap +
-                            2 * (size_t)s1 + NWARP * NQ_MAX + NQ_MAX +
-                            N_STATS + 1) +
-           sizeof(int) * (size_t)cap;
+// How the bucket's power iteration runs: 0 no data, 1 node-space Gram,
+// 2 sample-space Gram, 3 streamed.
+extern "C" int fused_stats_tier(int cap, int s, int has_data) {
+    return make_layout(cap, s, has_data).tier;
 }
 
 extern "C" const char* fused_stats_error_string(int err) {
@@ -363,15 +746,17 @@ extern "C" const char* fused_stats_error_string(int err) {
 }
 
 // Launches one block per (b, k) cell on `stream`; returns cudaGetLastError().
-// tn, tdT and (outside counts mode) pvalid/obs/hi/lo/eff may be null.
+// tn, tdT and (outside counts mode) pvalid/obs/hi/lo/eff may be null; ws is
+// global scratch of B * K * 2 * s floats where tdT is set.
 extern "C" int fused_stats_launch(
     const float* tc, const float* tn, const float* tdT, const float* dcorr,
     const float* dsign, const float* ddeg, const float* dcon,
     const float* dsgn, const float* dmask, const int* idx, const int* pvalid,
-    const float* obs, float* vals, int* hi, int* lo, int* eff, int n, int s,
-    int B, int K, int cap, int n_iter, int net_kind, float beta, int counts,
-    void* stream) {
-    const size_t smem = fused_stats_smem_bytes(cap, s, tdT != nullptr);
+    const float* obs, float* vals, int* hi, int* lo, int* eff, float* ws,
+    int n, int s, int B, int K, int cap, int n_iter, int net_kind,
+    float beta, int counts, void* stream) {
+    const long long smem = make_layout(cap, s, tdT != nullptr).bytes;
+    if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaFuncSetAttribute(
         fused_stats_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
@@ -379,7 +764,7 @@ extern "C" int fused_stats_launch(
     if (B > 0 && K > 0) {
         fused_stats_kernel<<<B * K, NT, smem, (cudaStream_t)stream>>>(
             tc, tn, tdT, dcorr, dsign, ddeg, dcon, dsgn, dmask, idx, pvalid,
-            obs, vals, hi, lo, eff, n, s, K, cap, n_iter, net_kind, beta,
+            obs, vals, hi, lo, eff, ws, n, s, K, cap, n_iter, net_kind, beta,
             counts);
     }
     return (int)cudaGetLastError();

@@ -17,9 +17,11 @@ Contracts, as in the JAX package:
 - ``tn`` None derives the network from the gathered correlation with
   ``net_beta``; ``tdT`` None is the data-less variant (the four data
   statistics are NaN);
-- :func:`resolve_smem_bytes` raises, before any launch and on both devices,
-  for a shape whose resident data slice would not fit in a block's shared
-  memory — a configuration is refused, never computed wrongly.
+- every ``(cap, s)`` computes, on both devices: the kernel streams the
+  module's data rows and never needs the data slice in shared memory;
+- ``tc`` and ``tn`` are symmetric, as the datasets' checks hold them: the
+  kernel reads each unordered pair once where its shared-memory cache
+  fits.
 
 Each wrapper counts its kernel launches in a plain integer attribute
 (``fused_stats_values.launches``), so a run can show its path went through
@@ -47,34 +49,11 @@ from . import stats as tstats
 from ._build import load
 from .oracle import N_STATS
 
-#: dynamic shared memory one H100 block may use (232,448 bytes of 256 KB)
-SMEM_LIMIT = 232448
-_NT = 256
-_NWARP = _NT // 32
-_NQ_MAX = 8
 _NET_KIND = {"unsigned": 0, "signed": 1, "signed-hybrid": 2}
 _SOURCE = "fused_stats"
 _RING_SOURCE = "ring_shift"
-
-
-def resolve_smem_bytes(cap: int, s: int, has_data: bool) -> int:
-    """Shared memory one kernel block holds for a ``cap``-node bucket with
-    ``s`` samples (the layout of ``csrc/fused_stats.cu``: the standardized
-    ``cap x s`` data slice plus per-node and per-sample vectors). Raises
-    ``ValueError`` past :data:`SMEM_LIMIT`."""
-    s1 = max(s, 1)
-    floats = (cap * s if has_data else 0) + 4 * cap + 2 * s1 \
-        + _NWARP * _NQ_MAX + _NQ_MAX + N_STATS + 1
-    nbytes = 4 * floats + 4 * cap
-    if nbytes > SMEM_LIMIT:
-        raise ValueError(
-            f"fused-statistics block needs {nbytes} bytes of shared memory "
-            f"(cap {cap}, {s} samples; limit {SMEM_LIMIT}): the module's "
-            "data slice does not fit on one streaming multiprocessor — "
-            "reduce cap_granularity padding, split the module, or drop "
-            "samples"
-        )
-    return nbytes
+#: how the kernel runs a bucket's power iteration (``fused_stats_tier``)
+TIERS = ("none", "node_gram", "sample_gram", "streamed")
 
 
 def _net_spec(tn, net_beta) -> tuple[int, float]:
@@ -131,12 +110,12 @@ def _lib():
     lib = load(_SOURCE)
     if not _DECLARED:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.fused_stats_launch.argtypes = [p] * 16 + [i] * 7 + [
+        lib.fused_stats_launch.argtypes = [p] * 17 + [i] * 7 + [
             ctypes.c_float, i, p,
         ]
         lib.fused_stats_launch.restype = i
-        lib.fused_stats_smem_bytes.argtypes = [i, i, i]
-        lib.fused_stats_smem_bytes.restype = ctypes.c_size_t
+        lib.fused_stats_tier.argtypes = [i, i, i]
+        lib.fused_stats_tier.restype = i
         lib.fused_stats_error_string.argtypes = [i]
         lib.fused_stats_error_string.restype = ctypes.c_char_p
         _DECLARED = True
@@ -175,6 +154,9 @@ def _launch(tc, tn, tdT, disc, idx, pvalid, obs, net_beta, n_iter, counts):
         ptr[field] = _check(getattr(disc, field), f"disc.{field}", f32,
                             (K, cap), dev)
     vals = torch.empty((B, K, N_STATS), dtype=f32, device=dev)
+    # per cell: the anchor and the summary profile, s floats each
+    ws = None if tdT is None else torch.empty((B * K * 2 * s,), dtype=f32,
+                                              device=dev)
     tallies = [None, None, None]
     if counts:
         ptr["pvalid"] = _check(pvalid, "pvalid", i32, (B,), dev)
@@ -189,8 +171,8 @@ def _launch(tc, tn, tdT, disc, idx, pvalid, obs, net_beta, n_iter, counts):
             ptr["degree"], ptr["contrib"], ptr["sign_contrib"], ptr["mask"],
             ptr["idx"], ptr.get("pvalid"), ptr.get("obs"), vals.data_ptr(),
             *(None if t is None else t.data_ptr() for t in tallies),
-            n, s, B, K, cap, int(n_iter), kind, float(beta), int(counts),
-            stream,
+            None if ws is None else ws.data_ptr(), n, s, B, K, cap,
+            int(n_iter), kind, float(beta), int(counts), stream,
         )
     if rc != 0:
         msg = lib.fused_stats_error_string(rc).decode()
@@ -198,15 +180,20 @@ def _launch(tc, tn, tdT, disc, idx, pvalid, obs, net_beta, n_iter, counts):
     return vals, tallies
 
 
-def _route(tc, tdT, idx) -> str:
-    """``"plain"`` for CPU tensors, ``"kernel"`` for CUDA ones; on both, the
-    shared-memory guard runs first."""
+def _route(tc) -> str:
+    """``"plain"`` for CPU tensors, ``"kernel"`` for CUDA ones."""
     if tc.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {tc.device} for fused_stats")
-    resolve_smem_bytes(int(idx.shape[-1]),
-                       0 if tdT is None else int(tdT.shape[-1]),
-                       tdT is not None)
     return "plain" if tc.device.type == "cpu" else "kernel"
+
+
+def kernel_tier(cap: int, s: int, has_data: bool) -> str:
+    """How the kernel runs the power iteration of a ``cap``-node bucket with
+    ``s`` samples (one of :data:`TIERS`): on the node-space Gram matrix
+    (``cap <= s``), on the sample-space one (``s < cap``), or streamed from
+    the data rows where neither fits in a block's shared memory. Needs the
+    built kernel."""
+    return TIERS[_lib().fused_stats_tier(cap, s, int(has_data))]
 
 
 def fused_stats_values(tc, tn, tdT, disc, idx, *, net_beta=None,
@@ -216,7 +203,7 @@ def fused_stats_values(tc, tn, tdT, disc, idx, *, net_beta=None,
     7)`` float32. ``tc``/``tn`` ``(n, n)`` float32, ``tdT`` ``(n, s)``
     float32 (the transposed data), ``disc`` the bucket's ``(K, …)``
     :class:`~netrep_tpu_torch.ops.stats.DiscProps`."""
-    if _route(tc, tdT, idx) == "plain":
+    if _route(tc) == "plain":
         return fused_stats_values_plain(tc, tn, tdT, disc, idx,
                                         net_beta=net_beta, n_iter=n_iter)
     vals, _ = _launch(tc, tn, tdT, disc, idx, None, None, net_beta, n_iter,
@@ -231,7 +218,7 @@ def fused_stats_counts(tc, tn, tdT, disc, idx, pvalid, obs, *, net_beta=None,
     exceedance tallies against ``obs`` ``(K, 7)`` float32, gated per
     permutation by ``pvalid`` ``(B,)`` int32. Returns ``(values, hi, lo,
     eff)`` with int32 ``(K, 7)`` tallies."""
-    if _route(tc, tdT, idx) == "plain":
+    if _route(tc) == "plain":
         return fused_stats_counts_plain(tc, tn, tdT, disc, idx, pvalid, obs,
                                         net_beta=net_beta, n_iter=n_iter)
     vals, (hi, lo, eff) = _launch(tc, tn, tdT, disc, idx, pvalid, obs,

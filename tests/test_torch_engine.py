@@ -32,15 +32,19 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
 
 from netrep_tpu.data import make_example_pair, make_mixed_pair  # noqa: E402
 from netrep_tpu.models import dataset as jds  # noqa: E402
 from netrep_tpu.models.preservation import _overlap_setup  # noqa: E402
 from netrep_tpu.ops import pvalues as jpv  # noqa: E402
+from netrep_tpu.ops import stats as J  # noqa: E402
 from netrep_tpu.parallel.engine import ModuleSpec as JSpec  # noqa: E402
 from netrep_tpu.parallel.engine import PermutationEngine as JEngine  # noqa: E402
 from netrep_tpu.utils.config import EngineConfig as JConfig  # noqa: E402
+from netrep_tpu_torch import random as trandom  # noqa: E402
 from netrep_tpu_torch.ops import pvalues as tpv  # noqa: E402
+from netrep_tpu_torch.ops import stats as T  # noqa: E402
 from netrep_tpu_torch.ops.stats import normalize_net_beta  # noqa: E402
 from netrep_tpu_torch.parallel.engine import ModuleSpec  # noqa: E402
 from netrep_tpu_torch.parallel.engine import PermutationEngine  # noqa: E402
@@ -347,3 +351,45 @@ def test_resolved_modes():
     # gather (the kernel's wrapper)
     for mode in ("auto", "direct", "fused"):
         assert EngineConfig(gather_mode=mode).gather_mode == mode
+
+
+def _sample_space_profile(z, w, n_iter):
+    """The fused-statistics kernel's order for a bucket with fewer samples
+    than nodes (``csrc/fused_stats.cu``, sample tier), written in torch:
+    the power iteration on the sample-space Gram matrix ``Z Z^T`` of the
+    ``(..., s, m)`` slice, started from the anchor ``Z w`` (the sum of the
+    valid node profiles) and normalised every step; the profile is its
+    direction, sign-anchored as in ``summary_profile_masked``."""
+    gram = z @ z.transpose(-1, -2)
+    anchor = (z * w[..., None, :]).sum(-1)
+    u = anchor
+    for _ in range(n_iter):
+        u = (gram @ u[..., None])[..., 0]
+        u = u / torch.clamp(torch.linalg.vector_norm(u, dim=-1, keepdim=True),
+                            min=1e-30)
+    prof = u / torch.clamp(torch.linalg.vector_norm(u, dim=-1, keepdim=True),
+                           min=1e-30)
+    sign = torch.sign((prof * anchor).sum(-1, keepdim=True))
+    return prof * torch.where(sign == 0, torch.ones_like(sign), sign)
+
+
+def test_sample_space_iteration_matches_jax(engines):
+    """The kernel's reordered iteration, held to the JAX package's
+    node-space ``summary_profile_masked`` on the null's own modules (the
+    first N_PERM permutations of SEED, which include the non-converging
+    ones of the example fixture): profiles and node contributions within
+    NULL_ATOL."""
+    te, key = engines["te"], engines["key"]
+    perm = trandom.permutation(trandom.perm_keys(key, 0, N_PERM),
+                               te._pool_dev)
+    for b in te.buckets:
+        w = b.disc.mask
+        z = T.gather_zdata(te._test_dataT, te._bucket_idx(perm, b), w)
+        got = _sample_space_profile(z, w, 60)
+        zj, wj = jnp.asarray(z.numpy()), jnp.asarray(w.numpy())
+        want = J.summary_profile_masked(zj, wj, n_iter=60)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=NULL_ATOL)
+        nc = T.node_contribution_masked(z, got, w).numpy()
+        nc_j = np.asarray(J.node_contribution_masked(zj, want, wj))
+        np.testing.assert_allclose(nc, nc_j, rtol=0, atol=NULL_ATOL)

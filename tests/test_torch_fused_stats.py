@@ -4,7 +4,10 @@ JAX package's own CPU path — on the same numpy inputs.
 
 Tolerance: 1e-5 absolute (float32 sums in different orders; the Pallas
 interpreter computes the gram-matrix power iteration, as the plain version
-does). The counts are checked EXACTLY against the port's own values."""
+does). The counts are checked EXACTLY against the port's own values. At
+shapes whose data slice no block's shared memory holds, the reference is
+the JAX package's XLA composition (``gather_and_stats``), at the same
+tolerance."""
 
 import numpy as np
 import pytest
@@ -118,18 +121,60 @@ def test_values_and_counts_share_values(case):
     assert torch.equal(v1, v2)
 
 
-def test_smem_budget_guard(case):
-    assert tfused.resolve_smem_bytes(224, 128, True) < tfused.SMEM_LIMIT
-    assert tfused.resolve_smem_bytes(224, 2000, False) < tfused.SMEM_LIMIT
-    with pytest.raises(ValueError, match="shared memory"):
-        tfused.resolve_smem_bytes(224, 300, True)
-    # the wrapper refuses the shape on the CPU too: a configuration the
-    # card cannot run is never computed anywhere
-    tdT = torch.zeros((N, 3000))  # 24 x 3000 floats: 288 KB
-    with pytest.raises(ValueError, match="shared memory"):
-        tfused.fused_stats_values(
-            torch.as_tensor(case["tc"]), None, tdT, case["dt"],
-            torch.as_tensor(case["idx"]), net_beta=2.0)
+def _wide_case(cap, s, n=500, K=2, B=2, seed=5):
+    """Inputs at a ``(cap, s)`` shape: one full module and one with a padded
+    tail, the test data ``(n, s)``."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((s, n)).astype(np.float32)
+    x[:, :40] += rng.standard_normal((s, 1)).astype(np.float32)
+    tc = np.corrcoef(x, rowvar=False).astype(np.float32)
+    np.fill_diagonal(tc, 1.0)
+    mask = np.zeros((K, cap), np.float32)
+    didx = np.zeros((K, cap), np.int64)
+    for k, sz in enumerate((cap, cap - 9)):
+        mask[k, :sz] = 1
+        didx[k, :sz] = rng.choice(n, sz, replace=False)
+    sub = np.stack([tc[d[:, None], d[None, :]] for d in didx])
+    data = np.stack([x[:, d] for d in didx])
+    return dict(
+        tc=tc, tn=(np.abs(tc) ** 2).astype(np.float32), tdT=x.T.copy(),
+        sub=sub, data=data, mask=mask,
+        idx=rng.integers(0, n, size=(B, K, cap)).astype(np.int32),
+    )
+
+
+@pytest.mark.parametrize("cap,s", [(64, 1000), (224, 300), (448, 128)],
+                         ids=("cap64_s1000", "cap224_s300", "cap448_s128"))
+def test_smem_budget_guard(cap, s):
+    """Shapes whose data slice a block's shared memory cannot hold (the
+    first kernel refused them on both devices) compute, and the CPU
+    wrappers equal the JAX package's composition there."""
+    c = _wide_case(cap, s)
+    dj = J.make_disc_props(c["sub"], J.derived_net(c["sub"], 2.0), c["data"],
+                           c["mask"])
+    dt = T.make_disc_props(torch.as_tensor(c["sub"]),
+                           T.derived_net(torch.as_tensor(c["sub"]), 2.0),
+                           torch.as_tensor(c["data"]),
+                           torch.as_tensor(c["mask"]))
+    one = jax.jit(lambda d, ix: J.gather_and_stats(
+        d, ix, jnp.asarray(c["tc"]), jnp.asarray(c["tn"]),
+        jnp.asarray(c["tdT"]), n_iter=N_ITER))
+    want = np.stack([np.stack([
+        np.asarray(one(J.DiscProps(*(a[k] for a in dj)),
+                       jnp.asarray(c["idx"][b, k])))
+        for k in range(2)]) for b in range(2)])
+    args = (torch.as_tensor(c["tc"]), torch.as_tensor(c["tn"]),
+            torch.as_tensor(c["tdT"]), dt, torch.as_tensor(c["idx"]))
+    got = tfused.fused_stats_values(*args, n_iter=N_ITER).numpy()
+    assert got.shape == (2, 2, 7) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+    obs = np.zeros((2, 7), np.float32)
+    v, hi, lo, eff = tfused.fused_stats_counts(
+        *args, torch.ones(2, dtype=torch.int32), torch.as_tensor(obs),
+        n_iter=N_ITER)
+    assert torch.equal(v, torch.as_tensor(got))
+    for got_t, want_t in zip((hi, lo, eff), tpv.tail_counts(obs, got)):
+        np.testing.assert_array_equal(got_t.numpy(), want_t)
 
 
 def test_derived_mode_needs_beta(case):

@@ -5,8 +5,9 @@ JAX, so it runs on a machine that has only the port's dependencies:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 
 Tolerances, kernel vs plain: fused statistics 1e-4 absolute (the kernel
-runs the power iteration as ``v <- Z^T (Z v)`` and sums in its own fixed
-order; the plain version forms the Gram matrix, ``csrc/fused_stats.cu``
+sums in its own fixed order and, by shape, iterates on the node-space Gram
+matrix, the sample-space one, or streams the data rows each step; the
+plain version forms the node-space Gram matrix, ``csrc/fused_stats.cu``
 notes); the gather and the ring shift none — both are copies, so they are
 bit-equal.
 """
@@ -38,7 +39,11 @@ def cuda():
 def _case(dev, n=400, s=40, cap=64, sizes=(64, 50, 33), B=16, seed=0):
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((s, n)).astype(np.float32)
-    tc = np.corrcoef(x, rowvar=False).astype(np.float32)
+    x[:, :30] += rng.standard_normal((s, 1)).astype(np.float32)
+    x[:, 1] = 0.25  # a constant data row: its standardized row is zero
+    with np.errstate(invalid="ignore"):
+        tc = np.corrcoef(x, rowvar=False).astype(np.float32)
+    tc = np.nan_to_num(tc)  # the constant row correlates with nothing
     np.fill_diagonal(tc, 1.0)
     K = len(sizes)
     mask = np.zeros((K, cap), np.float32)
@@ -52,10 +57,11 @@ def _case(dev, n=400, s=40, cap=64, sizes=(64, 50, 33), B=16, seed=0):
     sub = T.gather_submatrix(tcd, di)
     disc = T.make_disc_props(sub, sub.abs() ** 2, xd[:, di].permute(1, 0, 2),
                              torch.as_tensor(mask, device=dev))
+    idx = rng.integers(0, n, (B, K, cap)).astype(np.int32)
+    idx[:, :, :2] = (1, 2)  # every cell holds the constant row
     return dict(
         tc=tcd, tn=tcd.abs() ** 2, tdT=xd.T.contiguous(), disc=disc,
-        idx=torch.as_tensor(rng.integers(0, n, (B, K, cap)).astype(np.int32),
-                            device=dev),
+        idx=torch.as_tensor(idx, device=dev), sizes=sizes,
         obs=torch.as_tensor((rng.standard_normal((K, 7)) * 0.05)
                             .astype(np.float32), device=dev),
         pvalid=torch.as_tensor(np.r_[np.ones(B - 3), np.zeros(3)]
@@ -82,12 +88,59 @@ def test_kernel_matches_plain(cuda, net, with_data):
     assert err <= TOL, err
 
 
-def test_kernel_counts_are_its_own_values(cuda):
-    c = _case(cuda)
+#: one shape per way the kernel runs the power iteration, each with modules
+#: of 1 and 2 real nodes beside full and padded ones
+TIER_CASES = {
+    "node_gram": dict(n=400, s=80, cap=64, sizes=(64, 50, 2, 1)),
+    "sample_gram": dict(n=400, s=40, cap=64, sizes=(64, 50, 33, 2, 1)),
+    "streamed": dict(n=600, s=512, cap=256, sizes=(256, 201, 2, 1), B=6),
+}
+
+
+def _assert_close_to_plain(got, want, sizes):
+    """Kernel values within TOL of the plain version's, NaN patterns equal.
+    A two-node module's node contributions are equal in exact arithmetic,
+    so its cor.contrib is 0/0 and rounding alone picks +-1 or NaN: that
+    entry is left out."""
+    keep = torch.ones_like(got, dtype=torch.bool)
+    for k, sz in enumerate(sizes):
+        if sz == 2:
+            keep[:, k, 4] = False
+    got, want = got[keep], want[keep]
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    err = torch.nan_to_num((got - want).abs(), nan=0.0).max().item()
+    assert err <= TOL, err
+
+
+@pytest.mark.parametrize("n_iter", (60, 0))
+@pytest.mark.parametrize("net", ("stored", "derived"))
+@pytest.mark.parametrize("tier", tuple(TIER_CASES))
+def test_kernel_tiers_match_plain(cuda, tier, net, n_iter):
+    c = _case(cuda, **TIER_CASES[tier])
+    cap, s = c["idx"].shape[-1], c["tdT"].shape[-1]
+    assert tfused.kernel_tier(cap, s, True) == tier
+    tn = c["tn"] if net == "stored" else None
+    beta = None if net == "stored" else 2.0
+    got = tfused.fused_stats_values(c["tc"], tn, c["tdT"], c["disc"],
+                                    c["idx"], net_beta=beta, n_iter=n_iter)
+    want = tfused.fused_stats_values_plain(c["tc"], tn, c["tdT"], c["disc"],
+                                           c["idx"], net_beta=beta,
+                                           n_iter=n_iter)
+    torch.cuda.synchronize()
+    _assert_close_to_plain(got, want, c["sizes"])
+    one = list(c["sizes"]).index(1)
+    assert torch.isnan(got[:, one, [2, 3]]).all()  # no pair, no degree
+
+
+@pytest.mark.parametrize("tier", tuple(TIER_CASES))
+def test_kernel_counts_are_its_own_values(cuda, tier):
+    c = _case(cuda, **TIER_CASES[tier])
+    B = c["idx"].shape[0]
+    pvalid = torch.ones(B, dtype=torch.int32, device=cuda)
+    pvalid[-2:] = 0
     v, hi, lo, eff = tfused.fused_stats_counts(
-        c["tc"], c["tn"], c["tdT"], c["disc"], c["idx"], c["pvalid"],
-        c["obs"])
-    sel = (c["pvalid"] > 0)[:, None, None]
+        c["tc"], c["tn"], c["tdT"], c["disc"], c["idx"], pvalid, c["obs"])
+    sel = (pvalid > 0)[:, None, None]
     ob = c["obs"][None]
     assert torch.equal(hi, ((v >= ob) & sel).sum(0, dtype=torch.int32))
     assert torch.equal(lo, ((v <= ob) & sel).sum(0, dtype=torch.int32))
@@ -203,9 +256,12 @@ def _ring_blocks(dev, R=4, rows=250, seed=2):
 def test_ring_kernel_bit_equal_to_plain(cuda):
     _M, ring = _ring_blocks(cuda)
     flat = torch.randn(49 * 201 + 1, device=cuda)
+    small = [torch.randn(shape, device=cuda)
+             for shape in ((1, 1), (1, 3), (7,), (3, 5), (129, 7), (2, 1030))]
     for blocks in (ring, [torch.randn((49, 201), device=cuda)],
                    [flat[1:].view(49, 201), torch.randn((49, 201),
-                                                        device=cuda)]):
+                                                        device=cuda)],
+                   small, [flat[1:8], flat[3:4]]):
         before = tfused.ring_shift_dma.launches
         got = tfused.ring_shift_dma(blocks)
         assert tfused.ring_shift_dma.launches == before + len(blocks)

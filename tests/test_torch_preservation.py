@@ -217,3 +217,33 @@ def test_numpy_inputs_match_jax():
     rt = module_preservation(**kw, device="cpu")
     rj = netrep_tpu.module_preservation(**kw)
     _assert_same(rt, rj)
+
+
+@pytest.mark.parametrize("store_nulls", (True, False))
+def test_thousand_samples_match_jax(store_nulls):
+    """A 1,000-sample test cohort: the fused path (``stat_mode='auto'``)
+    computes it, with the JAX package's p-values and counts. The port's
+    first kernel refused the 40-node module's bucket (cap 64) at this
+    sample count on both devices."""
+    pair = make_example_pair(np.random.default_rng(3), n_samples_test=1000,
+                             module_sizes=(40, 12, 10, 8))
+    d, t = pair_frames(pair)
+    kw = dict(network={"d": d["network"], "t": t["network"]},
+              data={"d": d["data"], "t": t["data"]},
+              correlation={"d": d["correlation"], "t": t["correlation"]},
+              module_assignments=pair["labels"], n_perm=40, seed=1,
+              store_nulls=store_nulls)
+    rt = module_preservation(**kw, device="cpu")
+    rj = netrep_tpu.module_preservation(**kw)
+    np.testing.assert_allclose(rt.observed, rj.observed, rtol=0, atol=ATOL)
+    np.testing.assert_array_equal(rt.p_values, rj.p_values)
+    if store_nulls:
+        from netrep_tpu.ops.pvalues import tail_counts
+
+        for a, b in zip(tail_counts(rt.observed, rt.nulls),
+                        tail_counts(rj.observed, rj.nulls)):
+            np.testing.assert_array_equal(a, b)
+    else:
+        for name in ("counts_hi", "counts_lo", "counts_eff"):
+            np.testing.assert_array_equal(getattr(rt, name),
+                                          getattr(rj, name))
