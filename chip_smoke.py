@@ -7,7 +7,17 @@ Builds the port's CUDA kernels from ``netrep_tpu_torch/csrc`` with nvcc
 plain PyTorch version on the card and times both (and, where one PyTorch
 call computes the same function, that call) at the main path's shapes,
 and splits the fused-statistics kernel's time bucket by bucket
-(``kernel_split``: full, ``n_iter=0``, ``tdT=None``). Then it drives the
+(``kernel_split``: full, ``n_iter=0``, ``tdT=None``). ``asymmetry`` holds
+the fused kernel to its plain version on test matrices as asymmetric as
+the datasets accept, in the tier that reads one triangle and the one that
+reads whole rows. The gather kernel (every bucket of a chunk in one
+launch) is held bit-equal to its plain version in each way it reads a row
+(``gather_vs_plain``) and timed (``gather_times``: per chunk and matrix,
+one launch and one launch per bucket, four row blocks written in place,
+the ring's local part, the bound and the sector floor of a scattered
+design, the staged/in-place crossover). ``ring_trace`` splits one chunk
+of the ring path (local gather, ring steps, adds and fills, composed
+statistics). Then it drives the
 public entry point
 ``netrep_tpu_torch.models.preservation.module_preservation`` at the
 north-star width — 20,000 genes, 50 planted modules of 30–200 nodes, 128
@@ -16,15 +26,17 @@ launch count set to 0 just before a path and read just after:
 
 - ``main_path``: the fused-statistics null, materialized and streaming;
 - ``composed_path``: ``stat_mode='xla', gather_mode='fused'`` (the gather
-  kernel, then the composed statistics), both null modes;
+  kernel, one launch per chunk and matrix, then the composed statistics),
+  both null modes;
 - ``derived_network``: ``network_from_correlation=2.0``, through the
   fused-statistics kernel in its derived-network mode and through the
   composed null;
 - ``row_sharded``: ``mesh=make_mesh(1, 4, devices=[cuda:0] * 4)`` with
   ``matrix_sharding='row'`` — four row shards on the one card: the ring
-  path (the ring-shift kernel moves the 5,000-row blocks, the local gather
-  kernel reads them) materialized, streaming and with a derived network,
-  and the psum path (``stat_mode='xla'``), streaming;
+  path (the ring-shift kernel moves the 5,000-row blocks, the gather
+  kernel writes each block's rows in place, one launch per step, shard and
+  matrix) materialized, streaming and with a derived network, and the psum
+  path (``stat_mode='xla'``, one launch per block and matrix), streaming;
 - ``perm_mesh``: the fused-statistics null on ``make_mesh(2, 1,
   devices=[cuda:0] * 2)``, streaming;
 - ``multi_card``: the ring path on a 1×2 mesh over two cards, where the
@@ -42,7 +54,8 @@ launch count set to 0 just before a path and read just after:
   1,000 permutations;
 
 and checks each against the others: equal p-values where the same
-statistics run, nulls within 1e-4 where the arithmetic differs. Inputs are
+statistics run, nulls within 1e-4 where the arithmetic differs, and every
+gather and ring-step launch count equal to what the path should make. Inputs are
 generated from a fixed seed (data with numpy on the host, correlation and
 network on the card) and handed to the entry point as host numpy arrays, as
 a user holds them, so its input phase includes the copy to the card.
@@ -62,12 +75,19 @@ runs only the inputs and the ``sequential_tests`` call, and
 only the fused-statistics kernel's split and chunk times and the ring
 step's times, and
 
+    python3 chip_smoke.py --gather
+
+only one chunk's gather per matrix and the ring's assembly, by whichever
+gather design the checkout has, the ring trace and (redesigned gather) the
+crossover, and
+
     python3 chip_smoke.py --p-values
 
-only the p-values and counts of the main path, the derived network, the
-row-sharded ring, the perm mesh and two cohorts, each through the
-``netrep_tpu_torch`` beside the script: copied into another checkout, it
-measures that checkout's version on the same inputs.
+only the p-values and counts of the main path, the composed null, the
+derived network, the row-sharded ring and psum paths, the perm mesh and
+two cohorts, each through the ``netrep_tpu_torch`` beside the script:
+copied into another checkout, it measures that checkout's version on the
+same inputs.
 """
 
 from __future__ import annotations
@@ -170,20 +190,28 @@ def make_timer(torch):
     return timed
 
 
-def first_chunk(torch, np, labels, disc, test, cfg, dev):
+def make_engine(np, labels, disc, test, cfg, dev, mesh=None):
     """The engine of one (discovery, test) pair, each side ``(data,
-    correlation, network)`` on the card, and the first chunk of its null:
-    ``(engine, chunk, obs)``, ``chunk`` a list of ``(bucket, idx)`` and
-    ``obs`` each bucket's observed statistics as float32 on the card."""
-    from netrep_tpu_torch import random as trandom
+    correlation, network)``, over every planted module."""
     from netrep_tpu_torch.parallel.engine import ModuleSpec, PermutationEngine
 
     mods = sorted(set(labels) - {"0"}, key=int)
     specs = [ModuleSpec(k, np.flatnonzero(labels == k),
                         np.flatnonzero(labels == k)) for k in mods]
     (dd, dc, dn), (td, tc, tn) = disc, test
-    engine = PermutationEngine(dc, dn, dd, tc, tn, td, specs,
-                               np.arange(len(labels)), config=cfg, device=dev)
+    return PermutationEngine(dc, dn, dd, tc, tn, td, specs,
+                             np.arange(len(labels)), config=cfg, device=dev,
+                             mesh=mesh)
+
+
+def first_chunk(torch, np, labels, disc, test, cfg, dev):
+    """The engine of one (discovery, test) pair, each side ``(data,
+    correlation, network)`` on the card, and the first chunk of its null:
+    ``(engine, chunk, obs)``, ``chunk`` a list of ``(bucket, idx)`` and
+    ``obs`` each bucket's observed statistics as float32 on the card."""
+    from netrep_tpu_torch import random as trandom
+
+    engine = make_engine(np, labels, disc, test, cfg, dev)
     perm = trandom.permutation(
         trandom.perm_keys(trandom.key(SEED, device=dev), 0, cfg.chunk_size),
         engine._pool_dev,
@@ -256,6 +284,352 @@ def ring_times(torch, fs, M, timed, card):
           "order": "plain, kernel, library, library, kernel, plain",
           "card": card})
     return t
+
+
+def same(torch, got, want):
+    """Bit-equal, NaN positions compared apart."""
+    nan = torch.isnan(got)
+    return torch.equal(nan, torch.isnan(want)) and torch.equal(
+        torch.where(nan, 0.0, got), torch.where(nan, 0.0, want))
+
+
+def abs_err(torch, got, want):
+    """Largest |got - want| off the NaN positions (which ``same``
+    compares)."""
+    nan = torch.isnan(got) | torch.isnan(want)
+    return (torch.where(nan, 0.0, got)
+            - torch.where(nan, 0.0, want)).abs().max().item()
+
+
+def gather_bound(torch, chunk, n, blocks):
+    """Bytes of one chunk's gather from one n x n matrix by the rule of
+    the guide: each needed entry read once at 4 bytes (the distinct (row,
+    column) pairs of every instance's slots, counted on the card), each
+    output entry written once, the indices read once per launch over
+    ``blocks`` row blocks; beside it the sector floor of a scattered
+    design: one 32-byte sector per real entry (m^2 per module: padded slots
+    read node 0, which stays in L2), as PRs 3-5 bounded the gather."""
+    seen = torch.zeros(n * n, dtype=torch.bool, device=chunk[0][1].device)
+    real = written = idx_bytes = 0
+    for b, idx in chunk:
+        ix = idx.long()
+        seen[(ix[..., :, None] * n + ix[..., None, :]).reshape(-1)] = True
+        real += idx.shape[0] * float((b.disc.mask.sum(-1).double() ** 2)
+                                     .sum())
+        written += idx.numel() * idx.shape[-1]
+        idx_bytes += idx.numel() * 4
+    distinct = int(seen.sum())
+    del seen
+    return {"distinct_entries": distinct, "real_entries": real,
+            "written_entries": written,
+            "bytes": 4 * distinct + 4 * written + blocks * idx_bytes,
+            "sector_floor_bytes": SECTOR * real + blocks * (4 * written
+                                                            + idx_bytes)}
+
+
+def gather_vs_plain(torch, fg, chunk, tc32, dev, batch):
+    """The redesigned gather kernel against its plain version on the card,
+    bit for bit, with sentinel slots and a NaN planted in a row the slots
+    read: every bucket of the chunk in one launch, with the crossover left
+    to the kernel (``batch`` 8: few output rows per source row, read in
+    place; the full chunk: rows staged) and forced each way; into NaN
+    buffers over four row blocks (``out=``), which must leave the
+    replicated gather; the single-bucket entries; a hot row; and a (64,
+    60,000) row block, wider than any block's shared memory."""
+    err = 0.0
+    checked = 0
+
+    def check(got, want, what):
+        nonlocal err, checked
+        for g, w in zip(got, want):
+            err = max(err, abs_err(torch, g, w))
+            if not same(torch, g, w):
+                raise RuntimeError(f"gather kernel != plain ({what})")
+            checked += 1
+
+    def with_sentinels(idx):
+        idx = idx.clone()
+        idx[..., 0, 1] = -1
+        idx[..., -1, 2] = GENES + 5
+        return idx
+
+    i0 = chunk[0][1]
+    r_nan, c_nan = int(i0[0, 0, 0]), int(i0[0, 0, 1])
+    m_nan = tc32.clone()
+    m_nan[r_nan, c_nan] = float("nan")
+    rows_per = GENES // 4
+    nan_seen = 0
+    saved = fg.STAGE_DIV
+    for ix in ([idx[:batch].contiguous() for _, idx in chunk],
+               [with_sentinels(idx[:batch]) for _, idx in chunk]):
+        for M in (tc32, m_nan):
+            want = fg.gather_submatrix_fused_many_plain(M, ix)
+            try:
+                for div in (saved, 0, 1 << 20):
+                    fg.STAGE_DIV = div
+                    check(fg.gather_submatrix_fused_many(M, ix), want,
+                          f"batch {batch}, STAGE_DIV {div}")
+            finally:
+                fg.STAGE_DIV = saved
+            nan_seen += sum(int(torch.isnan(w).any()) for w in want)
+            out = [torch.full(w.shape, float("nan"), device=dev)
+                   for w in want]
+            for r0 in range(0, GENES, rows_per):
+                fg.gather_submatrix_fused_many(M[r0: r0 + rows_per], ix, r0,
+                                               out=out)
+            check(out, want, f"out= over row blocks, batch {batch}")
+            check([fg.gather_submatrix_fused(M, ix[-1])], want[-1:],
+                  "single bucket")
+            blk = M[rows_per: 2 * rows_per]
+            check([fg.gather_submatrix_fused_local(blk, ix[0], rows_per)],
+                  [fg.gather_submatrix_fused_local_plain(blk, ix[0],
+                                                         rows_per)],
+                  "local entry")
+    hot = [idx[:batch].clone() for _, idx in chunk]
+    for ix in hot:
+        ix[..., 1:] = 17   # nearly every slot reads one row
+    check(fg.gather_submatrix_fused_many(tc32, hot),
+          fg.gather_submatrix_fused_many_plain(tc32, hot), "hot row")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    wide = torch.randn((64, 60_000), device=dev, generator=gen)
+    wide[3, 11] = float("nan")
+    wix = torch.randint(0, 60_000, (batch, 48), device=dev,
+                        generator=gen, dtype=torch.int32)
+    wix[:, :24] = torch.randint(600, 664, (batch, 24), device=dev,
+                                generator=gen, dtype=torch.int32)
+    wix[:, 0], wix[:, 1] = 603, 11
+    wix[0, 5] = -1
+    check([fg.gather_submatrix_fused_local(wide, wix, 600)],
+          [fg.gather_submatrix_fused_local_plain(wide, wix, 600)],
+          "(64, 60000) row block")
+    torch.cuda.synchronize()
+    if nan_seen == 0:
+        raise RuntimeError("the planted NaN reached no gathered block")
+    return err, checked
+
+
+def gather_times(torch, fg, fs, chunk, tc32, timed, dev):
+    """One chunk's gather from one matrix, by whichever gather the
+    ``netrep_tpu_torch`` beside this script has: the redesigned kernel
+    (every bucket in one launch; the ring's local part in place, one
+    launch per step and shard) or the first kernel (one launch per bucket;
+    the ring's local part one launch per step, shard and bucket, summed
+    by ``add_``). Also the whole ring assembly of the chunk for the one
+    matrix (``ring_gather_all``, its three ring steps included)."""
+    C = chunk[0][1].shape[0]
+    R, rows_per = 4, GENES // 4
+    idx_list = [idx for _, idx in chunk]
+    shard = [[i[j * C // R: (j + 1) * C // R] for i in idx_list]
+             for j in range(R)]
+    ring = [tc32[r0: r0 + rows_per] for r0 in range(0, GENES, rows_per)]
+    many = getattr(fg, "gather_submatrix_fused_many", None)
+    if many is not None:
+        def replicated():
+            return many(tc32, idx_list)
+
+        outs = [[torch.empty(i.shape + i.shape[-1:], device=dev)
+                 for i in shard[j]] for j in range(R)]
+
+        def ring_local():
+            for t in range(R):
+                for j in range(R):
+                    r0 = ((j - t) % R) * rows_per
+                    many(ring[r0 // rows_per], shard[j], r0, out=outs[j])
+    else:
+        def replicated():
+            return [fg.gather_submatrix_fused(tc32, i) for i in idx_list]
+
+        def ring_local():
+            acc = [[None] * len(idx_list) for _ in range(R)]
+            for t in range(R):
+                for j in range(R):
+                    r0 = ((j - t) % R) * rows_per
+                    for bi, i in enumerate(shard[j]):
+                        part = fg.gather_submatrix_fused_local(
+                            ring[r0 // rows_per], i, r0)
+                        acc[j][bi] = (part if acc[j][bi] is None
+                                      else acc[j][bi].add_(part))
+    r1, l1 = timed(replicated), timed(ring_local)
+    l2, r2 = timed(ring_local), timed(replicated)
+    return {"design": "per_chunk" if many is not None else "per_bucket",
+            "replicated_ms": (r1 + r2) / 2, "replicated_runs_ms": [r1, r2],
+            "replicated_launches": 1 if many is not None else len(idx_list),
+            "ring_local_ms": (l1 + l2) / 2, "ring_local_runs_ms": [l1, l2],
+            "ring_local_launches": R * R * (1 if many is not None
+                                            else len(idx_list)),
+            "ring_assembly_ms": timed(lambda: fs.ring_gather_all(
+                [ring], shard, rows_per), reps=3)}
+
+
+def gather_crossover(torch, fg, chunk, tc32, timed):
+    """The redesigned kernel with every row read in place (``STAGE_DIV``
+    0) and every row staged (``1 << 20``) at chunks of 4 to 128
+    permutations: the mean demand per source row (output entries over rows
+    and 32-byte sectors) at which staging starts to pay."""
+    rows = []
+    saved = fg.STAGE_DIV
+    try:
+        for batch in (4, 8, 16, 32, 64, 128):
+            ix = [idx[:batch].contiguous() for _, idx in chunk]
+            row = {"batch": batch, "demand_per_row_sectors": sum(
+                i.numel() * i.shape[-1] for i in ix) / GENES / (GENES / 8)}
+            for name, div in (("in_place_ms", 0), ("staged_ms", 1 << 20),
+                              ("default_ms", saved)):
+                fg.STAGE_DIV = div
+                row[name] = timed(lambda: fg.gather_submatrix_fused_many(
+                    tc32, ix))
+            rows.append(row)
+    finally:
+        fg.STAGE_DIV = saved
+    return {"stage_div": saved, "rows": rows}
+
+
+def ring_trace(torch, np, engine, card, tree):
+    """One chunk of the row-sharded ring path (``engine`` on a 1 x 4 mesh
+    of one card), split into the local gather launches, the ring steps,
+    the rest of the assembly (adds, fills and copies; ``torch.empty``
+    allocates without a kernel) and the composed statistics: device time
+    by kernel name from ``torch.profiler``, and each part by CUDA events.
+    Works on any tree whose engine has the ring path."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from netrep_tpu_torch import random as trandom
+    from netrep_tpu_torch.ops import fused_stats as fs
+
+    plan = engine._shard_plan()
+    keys = trandom.perm_keys(trandom.key(SEED, device=engine.device), 0,
+                             engine.effective_chunk())
+    rows_per = engine._rows_c[0][0].shape[0]
+    idx = []
+    for _p, _r, sl, eng in plan:
+        perm = trandom.permutation(
+            trandom.ThreefryKey(keys.words[sl]).to(eng.device), eng._pool_dev)
+        idx.append([eng._bucket_idx(perm, b) for b in eng.buckets])
+    mats = [engine._rows_c[0]] + (
+        [] if engine._rows_n is None else [engine._rows_n[0]])
+    devices = list(engine.mesh.devices[0])
+
+    def assemble():
+        return fs.ring_gather_all(mats, idx, rows_per, devices=devices)
+
+    def stats(subs):
+        return [eng._stats(b, ix, sc, sn)
+                for j, (*_, eng) in enumerate(plan)
+                for b, ix, sc, sn in zip(
+                    eng.buckets, idx[j], subs[j][0],
+                    subs[j][1] if len(mats) > 1 else [None] * len(idx[j]))]
+
+    def device_ms(fn):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            if "cuda" not in str(getattr(e, "device_type", "")).lower():
+                continue
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = getattr(e, "self_cuda_time_total", 0)
+            if us:
+                out[e.key] = out.get(e.key, 0.0) + us / 1e3
+        return out
+
+    timed = make_timer(torch)
+    subs = assemble()
+    events = {"assembly_ms": timed(assemble, reps=3),
+              "stats_ms": timed(lambda: stats(subs), reps=3),
+              "chunk_ms": timed(lambda: engine._ring_values(keys), reps=3)}
+    asm = device_ms(assemble)
+    st = device_ms(lambda: stats(subs))
+    parts = {"local_gather_ms": 0.0, "ring_step_ms": 0.0,
+             "add_fill_copy_ms": 0.0}
+    for name, ms in asm.items():
+        key = ("local_gather_ms" if "fused_gather" in name
+               else "ring_step_ms" if "ring_shift" in name
+               else "add_fill_copy_ms")
+        parts[key] += ms
+    parts["composed_stats_ms"] = sum(st.values())
+    top = sorted(asm.items(), key=lambda kv: -kv[1])[:6]
+    emit({"phase": "ring_trace", "tree": tree,
+          "unit": f"one chunk of {engine.effective_chunk()} permutations, "
+                  f"{len(mats)} matrices, mesh 1x{len(devices)} on one card",
+          "profiler_ms": parts,
+          "profiler_saw_device_time": bool(asm) and bool(st),
+          "assembly_kernels_ms": dict(top), "cuda_events_ms": events,
+          "card": card})
+    return parts, events
+
+
+def asymmetry(torch, np, fs, tstats, engine, chunk, obs, disc, cfg, dev,
+              card):
+    """The fused kernel against its plain version on test matrices as
+    asymmetric as the datasets accept: each off-diagonal pair's triangles
+    differ by 9e-6 of its value (inside ``np.allclose(a, a.T, rtol=1e-5,
+    atol=1e-8)``, checked here). In each tier: the main path's buckets
+    (caps 32-224: the shared-memory cache holds the module, each pair is
+    read once from the upper triangle) and a bucket of cap 256 (no cache:
+    whole rows, both triangles), values and counts."""
+    tdT = engine._test_dataT
+
+    def asym(c, seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        sign = torch.randint(0, 2, c.shape, device=dev, generator=gen,
+                             dtype=torch.int8) * 2 - 1
+        sign = torch.triu(sign, 1)
+        out = c * (1 + 4.5e-6 * (sign - sign.T).to(c.dtype))
+        ok = bool(((out - out.T).abs() <= 1e-8 + 1e-5 * out.T.abs()).all())
+        if not ok or torch.equal(out, out.T):
+            raise RuntimeError("asymmetric case outside the datasets' "
+                               "tolerance, or symmetric")
+        return out
+
+    tc, tn = asym(engine._test_corr, 1), asym(engine._test_net, 2)
+    dd, dc, dn = disc
+    nodes = torch.arange(256, device=dev)[None] * 37 % GENES
+    dc32, dn32, dd32 = dc.float(), dn.float(), dd.float()
+    wide = tstats.make_disc_props(
+        tstats.gather_submatrix(dc32, nodes), tstats.gather_submatrix(
+            dn32, nodes), dd32[:, nodes].permute(1, 0, 2),
+        torch.ones((1, 256), device=dev))
+    del dc32, dn32, dd32
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    wide_idx = torch.stack([torch.randperm(GENES, device=dev, generator=gen)
+                            [:256] for _ in range(8)])[:, None].to(torch.int32)
+    wide_obs = torch.zeros((1, 7), device=dev)
+    cases = {"cached": [(b.disc, idx[:8].contiguous(), ob)
+                        for (b, idx), ob in zip(chunk, obs)],
+             "whole_row": [(wide, wide_idx, wide_obs)]}
+    out = {}
+    for tier, cells in cases.items():
+        err = {"values": 0.0, "counts": 0.0}
+        for dprops, idx, ob in cells:
+            want = fs.fused_stats_values_plain(tc, tn, tdT, dprops, idx,
+                                               n_iter=cfg.power_iters)
+            got = {"values": fs.fused_stats_values(
+                tc, tn, tdT, dprops, idx, n_iter=cfg.power_iters),
+                "counts": fs.fused_stats_counts(
+                    tc, tn, tdT, dprops, idx,
+                    torch.ones(idx.shape[0], dtype=torch.int32, device=dev),
+                    ob, n_iter=cfg.power_iters)[0]}
+            torch.cuda.synchronize()
+            for mode, g in got.items():
+                if not torch.equal(torch.isnan(g), torch.isnan(want)):
+                    raise RuntimeError(f"asymmetry {tier} {mode}: NaN "
+                                       "pattern differs")
+                err[mode] = max(err[mode], torch.nan_to_num(
+                    (g - want).abs(), nan=0.0).max().item())
+        out[tier] = err
+    worst = max(e for t in out.values() for e in t.values())
+    emit({"phase": "asymmetry", "relative_asymmetry": 9e-6,
+          "datasets_tolerance": {"rtol": 1e-5, "atol": 1e-8},
+          "batch": 8, "max_abs_err": out, "tolerance": TOL,
+          "tiers": {"cached": [b.cap for b, _ in chunk], "whole_row": [256]},
+          "card": card})
+    if worst > TOL:
+        raise RuntimeError(f"asymmetric inputs: kernel disagrees with plain "
+                           f"by {worst}")
+    return out
 
 
 def sequential_tests(torch, np, module_preservation, ops, kw, config, card,
@@ -457,7 +831,14 @@ def p_values_only() -> int:
         "main_path/streaming": dict(config=EngineConfig(), store_nulls=False),
         "derived_network": dict(config=EngineConfig(
             network_from_correlation=BETA)),
+        "composed/materialized": dict(config=EngineConfig(stat_mode="xla")),
+        "composed/streaming": dict(config=EngineConfig(stat_mode="xla"),
+                                   store_nulls=False),
         "row_sharded/ring": dict(config=EngineConfig(matrix_sharding="row"),
+                                 mesh=make_mesh(1, 4, devices=[dev] * 4)),
+        "row_sharded/psum": dict(config=EngineConfig(matrix_sharding="row",
+                                                     stat_mode="xla"),
+                                 store_nulls=False,
                                  mesh=make_mesh(1, 4, devices=[dev] * 4)),
         "perm_mesh": dict(config=EngineConfig(), store_nulls=False,
                           mesh=make_mesh(2, 1, devices=[dev] * 2)),
@@ -478,6 +859,50 @@ def p_values_only() -> int:
                            "null_s": r.profile["null_s"]}
         emit({"phase": "p_values", "run": name, "cohorts": out,
               "card": card})
+    print(card_line(), flush=True)
+    return 0
+
+
+def gather_only() -> int:
+    """``--gather``: one chunk's gather from one matrix and the ring's
+    assembly (``gather_times``), the ring trace and, where the redesigned
+    kernel is, its staged/in-place crossover, through the
+    ``netrep_tpu_torch`` beside this script (another checkout's, to
+    compare two versions on one card)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA device available", file=sys.stderr)
+        return 1
+    import numpy as np
+
+    from netrep_tpu_torch.ops import fused_gather as fg
+    from netrep_tpu_torch.ops import fused_stats as fs
+    from netrep_tpu_torch.parallel.mesh import make_mesh
+    from netrep_tpu_torch.utils.config import EngineConfig
+
+    dev = torch.device("cuda")
+    card = card_line()
+    cfg = EngineConfig()
+    _sizes, labels, (xd, xt, _x2) = make_cohorts(np)
+    disc, test = mats(torch, xd, dev), mats(torch, xt, dev)
+    engine, chunk, _obs = first_chunk(torch, np, labels, disc, test, cfg, dev)
+    tc32 = engine._test_corr
+    timed = make_timer(torch)
+    tree = "per_chunk" if hasattr(fg, "gather_submatrix_fused_many") \
+        else "per_bucket"
+    emit({"phase": "gather_ab", "tree": tree, "unit": "one chunk of "
+          f"{cfg.chunk_size} permutations x {MODULES} modules, one matrix",
+          "times_ms": gather_times(torch, fg, fs, chunk, tc32, timed, dev),
+          "crossover": (gather_crossover(torch, fg, chunk, tc32, timed)
+                        if tree == "per_chunk" else None),
+          "card": card})
+    del engine, chunk, _obs, tc32
+    torch.cuda.empty_cache()
+    ring_engine = make_engine(np, labels, disc, test,
+                              EngineConfig(matrix_sharding="row"), dev,
+                              mesh=make_mesh(1, 4, devices=[dev] * 4))
+    ring_trace(torch, np, ring_engine, card, tree)
     print(card_line(), flush=True)
     return 0
 
@@ -539,6 +964,7 @@ def main() -> int:
     from netrep_tpu_torch.ops import fused_gather as fg
     from netrep_tpu_torch.ops import fused_stats as fs
     from netrep_tpu_torch.ops import pvalues as pv
+    from netrep_tpu_torch.ops import stats as tstats
     from netrep_tpu_torch.parallel.mesh import make_mesh
     from netrep_tpu_torch.utils.config import EngineConfig
 
@@ -698,134 +1124,71 @@ def main() -> int:
           "library_note": "no single PyTorch call computes the seven "
                           "preservation statistics",
           "card": card})
+    # ---- fused statistics on test matrices asymmetric up to the datasets'
+    # tolerance, in the cached tier and the whole-row tier
+    asym_err = asymmetry(torch, np, fs, tstats, engine, chunk, obs,
+                         (dd, dc, dn), cfg, dev, card)
+
     # ---- the gather kernel against its plain version, at the path's shapes
-    # (the composed path's chunk: every bucket, batches 8 and 128, on the
-    # test correlation), with sentinel slots and a NaN planted in M
-    def same(got, want):
-        """Bit-equal, NaN positions compared apart."""
-        nan = torch.isnan(got)
-        return torch.equal(nan, torch.isnan(want)) and torch.equal(
-            torch.where(nan, 0.0, got), torch.where(nan, 0.0, want))
-
-    def abs_err(got, want):
-        """Largest |got - want| off the NaN positions (which ``same``
-        compares)."""
-        nan = torch.isnan(got) | torch.isnan(want)
-        return (torch.where(nan, 0.0, got)
-                - torch.where(nan, 0.0, want)).abs().max().item()
-
-    g_err = {"gather_submatrix_fused": 0.0,
-             "gather_submatrix_fused_local": 0.0}
-
-    def with_sentinels(idx):
-        idx = idx.clone()
-        idx[..., 0, 1] = -1
-        idx[..., -1, 2] = GENES + 5
-        return idx
-
-    b0, i0 = chunk[0]
-    r_nan, c_nan = int(i0[0, 0, 0]), int(i0[0, 0, 1])
-    m_nan = tc32.clone()
-    m_nan[r_nan, c_nan] = float("nan")
-    rows_per = GENES // 4
-    checked = nan_seen = 0
+    # (the composed path's chunk: every bucket in one launch, batches 8 and
+    # 128, on the test correlation), sentinels, a NaN, a hot row, row
+    # blocks into NaN buffers and a row block wider than shared memory
+    g_err, checked = 0.0, 0
     for batch in (8, cfg.chunk_size):
-        for b, idx in chunk:
-            for ix in (idx[:batch].contiguous(),
-                       with_sentinels(idx[:batch])):
-                for M in (tc32, m_nan):
-                    got = fg.gather_submatrix_fused(M, ix)
-                    want = fg.gather_submatrix_fused_plain(M, ix)
-                    g_err["gather_submatrix_fused"] = max(
-                        g_err["gather_submatrix_fused"], abs_err(got, want))
-                    if not same(got, want):
-                        raise RuntimeError(f"gather kernel != plain (cap "
-                                           f"{b.cap}, batch {batch})")
-                    nan_seen += int(torch.isnan(got).any())
-                    checked += 1
-                total = torch.zeros_like(got)
-                for r0 in range(0, GENES, rows_per):
-                    blk = M[r0: r0 + rows_per]
-                    part = fg.gather_submatrix_fused_local(blk, ix, r0)
-                    want = fg.gather_submatrix_fused_local_plain(blk, ix, r0)
-                    g_err["gather_submatrix_fused_local"] = max(
-                        g_err["gather_submatrix_fused_local"],
-                        abs_err(part, want))
-                    if not same(part, want):
-                        raise RuntimeError(f"local gather kernel != plain "
-                                           f"(cap {b.cap}, rows {r0}+)")
-                    total += part
-                    checked += 1
-                if not same(total, got):
-                    raise RuntimeError("local blocks do not sum to the "
-                                       f"replicated gather (cap {b.cap})")
-    torch.cuda.synchronize()
-    if nan_seen == 0:
-        raise RuntimeError("the planted NaN reached no gathered block")
-    # the loop variables still hold m_nan (1.6 GB) and views of it
-    del m_nan, M, blk, got, want, part, total
+        e, c = gather_vs_plain(torch, fg, chunk, tc32, dev, batch)
+        g_err, checked = max(g_err, e), checked + c
     emit({"phase": "gather_vs_plain", "bit_equal": True,
-          "batches": [8, cfg.chunk_size], "launches_checked": checked,
-          "blocks_with_nan": nan_seen, "local_blocks": GENES // rows_per,
-          "local_sums_equal_replicated": True, "max_abs_err": g_err})
+          "batches": [8, cfg.chunk_size], "outputs_checked": checked,
+          "stage_div": [fg.STAGE_DIV, 0, 1 << 20], "row_blocks": 4,
+          "out_buffers_start_as": "nan", "hot_row": True,
+          "wide_block": [64, 60_000], "max_abs_err": g_err})
 
     # ---- gather times: one chunk, every bucket, one matrix ---------------
-    # bound: one 32-byte sector read per REAL entry (m_k^2 for a module of
-    # m_k nodes; padded slots read node 0's row and column, which stay in
-    # L2 after their first touch), 4 bytes written per output entry (cap^2,
-    # padding included) and the indices read once. The local entry over
-    # four row blocks reads each real entry once but writes every output
-    # and reads the indices once per block.
-    real = sum(idx.shape[0] * float((b.disc.mask.sum(-1).double() ** 2)
-                                    .sum())
-               for b, idx in chunk)
-    written = sum(idx.shape[0] * len(b.module_pos) * b.cap ** 2
-                  for b, idx in chunk)
-    idx_bytes = sum(idx.numel() * 4 for _, idx in chunk)
-    n_blocks = GENES // rows_per
-    g_bytes = {
-        "gather_submatrix_fused": real * SECTOR + written * 4 + idx_bytes,
-        "gather_submatrix_fused_local": (real * SECTOR
-                                         + n_blocks * (written * 4
-                                                       + idx_bytes)),
-    }
-    long_idx = [idx.long() for _, idx in chunk]
-    blocks = [(r0, tc32[r0: r0 + rows_per])
-              for r0 in range(0, GENES, rows_per)]
+    rows_per = GENES // 4
+    idx_list = [idx for _, idx in chunk]
+    long_idx = [idx.long() for idx in idx_list]
+    blocks = [(r0, tc32[r0: r0 + rows_per]) for r0 in range(0, GENES, rows_per)]
+    outs = [torch.empty(i.shape + i.shape[-1:], device=dev) for i in idx_list]
 
-    def gather_all(fn):
-        return lambda: [fn(tc32, idx) for _, idx in chunk]
+    def row_blocks(fn):
+        def run():
+            for r0, blk in blocks:
+                fn(blk, idx_list, r0, out=outs)
+        return run
 
-    def local_all(fn):
-        return lambda: [fn(blk, idx, r0) for _, idx in chunk
-                        for r0, blk in blocks]
-
-    library_ms = timed(lambda: [tc32[i[..., :, None], i[..., None, :]]
-                                for i in long_idx])
     g_times = {
-        "gather_submatrix_fused": interleaved(
-            gather_all(fg.gather_submatrix_fused_plain),
-            gather_all(fg.gather_submatrix_fused)),
-        "gather_submatrix_fused_local": interleaved(
-            local_all(fg.gather_submatrix_fused_local_plain),
-            local_all(fg.gather_submatrix_fused_local)),
+        "gather_submatrix_fused_many": interleaved(
+            lambda: fg.gather_submatrix_fused_many_plain(tc32, idx_list),
+            lambda: fg.gather_submatrix_fused_many(tc32, idx_list)),
+        "gather_submatrix_fused_many(out=)": interleaved(
+            row_blocks(fg.gather_submatrix_fused_many_plain),
+            row_blocks(fg.gather_submatrix_fused_many)),
     }
-    g_times["gather_submatrix_fused"]["library_ms"] = library_ms
-    g_times["gather_submatrix_fused_local"]["library_ms"] = None
-    for name, t in g_times.items():
-        t["bytes"] = g_bytes[name]
-        t["bound_ms"] = 1e3 * g_bytes[name] / HBM_BPS
+    g_times["gather_submatrix_fused_many"]["library_ms"] = timed(
+        lambda: [tc32[i[..., :, None], i[..., None, :]] for i in long_idx])
+    g_times["gather_submatrix_fused_many(out=)"]["library_ms"] = None
+    g_times["gather_submatrix_fused_many"]["one_bucket_per_launch_ms"] = \
+        timed(lambda: [fg.gather_submatrix_fused(tc32, i) for i in idx_list])
+    for name, nb in (("gather_submatrix_fused_many", 1),
+                     ("gather_submatrix_fused_many(out=)", 4)):
+        t = g_times[name]
+        t.update(gather_bound(torch, chunk, GENES, nb))
+        t["bound_ms"] = 1e3 * t["bytes"] / HBM_BPS
+        t["sector_floor_ms"] = 1e3 * t["sector_floor_bytes"] / HBM_BPS
+        t["launches_per_chunk"] = nb
+    g_ring = gather_times(torch, fg, fs, chunk, tc32, timed, dev)
     emit({"phase": "gather_times", "unit": "one chunk of "
           f"{cfg.chunk_size} permutations x {MODULES} modules, one matrix "
-          f"({len(chunk)} launches; the local entry {len(chunk) * n_blocks}, "
-          f"one per bucket and row block of {rows_per})",
-          "real_entries": real, "written_entries": written,
-          "times_ms": g_times, "bound_by": "bytes",
-          "library_call": "M[idx[..., :, None], idx[..., None, :]] "
-                          "(in-range indices)",
-          "library_note": "no single PyTorch call zeroes the rows a block "
-                          "does not own, so the local entry has none",
+          f"({len(chunk)} buckets in one launch; out=: one launch per row "
+          f"block of {rows_per}, written in place)",
+          "times_ms": g_times, "bound_by": "bytes", "ring": g_ring,
+          "crossover": gather_crossover(torch, fg, chunk, tc32, timed),
+          "library_call": "M[idx[..., :, None], idx[..., None, :]] per "
+                          "bucket (in-range indices)",
+          "library_note": "no single PyTorch call writes only the rows a "
+                          "block owns, so the out= entry has none",
           "card": card})
+    del outs, long_idx, blocks
     # ---- the ring-shift kernel against its plain version, on the row-
     # sharded path's own blocks: both test matrices split into R = 4 blocks
     # of 5,000 rows, every step of the ring, bit for bit; then a block whose
@@ -840,8 +1203,8 @@ def main() -> int:
             got = fs.ring_shift_dma(ring)
             want = fs.ring_shift_collective(ring)
             for g, w in zip(got, want):
-                ring_err = max(ring_err, abs_err(g, w))
-                if not same(g, w) or g.data_ptr() == w.data_ptr():
+                ring_err = max(ring_err, abs_err(torch, g, w))
+                if not same(torch, g, w) or g.data_ptr() == w.data_ptr():
                     raise RuntimeError("ring shift kernel != plain")
                 r_checked += 1
             ring = got
@@ -853,8 +1216,8 @@ def main() -> int:
     for ring in (odd, unaligned):
         got = fs.ring_shift_dma(ring)
         for g, w in zip(got, fs.ring_shift_collective(ring)):
-            ring_err = max(ring_err, abs_err(g, w))
-            if not same(g, w):
+            ring_err = max(ring_err, abs_err(torch, g, w))
+            if not same(torch, g, w):
                 raise RuntimeError("ring shift kernel != plain (odd block)")
             r_checked += 1
     torch.cuda.synchronize()
@@ -867,7 +1230,7 @@ def main() -> int:
 
     # ---- ring times: one step of the ring (R launches, one per block) ----
     r_times = ring_times(torch, fs, tc32, timed, card)
-    del engine, chunk, obs, tc32, tn32, tdT, long_idx, blocks
+    del engine, chunk, obs, tc32, tn32, tdT, idx_list
     torch.cuda.empty_cache()
 
     # ---- the main path, through the public entry point -------------------
@@ -888,25 +1251,37 @@ def main() -> int:
         n_perm=N_PERM, seed=SEED, device="cuda",
     )
 
-    def drive(phase, needs, **call):
+    def drive(phase, needs, expect=None, **call):
         """One ``module_preservation`` call with every launch count at 0
-        just before it; fails unless each kernel in ``needs`` launched.
+        just before it; fails unless each kernel in ``needs`` launched and
+        each count in ``expect`` (name: launches) is met exactly.
         Returns ``(result, launches, memory)``: the peak device GiB of
-        the call and the most held while its null ran, read by the
-        progress callback."""
+        the call, the most held at a progress call of its null, and the
+        null's own peak (from its first progress call on)."""
+        expect = expect or {}
         tops.reset_launches()
         torch.cuda.reset_peak_memory_stats()
-        held = []
+        held, before_null = [], []
+
+        def progress(done, total):
+            # the peak up to the first progress call is the input phase's;
+            # from there to the end, the null's (its first chunk excepted)
+            if not before_null:
+                before_null.append(torch.cuda.max_memory_allocated())
+                torch.cuda.reset_peak_memory_stats()
+            held.append(torch.cuda.memory_allocated())
+
         t0 = time.perf_counter()
-        res = module_preservation(
-            **{**kw, **call},
-            progress=lambda done, total: held.append(
-                torch.cuda.memory_allocated()))
+        res = module_preservation(**{**kw, **call}, progress=progress)
         wall = time.perf_counter() - t0
         launches = {fn.__name__: fn.launches for fn in tops.kernels()}
         for name in needs:
             if launches[name] == 0:
                 raise RuntimeError(f"{phase} launched no {name} kernel")
+        for name, n in expect.items():
+            if launches[name] != n:
+                raise RuntimeError(f"{phase}: {launches[name]} launches of "
+                                   f"{name}, expected {n}")
         for r in (res.values() if isinstance(res, dict) else [res]):
             if r.observed.shape != (MODULES, 7) or not np.isfinite(
                     r.observed).all():
@@ -921,8 +1296,10 @@ def main() -> int:
         prof = (next(iter(res.values())) if isinstance(res, dict)
                 else res).profile
         store = call.get("store_nulls", True)
-        memory = {"peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-                  "null_held_gib": max(held) / 2**30}
+        null_peak = torch.cuda.max_memory_allocated()
+        memory = {"peak_gib": max(before_null + [null_peak]) / 2**30,
+                  "null_held_gib": max(held) / 2**30,
+                  "null_peak_gib": null_peak / 2**30}
         emit({"phase": phase, "store_nulls": store,
               "stat_mode": call["config"].stat_mode, "n_perm": N_PERM,
               "mesh": None if call.get("mesh") is None
@@ -930,7 +1307,8 @@ def main() -> int:
               "wall_s": wall, "input_s": prof["input_s"],
               "engine_s": prof["engine_s"], "observed_s": prof["observed_s"],
               "null_s": prof["null_s"], "perms_per_s": prof["perms_per_s"],
-              "launches": launches, **memory, "card": card})
+              "launches": launches, "expected_launches": expect, **memory,
+              "card": card})
         return res, launches, memory
 
     def tallies_equal(a, b):
@@ -967,13 +1345,18 @@ def main() -> int:
           "planted_preserved": MODULES // 2})
     fused_run = a
 
-    # ---- composed statistics through the gather kernel -------------------
+    # ---- composed statistics through the gather kernel: one launch per
+    # chunk and matrix, every bucket in it
     composed_cfg = EngineConfig(stat_mode="xla", gather_mode="fused")
+    chunks = -(-N_PERM // cfg.chunk_size)
+    many, R = "gather_submatrix_fused_many", 4
+    single = {"gather_submatrix_fused": 0, "gather_submatrix_fused_local": 0}
     comp = {}
     for store in (True, False):
-        comp[store], launches[("composed", store)], _ = drive(
-            "composed_path", ["gather_submatrix_fused"], config=composed_cfg,
-            store_nulls=store)
+        comp[store], launches[("composed", store)], memory[
+            ("composed", store)] = drive(
+            "composed_path", [many], {many: chunks * 2, **single},
+            config=composed_cfg, store_nulls=store)
         used = launches[("composed", store)]
         if used["fused_stats_values"] or used["fused_stats_counts"]:
             raise RuntimeError("the composed path launched the "
@@ -995,11 +1378,12 @@ def main() -> int:
     # ---- derived network: no test network stored, through the
     # fused-statistics kernel's derived mode and through the composed null
     der = {}
-    for mode, kernel in (("auto", "fused_stats_values"),
-                         ("xla", "gather_submatrix_fused")):
+    for mode, kernel, n_many in (("auto", "fused_stats_values", 0),
+                                 ("xla", many, chunks)):
         der[mode], launches[("derived", mode)], memory[mode] = drive(
-            "derived_network", [kernel], config=EngineConfig(
-                network_from_correlation=BETA, stat_mode=mode))
+            "derived_network", [kernel], {many: n_many, **single},
+            config=EngineConfig(network_from_correlation=BETA,
+                                stat_mode=mode))
     der_err = {mode: null_err(r.nulls, fused_run.nulls)
                for mode, r in der.items()}
     if max(der_err.values()) > TOL:
@@ -1037,21 +1421,34 @@ def main() -> int:
                                    "main_path's streaming run")
         return err
 
-    row_mesh = make_mesh(1, 4, devices=[dev] * 4)
+    row_mesh = make_mesh(1, R, devices=[dev] * R)
     ring_cfg = EngineConfig(matrix_sharding="row")
     row_runs = {}
-    for label, store, config, needs in (
-            ("ring", True, ring_cfg,
-             ["ring_shift_dma", "gather_submatrix_fused_local"]),
-            ("ring", False, ring_cfg,
-             ["ring_shift_dma", "gather_submatrix_fused_local"]),
+
+    def row_expect(mats, ring):
+        """Gather launches of a row-sharded call: per chunk, one per step,
+        shard and matrix on the ring (one per block and matrix, psum);
+        the discovery build and the observed pass one per block and matrix
+        each. Ring steps: R - 1 per chunk, each one launch per block and
+        matrix."""
+        per_chunk = R * R * mats if ring else R * mats
+        out = {many: chunks * per_chunk + 2 * R * mats, **single}
+        if ring:
+            out["ring_shift_dma"] = chunks * (R - 1) * R * mats
+        return out
+
+    for label, store, config, needs, expect in (
+            ("ring", True, ring_cfg, ["ring_shift_dma", many],
+             row_expect(2, True)),
+            ("ring", False, ring_cfg, ["ring_shift_dma", many],
+             row_expect(2, True)),
             ("psum", False, EngineConfig(matrix_sharding="row",
-                                         stat_mode="xla"),
-             ["gather_submatrix_fused_local"]),
+                                         stat_mode="xla"), [many],
+             row_expect(2, False)),
             ("ring_derived", True, EngineConfig(
                 matrix_sharding="row", network_from_correlation=BETA),
-             ["ring_shift_dma", "gather_submatrix_fused_local"])):
-        res, used, mem = drive("row_sharded", needs, config=config,
+             ["ring_shift_dma", many], row_expect(1, True))):
+        res, used, mem = drive("row_sharded", needs, expect, config=config,
                                store_nulls=store, mesh=row_mesh)
         if used["fused_stats_values"] or used["fused_stats_counts"]:
             raise RuntimeError("the row-sharded path launched the "
@@ -1066,8 +1463,13 @@ def main() -> int:
           "ring_shift_launches": {f"{k[0]}/{'mat' if k[1] else 'stream'}":
                                   v[0]["ring_shift_dma"]
                                   for k, v in row_runs.items()},
-          "expected_ring_launches": {"stored": 3 * 4 * 2 * 8,
-                                     "derived": 3 * 4 * 1 * 8}})
+          "gather_launches": {f"{k[0]}/{'mat' if k[1] else 'stream'}":
+                              v[0][many] for k, v in row_runs.items()}})
+    ring_engine = make_engine(np, labels, (dd, dc, dn), (td, tc, tn),
+                              ring_cfg, dev, mesh=row_mesh)
+    ring_trace(torch, np, ring_engine, card, "per_chunk")
+    del ring_engine
+    torch.cuda.empty_cache()
     perm_mesh = make_mesh(2, 1, devices=[dev] * 2)
     res, used, _ = drive("perm_mesh", ["fused_stats_counts"], config=cfg,
                          store_nulls=False, mesh=perm_mesh)
@@ -1078,8 +1480,8 @@ def main() -> int:
         two = make_mesh(1, 2, devices=[torch.device("cuda", 0),
                                        torch.device("cuda", 1)])
         res, used, _ = drive(
-            "multi_card", ["ring_shift_dma", "gather_submatrix_fused_local"],
-            config=ring_cfg, mesh=two)
+            "multi_card", ["ring_shift_dma", many], config=ring_cfg,
+            mesh=two)
         err = mesh_checks("multi_card", res, True)
         emit({"phase": "multi_card", "run": True,
               "cards": torch.cuda.device_count(), "mesh": two.shape,
@@ -1105,8 +1507,8 @@ def main() -> int:
     multi[True], launches[("multi", True)], _ = drive(
         "multi_test", ["fused_stats_values"], config=cfg, vmap_tests=True)
     multi[False], launches[("multi", False)], _ = drive(
-        "multi_test", ["gather_submatrix_fused"], config=composed_cfg,
-        vmap_tests=True, store_nulls=False)
+        "multi_test", [many], {many: chunks * 2 * 2, **single},
+        config=composed_cfg, vmap_tests=True, store_nulls=False)
     # cohort 1 is the main path's test set: the shared draw gives it the
     # single-test run's permutations, kernel and operands
     if not np.array_equal(multi[True]["test"].p_values, fused_run.p_values):
@@ -1187,17 +1589,18 @@ def main() -> int:
     rows += [
         {"name": name, "route": "cuda", "source": gather_src,
          "replaces": f"netrep_tpu/ops/fused_gather.py:{line}",
-         "launches": launches.get(path, {}).get(name, 0),
-         "max_abs_err": g_err[name], "ms": g_times[name]["ms"],
+         "launches": launches[path][many],
+         "max_abs_err": g_err, "ms": g_times[name]["ms"],
          "plain_ms": g_times[name]["plain_ms"],
          "bound_ms": g_times[name]["bound_ms"], "bound_by": "bytes",
          "library_ms": g_times[name]["library_ms"],
+         "sector_floor_ms": g_times[name]["sector_floor_ms"],
          "path": note}
         for name, line, path, note in (
-            ("gather_submatrix_fused", 290, ("composed", True),
+            ("gather_submatrix_fused_many", 290, ("composed", True),
              "composed_path store_nulls=True"),
-            ("gather_submatrix_fused_local", 319, ("row", "ring", True),
-             "row_sharded ring store_nulls=True"))
+            ("gather_submatrix_fused_many(out=)", 319,
+             ("row", "ring", True), "row_sharded ring store_nulls=True"))
     ]
     rows.append(
         {"name": "ring_shift_dma", "route": "cuda",
@@ -1218,7 +1621,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     modes = {"--sequential-tests": sequential_only, "--kernels": kernels_only,
-             "--p-values": p_values_only}
+             "--p-values": p_values_only, "--gather": gather_only}
     args = sys.argv[1:]
     if len(args) > 1 or (args and args[0] not in modes):
         sys.exit(f"usage: {sys.argv[0]} [{' | '.join(modes)}]")

@@ -50,6 +50,11 @@ _LATER = {
     "telemetry": (None, "item 16 (device-touching utils and CLI)"),
     "fault_policy": (None, "item 16 (device-touching utils and CLI)"),
     "data_only": (None, "item 12 (data-only atlas plane)"),
+    "n_threads": (None, "item 16 (device-touching utils and CLI)"),
+    "profile": (None, "item 16 (device-touching utils and CLI)"),
+    "checkpoint_every": (8192, "item 7 (checkpoint/resume)"),
+    "adaptive_rule": (None, "item 8 (adaptive nulls)"),
+    "adaptive_priors": (None, "item 8 (adaptive nulls)"),
 }
 
 
@@ -156,6 +161,12 @@ def module_preservation(
     telemetry=None,
     fault_policy=None,
     data_only=None,
+    verbose: bool = False,
+    n_threads: int | None = None,
+    profile=None,
+    checkpoint_every: int = 8192,
+    adaptive_rule=None,
+    adaptive_priors=None,
 ):
     """Permutation test of network module preservation across datasets.
 
@@ -199,18 +210,27 @@ def module_preservation(
     reads. A test matrix that a later pair needs waits on the host as
     float32 meanwhile, and goes back to the device for that pair.
 
-    ``adaptive``, ``checkpoint_dir``, ``telemetry``, ``fault_policy``,
-    ``data_only`` and ``backend='native'`` belong to later slices and raise
-    ``NotImplementedError``.
+    - ``verbose`` — logs one line per (discovery, test) pair before its null
+      and one after it, through the ``netrep_tpu_torch`` logger at INFO.
+
+    ``adaptive``, ``adaptive_rule``, ``adaptive_priors``,
+    ``checkpoint_dir``, ``checkpoint_every``, ``telemetry``,
+    ``fault_policy``, ``data_only``, ``n_threads``, ``profile`` and
+    ``backend='native'`` belong to later slices: any value but the JAX
+    package's default raises ``NotImplementedError`` naming the item.
 
     Returns ``{discovery: {test: PreservationResult}}``, collapsed by
     ``simplify``.
     """
     given = dict(adaptive=adaptive, checkpoint_dir=checkpoint_dir,
                  telemetry=telemetry, fault_policy=fault_policy,
-                 data_only=data_only)
+                 data_only=data_only, n_threads=n_threads, profile=profile,
+                 checkpoint_every=checkpoint_every,
+                 adaptive_rule=adaptive_rule,
+                 adaptive_priors=adaptive_priors)
     for name, (default, item) in _LATER.items():
-        if given[name] is not default:
+        value = given[name]
+        if value is not default and (default is None or value != default):
             raise NotImplementedError(
                 f"{name}= is not ported yet: ROADMAP.md Queue 1 {item}"
             )
@@ -333,6 +353,11 @@ def module_preservation(
         t2 = time.perf_counter()
         observed = engine.observed()
         t3 = time.perf_counter()
+        if verbose:
+            logger.info(
+                "discovery %r → test(s) %s: %d modules, %d permutations, "
+                "null=%r", d_name, group, len(labels), np_this, null,
+            )
         if store_nulls:
             nulls, completed = engine.run_null(np_this, key=seed,
                                                progress=progress)
@@ -343,10 +368,15 @@ def module_preservation(
             nulls, completed = None, stream.completed
         t4 = time.perf_counter()
         del engine
-        profile = dict(
+        times = dict(
             input_s=input_s, engine_s=disc_s + t2 - t1, observed_s=t3 - t2,
             null_s=t4 - t3, perms_per_s=completed / max(t4 - t3, 1e-12),
         )
+        if verbose:
+            logger.info(
+                "discovery %r → test(s) %s: %d permutations in %.3f s",
+                d_name, group, completed, times["null_s"],
+            )
         total_space = pv.total_permutations(pool.size,
                                             [m.size for m in mod_specs])
         for ti, t_name in enumerate(group):
@@ -357,7 +387,7 @@ def module_preservation(
             results.setdefault(d_name, {})[t_name] = _make_result(
                 d_name, t_name, labels, counts, pick(observed),
                 pick(nulls), completed, np_this, alternative,
-                total_space, profile=profile,
+                total_space, profile=times,
                 stream=stream if stream is None or not multi
                 else dataclasses.replace(stream, hi=stream.hi[ti],
                                          lo=stream.lo[ti],

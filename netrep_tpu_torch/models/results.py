@@ -40,6 +40,38 @@ def _atomic_savez(path: str, **arrays) -> None:
             os.unlink(tmp)
 
 
+#: result fields of the JAX package's files that this port cannot carry
+#: yet, with the ROADMAP.md Queue 1 item that brings each
+_SEQUENTIAL = "item 8 (adaptive nulls)"
+_TAIL = "item 13 (screened null and GPD tail)"
+
+
+def _refuse_unported(path: str, meta: dict, files) -> None:
+    """Raise a ``ValueError`` naming the field and its item when a file
+    holds what a fixed-n result of this port cannot represent: a
+    sequential p-value type or per-module permutation counts, inexact
+    (screened) null values, or GPD tail p-values. Loading such a file as
+    fixed-n would drop them without a word."""
+    p_type = meta.get("p_type", "fixed")
+    if p_type != "fixed":
+        raise ValueError(
+            f"{path}: p_type={p_type!r} is not ported yet (this port loads "
+            f"fixed-n results only): ROADMAP.md Queue 1 {_SEQUENTIAL}"
+        )
+    if not meta.get("nulls_exact", True):
+        raise ValueError(
+            f"{path}: nulls_exact=False (a screened null) is not ported yet: "
+            f"ROADMAP.md Queue 1 {_TAIL}"
+        )
+    for name, item in (("n_perm_used", _SEQUENTIAL), ("p_tail", _TAIL),
+                       ("tail_ok", _TAIL)):
+        if name in files:
+            raise ValueError(
+                f"{path}: the {name} array is not ported yet: ROADMAP.md "
+                f"Queue 1 {item}"
+            )
+
+
 @dataclasses.dataclass
 class PreservationResult:
     """Result for one (discovery, test) dataset pair.
@@ -134,7 +166,9 @@ class PreservationResult:
 
     @classmethod
     def load(cls, path: str) -> "PreservationResult":
-        """Load a result saved by :meth:`save`."""
+        """Load a result saved by :meth:`save`, or a fixed-n result the JAX
+        package saved. A sequential, screened or GPD-tail file raises
+        ``ValueError`` naming the field and the item that will carry it."""
         with np.load(path) as z:
             if "result_version" not in z.files:
                 raise ValueError(
@@ -148,6 +182,7 @@ class PreservationResult:
                     f"(this build reads version {cls._SAVE_VERSION})"
                 )
             meta = json.loads(bytes(z["meta"]).decode())
+            _refuse_unported(path, meta, z.files)
             ts = meta.get("total_space")
             return cls(
                 discovery=meta["discovery"],

@@ -16,7 +16,8 @@ The port of the main path of ``netrep_tpu/parallel/engine.py``'s
   either through the fused-statistics kernel
   (:mod:`netrep_tpu_torch.ops.fused_stats`, ``stat_mode='fused'``) or
   through the composed statistics (``stat_mode='xla'``): the test
-  correlation and network submatrices gathered by the gather kernel
+  correlation and network submatrices of every bucket gathered by one
+  gather-kernel launch per matrix
   (:mod:`netrep_tpu_torch.ops.fused_gather`, whose plain version runs for
   CPU tensors), the standardized data slice, then
   ``module_stats_masked`` batched over (permutation, module).
@@ -36,9 +37,9 @@ The port of the main path of ``netrep_tpu/parallel/engine.py``'s
   over perm × row, each shard streams the blocks around its ring —
   :func:`~netrep_tpu_torch.ops.fused_stats.ring_gather_all` — and computes
   the composed statistics on its slice), ``'xla'`` the psum path (each
-  perm shard's composed body gathers by summing the row blocks' shares).
-  The observed pass and the discovery side of a row-sharded engine gather
-  by that sum too.
+  perm shard's composed body gathers from its row blocks, each block's
+  launch writing the rows it owns in place). The observed pass and the
+  discovery side of a row-sharded engine gather that way too.
 
 Checkpoints, fault handling, telemetry, the multi-test engine on a mesh,
 the screened and adaptive nulls are later slices (ROADMAP.md, Queue 1).
@@ -55,7 +56,7 @@ import torch
 
 from .. import random as trandom
 from ..ops import stats as tstats
-from ..ops.fused_gather import gather_submatrix_fused
+from ..ops.fused_gather import gather_submatrix_fused_many
 from ..ops.fused_stats import (
     fused_stats_counts, fused_stats_values, ring_gather_all,
 )
@@ -240,36 +241,37 @@ def build_buckets(disc_corr, disc_net, disc_data, modules, pool,
     dc = _as_f32(disc_corr, dev)
     dn = None if net_beta is not None else _as_f32(disc_net, dev)
     dd = None if disc_data is None else _as_f32(disc_data, dev)
-    if mesh is not None:
-        R = mesh.shape[ROW_AXIS]
-        gather = make_sharded_gatherer(mesh)
-        dc = shard_rows(pad_square_to_multiple(dc, R), mesh)
-        dn = None if dn is None else shard_rows(
-            pad_square_to_multiple(dn, R), mesh)
-
-        def submatrices(didx):
-            return gather_corr_net(gather, dc, dn, didx, net_beta)
-    else:
-        def submatrices(didx):
-            sub_c = tstats.gather_submatrix(dc, didx)
-            return sub_c, (tstats.derived_net(sub_c, net_beta) if dn is None
-                           else tstats.gather_submatrix(dn, didx))
     offsets = np.concatenate([[0], np.cumsum(sizes)])
     by_cap: dict[int, list[int]] = {}
     for k, m in enumerate(modules):
         by_cap.setdefault(config.rounded_cap(m.size), []).append(k)
+    caps = sorted(by_cap)
+    didxs = [torch.as_tensor(np.stack(
+        [_pad_to(modules[k].disc_idx.astype(np.int64), cap)
+         for k in by_cap[cap]]), device=dev) for cap in caps]
+    if mesh is not None:
+        # every bucket's submatrices in one gather launch per row block
+        R = mesh.shape[ROW_AXIS]
+        dc = shard_rows(pad_square_to_multiple(dc, R), mesh)
+        dn = None if dn is None else shard_rows(
+            pad_square_to_multiple(dn, R), mesh)
+        subs = zip(*gather_corr_net(make_sharded_gatherer(mesh), dc, dn,
+                                    didxs, net_beta))
+    else:
+        subs = []
+        for didx in didxs:
+            sub_c = tstats.gather_submatrix(dc, didx)
+            subs.append((sub_c, tstats.derived_net(sub_c, net_beta)
+                         if dn is None else tstats.gather_submatrix(dn, didx)))
 
     buckets = []
-    for cap in sorted(by_cap):
+    for cap, didx, (sub_c, sub_n) in zip(caps, didxs, subs):
         pos = by_cap[cap]
-        didx = torch.as_tensor(np.stack(
-            [_pad_to(modules[k].disc_idx.astype(np.int64), cap) for k in pos]
-        ), device=dev)
         mask = np.zeros((len(pos), cap), np.float32)
         for r, k in enumerate(pos):
             mask[r, : modules[k].size] = 1.0
         disc = tstats.make_disc_props(
-            *submatrices(didx),
+            sub_c, sub_n,
             dd[:, didx].permute(1, 0, 2) if dd is not None else None,
             torch.as_tensor(mask, device=dev),
         )
@@ -616,12 +618,14 @@ class PermutationEngine:
 
     def observed(self) -> np.ndarray:
         """(n_modules, 7) observed statistics on the actual overlap sets,
-        with the exact ``eigh`` summary (row-sharded: through the sum of
-        the row blocks' shares)."""
+        with the exact ``eigh`` summary (row-sharded: gathered from the
+        row blocks, every bucket at once)."""
         out = np.full((self.n_modules, N_STATS), np.nan)
+        subs = (zip(*self._gather([b.obs_idx for b in self.buckets]))
+                if self.row_sharded else None)
         for b in self.buckets:
             if self.row_sharded:
-                res = self._stats(b, b.obs_idx, *self._gather(b.obs_idx),
+                res = self._stats(b, b.obs_idx, *next(subs),
                                   summary_method="eigh")
             else:
                 res = tstats.gather_and_stats(
@@ -639,20 +643,20 @@ class PermutationEngine:
     def _bucket_idx(self, perm: torch.Tensor, b: _Bucket) -> torch.Tensor:
         return _take_blocks(perm, b.take).to(torch.int32).contiguous()
 
-    def _gather(self, idx: torch.Tensor) -> tuple:
-        """The test correlation and network submatrices of ``idx`` (the
-        network derived from the correlation in derived-network mode):
-        the gather kernel on replicated matrices, or the sum of the row
-        blocks' shares on row-sharded ones."""
+    def _gather(self, idx_list: list) -> tuple[list, list]:
+        """The test correlation and network submatrices of every index
+        tensor of ``idx_list`` (one per bucket), each matrix in one gather
+        launch — on row-sharded matrices one per row block, each writing
+        the rows it owns. In derived-network mode the network list holds
+        None (:meth:`_stats` derives each network from its correlation)."""
         if self.row_sharded:
-            return gather_corr_net(self._gather_rep, self._rows_c,
-                                   self._rows_n, idx, self.net_beta)
-        sub_c = gather_submatrix_fused(self._test_corr, idx)
-        sub_n = (
-            tstats.derived_net(sub_c, self.net_beta)
-            if self._test_net is None
-            else gather_submatrix_fused(self._test_net, idx)
-        )
+            if self._rows_n is None:
+                sub_c = self._gather_rep(self._rows_c, None, idx_list)
+                return sub_c, [None] * len(idx_list)
+            return self._gather_rep(self._rows_c, self._rows_n, idx_list)
+        sub_c = gather_submatrix_fused_many(self._test_corr, idx_list)
+        sub_n = ([None] * len(idx_list) if self._test_net is None
+                 else gather_submatrix_fused_many(self._test_net, idx_list))
         return sub_c, sub_n
 
     def _stats(self, b: _Bucket, idx: torch.Tensor, sub_c, sub_n,
@@ -676,19 +680,20 @@ class PermutationEngine:
     def _values(self, perm: torch.Tensor) -> list[torch.Tensor]:
         """Per-bucket ``(C, K, 7)`` null statistics of the drawn
         permutations ``perm`` ``(C, P)``: one fused-statistics launch per
-        bucket, or the composed statistics (gathered submatrices, then
-        :meth:`_stats`)."""
+        bucket, or the composed statistics — every bucket's submatrices
+        gathered at once (one launch per matrix), then :meth:`_stats`
+        bucket by bucket, each bucket's submatrices freed once used."""
+        idxs = [self._bucket_idx(perm, b) for b in self.buckets]
+        if self.stat_mode == "fused":
+            return [fused_stats_values(
+                self._test_corr, self._test_net, self._test_dataT, b.disc,
+                idx, net_beta=self.net_beta, n_iter=self.config.power_iters,
+            ) for b, idx in zip(self.buckets, idxs)]
+        subs_c, subs_n = self._gather(idxs)
         outs = []
-        for b in self.buckets:
-            idx = self._bucket_idx(perm, b)
-            if self.stat_mode == "fused":
-                outs.append(fused_stats_values(
-                    self._test_corr, self._test_net, self._test_dataT,
-                    b.disc, idx, net_beta=self.net_beta,
-                    n_iter=self.config.power_iters,
-                ))
-            else:
-                outs.append(self._stats(b, idx, *self._gather(idx)))
+        for i, (b, idx) in enumerate(zip(self.buckets, idxs)):
+            outs.append(self._stats(b, idx, subs_c[i], subs_n[i]))
+            subs_c[i] = subs_n[i] = None
         return outs
 
     def _count(self, perm: torch.Tensor, valid: int,

@@ -7,14 +7,16 @@ block of global rows ``[r * rows_per, (r + 1) * rows_per)`` on device
 Perm shards that share a device share its blocks; on a mesh over one
 device every block is a view of one tensor (:func:`shard_rows`).
 
-A module gather ``M[idx][:, idx]`` from such a matrix is the sum over the
-row blocks of each block's share: the local gather kernel
-(:func:`~netrep_tpu_torch.ops.fused_gather.gather_submatrix_fused_local`)
-zeroes the rows a block does not own, so each entry receives exactly one
-nonzero share and the sum is exact. That sum is the JAX package's ``psum``
-over the row axis; here it is plain tensor adds on the perm shard's
-device, after a copy where the cards differ. The other assembly, the ring,
-is :func:`netrep_tpu_torch.ops.fused_stats.ring_gather_all`.
+A module gather ``M[idx][:, idx]`` from such a matrix is assembled from the
+row blocks, the JAX package's ``psum`` over the row axis. Where the blocks
+lie on the perm shard's device, each block's launch of the gather kernel
+(:func:`~netrep_tpu_torch.ops.fused_gather.gather_submatrix_fused_many`
+with ``out=``) writes the rows it owns, for every bucket at once, into one
+set of buffers: each entry is written once, so the assembly is exact and
+nothing is summed. A block on another card gives its share there (the
+rows it does not own are zero), which is copied over and added: each
+entry still receives one nonzero share. The other assembly, the ring, is
+:func:`netrep_tpu_torch.ops.fused_stats.ring_gather_all`.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import stats as tstats
-from ..ops.fused_gather import gather_submatrix_fused_local
+from ..ops.fused_gather import gather_submatrix_fused_many
 from .mesh import PERM_AXIS, ROW_AXIS, Mesh
 
 
@@ -93,48 +95,57 @@ def chunk_shards(mesh: Mesh, C: int,
             for p in range(P) for r in range(R)]
 
 
-def _psum_gather(blocks_row, idx: torch.Tensor, out) -> torch.Tensor:
-    """``M[idx][:, idx]`` on ``out`` from one perm shard's row blocks: each
-    block's local-gather share, summed."""
+def _psum_gather(blocks_row, idx_list, dev) -> list:
+    """``M[idx][:, idx]`` on ``dev`` for every index tensor of ``idx_list``
+    from one perm shard's row blocks (they cover every row): in place,
+    one launch per block, where every block lies on ``dev``; else each
+    block's share, summed on ``dev``."""
     rows_per = blocks_row[0].shape[0]
+    if all(blk.device == dev for blk in blocks_row):
+        idx_list = [ix.to(dev) for ix in idx_list]
+        out = [torch.empty(ix.shape + ix.shape[-1:], dtype=torch.float32,
+                           device=dev) for ix in idx_list]
+        for r, blk in enumerate(blocks_row):
+            gather_submatrix_fused_many(blk, idx_list, r * rows_per, out=out)
+        return out
     total = None
     for r, blk in enumerate(blocks_row):
-        part = gather_submatrix_fused_local(blk, idx.to(blk.device),
-                                            r * rows_per).to(out)
-        if total is None:
-            total = part
-        else:
-            total += part
+        parts = [p.to(dev) for p in gather_submatrix_fused_many(
+            blk, [ix.to(blk.device) for ix in idx_list], r * rows_per)]
+        total = parts if total is None else [
+            t.add_(p) for t, p in zip(total, parts)]
     return total
 
 
-def gather_corr_net(gather, tc, tn, idx, net_beta):
+def gather_corr_net(gather, tc, tn, idx_list, net_beta):
     """One dispatch point for derived-network mode over a sharded
-    gatherer: with ``tn`` present gather the (corr, net) submatrix pair;
-    with ``tn`` None gather only the correlation and derive the network
-    from it with :func:`~netrep_tpu_torch.ops.stats.derived_net`
+    gatherer: with ``tn`` present gather the (corr, net) submatrix lists;
+    with ``tn`` None gather only the correlations and derive each network
+    from them with :func:`~netrep_tpu_torch.ops.stats.derived_net`
     (``net_beta`` is ``EngineConfig.network_from_correlation``)."""
     if tn is not None:
-        return gather(tc, tn, idx)
-    sub_c = gather(tc, None, idx)
-    return sub_c, tstats.derived_net(sub_c, net_beta)
+        return gather(tc, tn, idx_list)
+    sub_c = gather(tc, None, idx_list)
+    return sub_c, [tstats.derived_net(s, net_beta) for s in sub_c]
 
 
 def make_sharded_gatherer(mesh: Mesh):
     """A batched gather over row-sharded correlation/network matrices:
-    ``gather(corr, net, idx)`` with ``corr``/``net`` as :func:`shard_rows`
-    gives them (``net`` may be None: only the correlation is gathered and
-    returned alone). ``idx`` ``(..., m)`` is one tensor; the result ``(...,
-    m, m)`` is assembled from perm shard 0's blocks on ``mesh.devices[0,
-    0]`` — the engine hands each perm shard the one-row mesh of its own
-    blocks (``Mesh.perm_row``).
+    ``gather(corr, net, idx_list)`` with ``corr``/``net`` as
+    :func:`shard_rows` gives them (``net`` may be None: only the
+    correlation is gathered and its list returned alone). ``idx_list``
+    holds one ``(..., m)`` index tensor per bucket; each ``(..., m, m)``
+    result is assembled from perm shard 0's blocks on ``mesh.devices[0,
+    0]``, every bucket in one launch per block and matrix — the engine
+    hands each perm shard the one-row mesh of its own blocks
+    (``Mesh.perm_row``).
 
-    Every block's share comes from the local gather kernel's wrapper: the
-    JAX package's ``'direct'`` and ``'fused'`` modes are both exact copies,
-    and so is the kernel (``EngineConfig`` refuses ``'mxu'``)."""
+    Every block's rows come from the gather kernel's wrapper: the JAX
+    package's ``'direct'`` and ``'fused'`` modes are both exact copies, and
+    so is the kernel (``EngineConfig`` refuses ``'mxu'``)."""
 
-    def gather(corr, net, idx):
-        out = [_psum_gather(m[0], idx, mesh.devices[0, 0])
+    def gather(corr, net, idx_list):
+        out = [_psum_gather(m[0], idx_list, mesh.devices[0, 0])
                for m in ([corr] if net is None else [corr, net])]
         return out[0] if net is None else tuple(out)
 

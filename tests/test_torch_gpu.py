@@ -8,8 +8,9 @@ Tolerances, kernel vs plain: fused statistics 1e-4 absolute (the kernel
 sums in its own fixed order and, by shape, iterates on the node-space Gram
 matrix, the sample-space one, or streams the data rows each step; the
 plain version forms the node-space Gram matrix, ``csrc/fused_stats.cu``
-notes); the gather and the ring shift none — both are copies, so they are
-bit-equal.
+notes) — also on test matrices asymmetric up to the datasets' tolerance,
+which the kernel's cached tier reads from one triangle; the gather and the
+ring shift none — both are copies, so they are bit-equal.
 """
 
 import numpy as np
@@ -224,7 +225,7 @@ def test_gather_refuses_bad_operands(cuda):
 
 
 @pytest.mark.parametrize("options,kernel", [
-    (dict(stat_mode="xla"), "gather_submatrix_fused"),
+    (dict(stat_mode="xla"), "gather_submatrix_fused_many"),
     (dict(network_from_correlation=2.0), "fused_stats_values"),
 ], ids=("composed", "derived"))
 def test_engine_options_cuda_match_cpu(cuda, options, kernel):
@@ -301,10 +302,138 @@ def test_row_sharded_cuda_matches_cpu(cuda, stat_mode):
                                   stat_mode=stat_mode))
     tops.reset_launches()
     gpu = module_preservation(**kw, mesh=make_mesh(2, 2, devices=[cuda] * 4))
-    assert tgather.gather_submatrix_fused_local.launches > 0
+    assert tgather.gather_submatrix_fused_many.launches > 0
     assert (tfused.ring_shift_dma.launches > 0) == (stat_mode == "auto")
     cpu = module_preservation(**kw, device="cpu", mesh=make_mesh(
         2, 2, devices=[torch.device("cpu")] * 4))
     np.testing.assert_allclose(gpu.observed, cpu.observed, rtol=0, atol=TOL)
     np.testing.assert_allclose(gpu.nulls, cpu.nulls, rtol=0, atol=TOL)
     np.testing.assert_array_equal(gpu.p_values, cpu.p_values)
+
+
+def _many_case(dev, kind, seed=5):
+    """Index lists of several buckets over an n x n matrix, for each way
+    the gather kernel reads a source row: ``dense`` (many output rows per
+    source row), ``hot_row`` (nearly every slot reads row 3, as padded
+    slots read gene 0: the row's list is cut into many items) and
+    ``sparse`` (a few output rows per source row of a wide matrix). Each
+    has padded slots at gene 0, sentinels, duplicates and a NaN in a row
+    that is read."""
+    rng = np.random.default_rng(seed)
+    n, batches = {"dense": (1000, (200, 150, 100)),
+                  "hot_row": (1000, (300, 300, 300)),
+                  "sparse": (8000, (2, 3, 1))}[kind]
+    M = torch.as_tensor(rng.standard_normal((n, n)).astype(np.float32),
+                        device=dev)
+    idx_list = []
+    for G, cap in zip(batches, (32, 45, 64)):
+        idx = rng.integers(0, n, size=(G, cap)).astype(np.int32)
+        if kind == "hot_row":
+            idx[:, 2:] = 3
+        idx[:, cap - 5:] = 0                    # padded slots
+        idx[0, 1], idx[-1, 2] = -1, n + 4       # sentinels
+        idx[0, 3] = idx[0, 4]                   # a duplicate
+        idx_list.append(torch.as_tensor(idx, device=dev))
+    r, c = int(idx_list[1][0, 5]), int(idx_list[1][0, 6])
+    M[r, c] = float("nan")
+    return M, idx_list
+
+
+@pytest.mark.parametrize("stage_div", [0, 3, 1 << 20],
+                         ids=("in_place", "default", "staged"))
+@pytest.mark.parametrize("kind", ["dense", "hot_row", "sparse"])
+def test_many_kernel_bit_equal_to_plain(cuda, monkeypatch, kind, stage_div):
+    # STAGE_DIV 0 reads every row in place, 1 << 20 stages every row
+    monkeypatch.setattr(tgather, "STAGE_DIV", stage_div)
+    M, idx_list = _many_case(cuda, kind)
+    before = tgather.gather_submatrix_fused_many.launches
+    got = tgather.gather_submatrix_fused_many(M, idx_list)
+    assert tgather.gather_submatrix_fused_many.launches == before + 1
+    want = tgather.gather_submatrix_fused_many_plain(M, idx_list)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert _bit_equal(g, w)
+    assert torch.isnan(got[1]).any()
+    # the single-bucket entries are the same kernel with one bucket
+    assert _bit_equal(tgather.gather_submatrix_fused(M, idx_list[2]), want[2])
+
+
+@pytest.mark.parametrize("kind", ["dense", "hot_row"])
+def test_many_out_row_blocks_assemble_replicated(cuda, kind):
+    """One launch per row block into buffers that start as NaN: the
+    replicated gather, the rows no block owns zeroed by the block at 0."""
+    M, idx_list = _many_case(cuda, kind, seed=6)
+    out = [torch.full(ix.shape + ix.shape[-1:], float("nan"), device=cuda)
+           for ix in idx_list]
+    for r0 in (0, 250, 500, 750):
+        tgather.gather_submatrix_fused_many(M[r0: r0 + 250], idx_list, r0,
+                                            out=out)
+    want = tgather.gather_submatrix_fused_many(M, idx_list)
+    torch.cuda.synchronize()
+    for o, w in zip(out, want):
+        assert _bit_equal(o, w)
+
+
+def test_many_kernel_rows_wider_than_shared_memory(cuda):
+    """A (64, 60,000) row block: no row fits a block's shared memory, so
+    every row is read in place — the shape is not refused."""
+    rng = np.random.default_rng(8)
+    n = 60_000
+    block = torch.as_tensor(rng.standard_normal((64, n)).astype(np.float32),
+                            device=cuda)
+    r0 = 128
+    idx = rng.integers(0, n, size=(40, 48)).astype(np.int32)
+    idx[:, :20] = rng.integers(r0, r0 + 64, size=(40, 20))
+    idx[:, 40:] = r0                             # a hot row of the block
+    idx[0, 0], idx[1, 1] = -3, n
+    it = torch.as_tensor(idx, device=cuda)
+    block[5, int(idx[2, 1])] = float("nan")
+    got = tgather.gather_submatrix_fused_local(block, it, r0)
+    want = tgather.gather_submatrix_fused_local_plain(block, it, r0)
+    out = [torch.full((40, 48, 48), float("nan"), device=cuda)]
+    tgather.gather_submatrix_fused_many(block, [it], r0, out=out)
+    torch.cuda.synchronize()
+    assert _bit_equal(got, want)
+    own = ((it >= r0) & (it < r0 + 64))[..., None].expand_as(want)
+    assert _bit_equal(torch.where(own, out[0], 0.0),
+                      torch.where(own, want, 0.0))
+    assert torch.isnan(out[0][~own]).all()      # nothing else is touched
+
+
+def _asymmetric(c, delta=4.5e-6, seed=11):
+    """``c`` times ``1 + delta * S`` with S antisymmetric (+-1): the two
+    triangles differ by 2 delta |c| = 9e-6 |c|, just inside the datasets'
+    ``np.allclose(a, a.T, rtol=1e-5, atol=1e-8)``."""
+    n = c.shape[0]
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    sign = (torch.randint(0, 2, (n, n), generator=g) * 2 - 1).float()
+    S = torch.triu(sign, 1)
+    S = (S - S.T).to(c.device)
+    out = c * (1 + delta * S)
+    a = out.cpu().numpy()
+    assert np.allclose(a, a.T, rtol=1e-5, atol=1e-8)
+    assert not np.array_equal(a, a.T)
+    return out
+
+
+@pytest.mark.parametrize("tier", ["node_gram", "streamed"],
+                         ids=("cached", "whole_row"))
+def test_one_triangle_read_within_tolerance_on_asymmetry(cuda, tier):
+    """The fused kernel reads each unordered pair once, from the upper
+    triangle, where its shared-memory cache fits (cap 64 here) and whole
+    rows where it does not (cap 256); the plain version reads both
+    triangles. On test matrices as asymmetric as the datasets accept, both
+    tiers stay within the kernel's tolerance, in values and in counts."""
+    c = _case(cuda, **TIER_CASES[tier])
+    tc, tn = _asymmetric(c["tc"]), _asymmetric(c["tn"], seed=12)
+    got = tfused.fused_stats_values(tc, tn, c["tdT"], c["disc"], c["idx"])
+    want = tfused.fused_stats_values_plain(tc, tn, c["tdT"], c["disc"],
+                                           c["idx"])
+    B = c["idx"].shape[0]
+    pvalid = torch.ones(B, dtype=torch.int32, device=cuda)
+    v, hi, _lo, _eff = tfused.fused_stats_counts(
+        tc, tn, c["tdT"], c["disc"], c["idx"], pvalid, c["obs"])
+    torch.cuda.synchronize()
+    _assert_close_to_plain(got, want, c["sizes"])
+    _assert_close_to_plain(v, want, c["sizes"])
+    assert torch.equal(hi, (v >= c["obs"][None]).sum(0, dtype=torch.int32))

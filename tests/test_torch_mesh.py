@@ -170,7 +170,7 @@ def test_sharded_gather_matches_dense_and_jax(rng, n):
     blocks = [tsharded.shard_rows(tsharded.pad_square_to_multiple(
         torch.as_tensor(a), 4), mesh) for a in mats]
     it = torch.as_tensor(idx)
-    sub_c, sub_n = tsharded.make_sharded_gatherer(mesh)(*blocks, it)
+    (sub_c,), (sub_n,) = tsharded.make_sharded_gatherer(mesh)(*blocks, [it])
     for got, a in ((sub_c, mats[0]), (sub_n, mats[1])):
         want = tgather.gather_submatrix_fused_plain(torch.as_tensor(a), it)
         assert torch.equal(got, want)
@@ -183,8 +183,8 @@ def test_sharded_gather_matches_dense_and_jax(rng, n):
     np.testing.assert_array_equal(sub_c.numpy(), np.asarray(jc))
     np.testing.assert_array_equal(sub_n.numpy(), np.asarray(jn))
     # derived-network dispatch: the correlation alone, the network from it
-    c2, n2 = tsharded.gather_corr_net(tsharded.make_sharded_gatherer(mesh),
-                                      blocks[0], None, it, 2.0)
+    (c2,), (n2,) = tsharded.gather_corr_net(
+        tsharded.make_sharded_gatherer(mesh), blocks[0], None, [it], 2.0)
     assert torch.equal(c2, sub_c) and torch.equal(n2, c2.abs() ** 2)
 
 

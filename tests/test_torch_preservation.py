@@ -183,11 +183,88 @@ def test_input_errors_match_jax(frames, case):
     ("adaptive", True),
     ("checkpoint_dir", "x"), ("telemetry", True), ("fault_policy", True),
     ("data_only", 2.0), ("backend", "native"),
+    ("n_threads", 4), ("profile", True), ("checkpoint_every", 100),
+    ("adaptive_rule", "bayes"), ("adaptive_priors", np.ones((1, 7, 3))),
 ])
 def test_later_slice_arguments_raise(frames, arg, value):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         module_preservation(**frames, n_perm=10, device="cpu",
                             **{arg: value})
+
+
+@pytest.mark.parametrize("arg,value,item", [
+    ("n_threads", 4, 16), ("profile", "trace_dir", 16),
+    ("checkpoint_every", 1024, 7), ("adaptive_rule", "bayes", 8),
+    ("adaptive_priors", np.ones((1, 7, 3)), 8),
+])
+def test_jax_only_keywords_name_their_item(frames, arg, value, item):
+    """The six keywords the port's signature once lacked (a TypeError) now
+    raise the item that brings them, and only at a value other than the
+    JAX package's default."""
+    with pytest.raises(NotImplementedError,
+                       match=f"{arg}= .*ROADMAP.md Queue 1 item {item} "):
+        module_preservation(**frames, n_perm=10, device="cpu",
+                            **{arg: value})
+
+
+def test_jax_defaults_of_later_keywords_run(frames, caplog):
+    defaults = dict(n_threads=None, profile=None, checkpoint_every=8192,
+                    adaptive_rule=None, adaptive_priors=None)
+    plain = module_preservation(**frames, n_perm=40, seed=3, device="cpu")
+    with caplog.at_level("INFO", logger="netrep_tpu_torch"):
+        quiet = module_preservation(**frames, n_perm=40, seed=3,
+                                    device="cpu", verbose=False, **defaults)
+        assert not caplog.records
+        loud = module_preservation(**frames, n_perm=40, seed=3,
+                                   device="cpu", verbose=True, **defaults)
+    lines = [r.getMessage() for r in caplog.records]
+    assert len(lines) == 2 and "'d'" in lines[0] and "40 permutations" in \
+        lines[1], lines
+    for res in (quiet, loud):
+        np.testing.assert_array_equal(res.p_values, plain.p_values)
+
+
+def _jax_written(frames, tmp_path, kind):
+    """A result the JAX package saved, of each kind it writes."""
+    import dataclasses
+
+    res = netrep_tpu.module_preservation(**frames, n_perm=40, seed=2)
+    if kind == "sequential":
+        res = dataclasses.replace(res, p_type="sequential",
+                                  n_perm_used=np.full(len(res.module_labels),
+                                                      40))
+    elif kind == "n_perm_used":
+        res = dataclasses.replace(res, n_perm_used=np.full(
+            len(res.module_labels), 40))
+    elif kind == "gpd_tail":
+        res.tail_pvalues()
+    elif kind == "screened":
+        res = dataclasses.replace(res, nulls_exact=False)
+    path = str(tmp_path / f"{kind}.npz")
+    res.save(path)
+    return res, path
+
+
+@pytest.mark.parametrize("kind,field,item", [
+    ("sequential", "p_type='sequential'", 8),
+    ("n_perm_used", "n_perm_used", 8),
+    ("gpd_tail", "p_tail", 13),
+    ("screened", "nulls_exact=False", 13),
+])
+def test_load_refuses_what_the_port_cannot_carry(frames, tmp_path, kind,
+                                                 field, item):
+    _res, path = _jax_written(frames, tmp_path, kind)
+    with pytest.raises(ValueError, match=f"{field}.*ROADMAP.md Queue 1 "
+                                         f"item {item} "):
+        PreservationResult.load(path)
+
+
+def test_load_reads_a_jax_written_fixed_result(frames, tmp_path):
+    res, path = _jax_written(frames, tmp_path, "fixed")
+    back = PreservationResult.load(path)
+    for name in ("observed", "nulls", "p_values", "n_vars_present"):
+        np.testing.assert_array_equal(getattr(back, name), getattr(res, name))
+    assert back.completed == res.completed == 40
 
 
 def test_fixtures_are_copies():

@@ -73,3 +73,68 @@ def test_ring_gather_all_bit_equal_to_replicated(R):
             for bi, ix in enumerate(idx[j]):
                 want = tgather.gather_submatrix_fused_plain(m, ix)
                 assert torch.equal(subs[j][mi][bi], want)
+
+
+@pytest.mark.parametrize("R", [2, 4])
+def test_ring_makes_one_gather_call_per_step_shard_and_matrix(monkeypatch, R):
+    """Each step writes every bucket of a shard's chunk in one in-place
+    call per matrix (``out=``): R steps x R shards x 2 matrices, and no
+    share is added anywhere."""
+    from netrep_tpu_torch.ops import fused_gather
+
+    rng = np.random.default_rng(10 + R)
+    n = 8 * R
+    mats = [torch.as_tensor(rng.standard_normal((n, n)).astype(np.float32))
+            for _ in range(2)]
+    rings = [list(m.split(n // R)) for m in mats]
+    idx = [[torch.as_tensor(rng.integers(-1, n + 1, (3, cap)).astype(
+        np.int32)) for cap in (3, 6)] for _ in range(R)]
+    calls = []
+    real = fused_gather.gather_submatrix_fused_many
+
+    def counted(M, idx_list, row_start=0, out=None):
+        assert out is not None and len(out) == len(idx_list) == 2
+        calls.append(row_start)
+        return real(M, idx_list, row_start, out=out)
+
+    monkeypatch.setattr(fused_gather, "gather_submatrix_fused_many", counted)
+    monkeypatch.setattr(torch.Tensor, "add_", None)   # no share is summed
+    subs = tfused.ring_gather_all(rings, idx, n // R)
+    assert len(calls) == R * R * 2
+    assert sorted(calls) == sorted([r * (n // R) for r in range(R)] * R * 2)
+    for j in range(R):
+        for mi, m in enumerate(mats):
+            for bi, ix in enumerate(idx[j]):
+                assert torch.equal(subs[j][mi][bi],
+                                   tgather.gather_submatrix_fused_plain(m, ix))
+
+
+def test_psum_gatherer_writes_in_place_bit_equal(monkeypatch):
+    """The psum gatherer over one device's row blocks: one in-place call
+    per block and matrix for every bucket, equal to the replicated gather
+    bit for bit."""
+    from netrep_tpu_torch.parallel import mesh as tmesh
+    from netrep_tpu_torch.parallel import sharded as tsharded
+
+    R, n = 4, 30
+    rng = np.random.default_rng(7)
+    mats = [torch.as_tensor(rng.standard_normal((n, n)).astype(np.float32))
+            for _ in range(2)]
+    mesh = tmesh.make_mesh(1, R, devices=[torch.device("cpu")] * R)
+    blocks = [tsharded.shard_rows(pad_square_to_multiple(m, R), mesh)
+              for m in mats]
+    idx = [torch.as_tensor(rng.integers(-2, n + 3, (2, 5, cap)).astype(
+        np.int32)) for cap in (4, 9, 16)]
+    calls = []
+    real = tsharded.gather_submatrix_fused_many
+
+    def counted(M, idx_list, row_start=0, out=None):
+        calls.append(out is not None)
+        return real(M, idx_list, row_start, out=out)
+
+    monkeypatch.setattr(tsharded, "gather_submatrix_fused_many", counted)
+    sub_c, sub_n = tsharded.make_sharded_gatherer(mesh)(*blocks, idx)
+    assert calls == [True] * (R * 2)
+    for got, m in ((sub_c, mats[0]), (sub_n, mats[1])):
+        for g, ix in zip(got, idx):
+            assert torch.equal(g, tgather.gather_submatrix_fused_plain(m, ix))
