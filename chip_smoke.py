@@ -17,7 +17,11 @@ one launch and one launch per bucket, four row blocks written in place,
 the ring's local part, the bound and the sector floor of a scattered
 design, the staged/in-place crossover). ``ring_trace`` splits one chunk
 of the ring path (local gather, ring steps, adds and fills, composed
-statistics). Then it drives the
+statistics). ``input_phase`` runs the input checks alone on the main
+path's host float64 inputs (each dataset alone and both together: seconds,
+peak device memory against the float32 matrices returned, which it bounds
+by 0.5 GiB more, and their checksums), and ``host_copies`` times the ways
+one host matrix can reach the card. Then it drives the
 public entry point
 ``netrep_tpu_torch.models.preservation.module_preservation`` at the
 north-star width — 20,000 genes, 50 planted modules of 30–200 nodes, 128
@@ -48,10 +52,19 @@ launch count set to 0 just before a path and read just after:
   pair after another (a matrix a later pair needs waits on the host
   meanwhile), with each pair's phase seconds and the time of one matrix's
   round trip to the host;
+- ``surface``: ``network_properties`` on five modules against a float64
+  numpy computation of the same formulas on the host slices,
+  ``combine_analyses`` of two 500-permutation runs (seeds 1 and 2)
+  materialized and streaming with equal combined p-values, and one
+  matrix's round trip through pinned host memory;
 - ``wide_samples``: the same widths with 1,000-sample cohorts, a shape
   whose module data slices no block's shared memory holds: the kernel
   against its plain version in every bucket, then a streaming null of
   1,000 permutations;
+- ``genome_scale``: two 50,000-gene datasets handed over as host float32
+  arrays, a streaming null of 200 permutations: its input seconds and
+  peak, and the memory held during the null (where the host has less
+  than about 45 GB free, a line that says it did not run);
 
 and checks each against the others: equal p-values where the same
 statistics run, nulls within 1e-4 where the arithmetic differs, and every
@@ -81,17 +94,27 @@ only one chunk's gather per matrix and the ring's assembly, by whichever
 gather design the checkout has, the ring trace and (redesigned gather) the
 crossover, and
 
+    python3 chip_smoke.py --inputs
+
+only ``input_phase``, and
+
+    python3 chip_smoke.py --genome-scale
+
+only ``genome_scale`` (an out-of-memory error is printed as its result),
+and
+
     python3 chip_smoke.py --p-values
 
 only the p-values and counts of the main path, the composed null, the
 derived network, the row-sharded ring and psum paths, the perm mesh and
-two cohorts, each through the ``netrep_tpu_torch`` beside the script:
-copied into another checkout, it measures that checkout's version on the
-same inputs.
+two cohorts. Each mode runs through the ``netrep_tpu_torch`` beside the
+script: copied into another checkout, it measures that checkout's version
+on the same inputs.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import re
 import subprocess
@@ -115,6 +138,10 @@ GENES, SAMPLES, MODULES, SIZES = 20_000, 128, 50, (30, 200)
 N_PERM, SEED, BETA = 1000, 2026, 2.0
 #: the wide_samples phase: cohorts of this many samples at the same widths
 WIDE_SAMPLES, WIDE_PERM = 1000, 1000
+#: the genome_scale phase: two datasets of this many genes, streaming
+GENOME_GENES, GENOME_PERM = 50_000, 200
+#: the surface phase: permutations of each run that combine_analyses pools
+SURFACE_PERM = 500
 #: kernel vs plain: the kernel sums in its own fixed order and may iterate
 #: on the other Gram matrix (csrc/fused_stats.cu); the plain version forms
 #: the node-space Gram matrix — float32 rounding apart, ~1e-5 at most
@@ -127,17 +154,17 @@ NVLINK_BPS = 450e9
 SECTOR = 32
 
 
-def make_cohorts(np, samples=SAMPLES):
-    """Host data ``(samples, GENES)`` float32 of the discovery, the test
+def make_cohorts(np, samples=SAMPLES, genes=GENES):
+    """Host data ``(samples, genes)`` float32 of the discovery, the test
     and a second test cohort, with the module sizes and node labels, from
     SEED: MODULES planted modules of SIZES nodes, the first half preserved
     in both tests with the discovery loadings."""
     rng = np.random.default_rng(SEED)
     sizes = rng.integers(SIZES[0], SIZES[1] + 1, size=MODULES)
-    xd = rng.standard_normal((samples, GENES)).astype(np.float32)
-    xt = rng.standard_normal((samples, GENES)).astype(np.float32)
-    labels = np.full(GENES, "0", dtype=object)
-    order = rng.permutation(GENES)
+    xd = rng.standard_normal((samples, genes)).astype(np.float32)
+    xt = rng.standard_normal((samples, genes)).astype(np.float32)
+    labels = np.full(genes, "0", dtype=object)
+    order = rng.permutation(genes)
     loads = []
     at = 0
     for k, sz in enumerate(sizes):
@@ -151,7 +178,7 @@ def make_cohorts(np, samples=SAMPLES):
                              .astype(np.float32) * load)
         labels[nodes] = str(k + 1)
     # the second test cohort continues the seed stream
-    x2 = rng.standard_normal((samples, GENES)).astype(np.float32)
+    x2 = rng.standard_normal((samples, genes)).astype(np.float32)
     at = 0
     for k, sz in enumerate(sizes):
         nodes = order[at: at + sz]
@@ -632,14 +659,405 @@ def asymmetry(torch, np, fs, tstats, engine, chunk, obs, disc, cfg, dev,
     return out
 
 
+def mats32(torch, x, dev):
+    """``(correlation, network)`` of one cohort on ``dev`` in float32 (the
+    genome-scale phase, where a float64 matrix would not leave room):
+    the genes' Pearson correlation, made exactly symmetric, and
+    ``|corr| ** BETA``."""
+    t = torch.as_tensor(x, device=dev)
+    z = (t - t.mean(0)) / t.std(0)
+    c = (z.T @ z) / (x.shape[0] - 1)
+    c = (c + c.T) * 0.5
+    c.fill_diagonal_(1.0)
+    c.clamp_(-1.0, 1.0)
+    return c, c.abs() ** BETA
+
+
+def checksum(torch, t, rows=1024):
+    """sha256 (first 16 hex digits) of a tensor's bytes, copied to the
+    host a block of rows at a time."""
+    h = hashlib.sha256()
+    for r in range(0, t.shape[0], rows):
+        h.update(t[r: r + rows].contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def input_phase(torch, np, hosts, card, bound=True):
+    """``build_datasets`` alone on host float64 inputs at the main path's
+    width: each dataset alone, then both together as ``module_preservation``
+    calls it, each with its seconds (synchronised) and the peak device
+    memory of the call from a reset just before it, against the float32
+    matrices it returns; and the checksums of those matrices, to hold two
+    versions to the same narrowing. With ``bound``, fails when the peak of
+    the two-dataset call exceeds what it returns by more than 0.5 GiB."""
+    from netrep_tpu_torch.models.dataset import build_datasets
+
+    def one(names):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = build_datasets(
+            {k: hosts[k][2] for k in names},
+            data={k: hosts[k][0] for k in names},
+            correlation={k: hosts[k][1] for k in names}, device="cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        held = sum(getattr(d, f).numel() * getattr(d, f).element_size()
+                   for d in out.values()
+                   for f in ("correlation", "network", "data"))
+        return out, {"input_s": secs, "peak_gib": peak / 2**30,
+                     "outputs_gib": held / 2**30,
+                     "peak_above_outputs_gib": (peak - held) / 2**30}
+
+    alone = {}
+    for name in hosts:
+        out, alone[name] = one([name])
+        del out
+    out, both = one(list(hosts))
+    sums = {name: {f: checksum(torch, getattr(d, f))
+                   for f in ("correlation", "network", "data")}
+            for name, d in out.items()}
+    dtypes = sorted({str(getattr(d, f).dtype) for d in out.values()
+                     for f in ("correlation", "network", "data")})
+    del out
+    torch.cuda.empty_cache()
+    emit({"phase": "input_phase", "genes": GENES, "samples": SAMPLES,
+          "input_dtype": str(next(iter(hosts.values()))[1].dtype),
+          "bytes": sum(m.nbytes for h in hosts.values() for m in h),
+          "datasets_alone": alone, "both": both, "output_dtypes": dtypes,
+          "checksums": sums, "card": card})
+    if bound and both["peak_above_outputs_gib"] > 0.5:
+        raise RuntimeError(f"input phase: peak {both['peak_gib']} GiB is "
+                           "more than 0.5 GiB above its float32 outputs")
+    return both
+
+
+def _cudart(torch):
+    """The CUDA runtime library torch loaded, through ctypes, for
+    ``cudaMemcpy2DAsync`` (torch exposes no strided host-to-card copy)."""
+    import ctypes
+
+    major = (torch.version.cuda or "12").split(".")[0]
+    for name in (f"libcudart.so.{major}", "/usr/local/cuda/lib64/libcudart.so"):
+        try:
+            lib = ctypes.CDLL(name)
+            break
+        except OSError:
+            continue
+    else:
+        raise OSError("no libcudart found")
+    lib.cudaMemcpy2DAsync.argtypes = [
+        ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p, ctypes.c_size_t,
+        ctypes.c_size_t, ctypes.c_size_t, ctypes.c_int, ctypes.c_void_p]
+    lib.cudaMemcpy2DAsync.restype = ctypes.c_int
+    return lib
+
+
+def host_copies(torch, np, m, card, side=2048):
+    """How one host float64 ``GENES``² matrix can reach the card, each
+    route timed alone (host clock, synchronised): the whole matrix from
+    pageable memory (the parent's route); its tiles copied into one pinned
+    buffer by torch's threaded ``copy_`` (all intra-op threads, then one);
+    a pinned tile copied to the card as many times; and the user's array
+    page-locked in place (``cudaHostRegister``) with each tile moved by
+    one strided ``cudaMemcpy2DAsync``."""
+    dev = torch.device("cuda")
+    n = m.shape[0]
+    src = torch.from_numpy(m)
+    tiles = [(slice(i, min(n, i + side)), slice(j, min(n, j + side)))
+             for i in range(0, n, side) for j in range(0, n, side)]
+    gb = m.nbytes / 1e9
+    out = {"gb": gb, "tile": side, "tiles": len(tiles),
+           "threads": torch.get_num_threads()}
+
+    def clock(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        return {"s": secs, "gb_per_s": gb / secs}
+
+    def whole():
+        out.setdefault("_keep", []).append(src.to(dev))
+
+    out["pageable_whole"] = clock(whole)
+    out.pop("_keep")
+    torch.cuda.empty_cache()
+    pin = torch.empty((side, side), dtype=torch.float64, pin_memory=True)
+
+    def fill():
+        for r, c in tiles:
+            v = src[r, c]
+            pin[: v.shape[0], : v.shape[1]].copy_(v)
+
+    out["pinned_fill"] = clock(fill)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        out["pinned_fill_one_thread"] = clock(fill)
+    finally:
+        torch.set_num_threads(threads)
+    dst = torch.empty((side, side), dtype=torch.float64, device=dev)
+    out["pinned_to_card"] = clock(lambda: [dst.copy_(pin, non_blocking=True)
+                                           for _ in tiles])
+    try:
+        lib = _cudart(torch)
+        rt = torch.cuda.cudart()
+        t0 = time.perf_counter()
+        err = int(rt.cudaHostRegister(m.ctypes.data, m.nbytes, 0))
+        reg_s = time.perf_counter() - t0
+        if err:
+            raise RuntimeError(f"cudaHostRegister: error {err}")
+        try:
+            stream = torch.cuda.current_stream().cuda_stream
+
+            def dma():
+                for r, c in tiles:
+                    h, w = r.stop - r.start, c.stop - c.start
+                    e = lib.cudaMemcpy2DAsync(
+                        dst.data_ptr(), side * 8,
+                        m.ctypes.data + (r.start * n + c.start) * 8, n * 8,
+                        w * 8, h, 1, stream)
+                    if e:
+                        raise RuntimeError(f"cudaMemcpy2DAsync: error {e}")
+
+            out["registered_2d"] = {**clock(dma), "register_s": reg_s}
+            r, c = tiles[-1]
+            h, w = r.stop - r.start, c.stop - c.start
+            if not torch.equal(dst[:h, :w].cpu(), src[r, c]):
+                raise RuntimeError("strided copy of the last tile differs")
+        finally:
+            rt.cudaHostUnregister(m.ctypes.data)
+    except (OSError, RuntimeError, AttributeError) as e:
+        out["registered_2d"] = {"measured": False, "why": str(e)}
+    del dst, pin
+    torch.cuda.empty_cache()
+    emit({"phase": "host_copies", **out, "card": card})
+
+
+def round_trip(torch, m):
+    """One float32 matrix on the card to the host and back as the datasets
+    move a later pair's matrix (``place``: pinned, on a side stream, where
+    the checkout has it; pageable before), each way timed to the end of
+    its copy; fails unless it comes back equal."""
+    from netrep_tpu_torch.models import dataset as tds
+
+    pinned = hasattr(tds, "to_host")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if pinned:
+        host, done = tds.to_host(m)
+        if done is not None:
+            done.synchronize()
+    else:
+        host = m.cpu()
+    t1 = time.perf_counter()
+    back = (tds.to_device(host, m.device, done) if pinned
+            else host.to(m.device))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    if not torch.equal(back, m):
+        raise RuntimeError("a matrix's round trip to the host changed it")
+    return {"route": "pinned" if pinned else "pageable",
+            "gib": m.numel() * m.element_size() / 2**30,
+            "to_host": t1 - t0, "to_card": t2 - t1}
+
+
+def genome_scale(torch, np, card, strict=True):
+    """Two GENOME_GENES-gene datasets (data SAMPLES × GENOME_GENES, MODULES
+    planted modules), handed to ``module_preservation`` as host float32
+    arrays, streaming, GENOME_PERM permutations: ``input_s``, the peak of
+    the input phase, the memory held during the null. Needs about 45 GB of
+    host memory; where ``MemAvailable`` is short of it, prints why it did
+    not run. With ``strict=False`` (a version that may not fit) an
+    out-of-memory error is reported as the result instead of raised."""
+    from netrep_tpu_torch import ops as tops
+    from netrep_tpu_torch.models.preservation import module_preservation
+
+    with open("/proc/meminfo") as f:
+        avail = next(int(line.split()[1]) * 1024 for line in f
+                     if line.startswith("MemAvailable:"))
+    need = 4 * GENOME_GENES**2 * 4 * 1.1
+    if avail < need:
+        emit({"phase": "genome_scale", "run": False,
+              "why": f"MemAvailable {avail / 1e9:.1f} GB < {need / 1e9:.1f} "
+                     "GB of host memory for four float32 matrices",
+              "card": card})
+        return None
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    _sizes, labels, (xd, xt, _x2) = make_cohorts(np, genes=GENOME_GENES)
+    host = {}
+    for name, x in (("disc", xd), ("test", xt)):
+        c, n = mats32(torch, x, dev)
+        host[name] = (x, c.cpu().numpy(), n.cpu().numpy())
+        del c, n
+        torch.cuda.empty_cache()
+    made_s = time.perf_counter() - t0
+    tops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    held, before_null = [], []
+
+    def progress(done, total):
+        if not before_null:
+            before_null.append(torch.cuda.max_memory_allocated())
+        held.append(torch.cuda.memory_allocated())
+
+    report = {"phase": "genome_scale", "run": True, "genes": GENOME_GENES,
+              "samples": SAMPLES, "modules": MODULES, "n_perm": GENOME_PERM,
+              "store_nulls": False, "input_dtype": "float32",
+              "host_bytes": sum(m.nbytes for h in host.values() for m in h),
+              "make_inputs_s": made_s}
+    t0 = time.perf_counter()
+    try:
+        res = module_preservation(
+            network={k: h[2] for k, h in host.items()},
+            data={k: h[0] for k, h in host.items()},
+            correlation={k: h[1] for k, h in host.items()},
+            module_assignments=list(labels), discovery="disc", test="test",
+            n_perm=GENOME_PERM, seed=SEED, store_nulls=False,
+            device="cuda", progress=progress)
+    except torch.cuda.OutOfMemoryError as e:
+        if strict:
+            raise
+        emit({**report, "completed": False,
+              "error": f"{type(e).__name__}: {str(e).splitlines()[0]}",
+              "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+              "card": card})
+        del host
+        torch.cuda.empty_cache()
+        return None
+    wall = time.perf_counter() - t0
+    del host
+    launches = {fn.__name__: fn.launches for fn in tops.kernels()}
+    if launches["fused_stats_counts"] == 0:
+        raise RuntimeError("genome_scale launched no fused_stats_counts "
+                           "kernel")
+    if res.observed.shape != (MODULES, 7) or not np.isfinite(
+            res.observed).all():
+        raise RuntimeError("genome_scale: observed statistics are not "
+                           "finite (MODULES, 7)")
+    if not ((res.p_values > 0) & (res.p_values <= 1)).all():
+        raise RuntimeError("genome_scale: p-values outside (0, 1]")
+    if res.completed != GENOME_PERM:
+        raise RuntimeError(f"genome_scale: completed {res.completed}")
+    prof = res.profile
+    emit({**report, "completed": True, "wall_s": wall,
+          **{k: prof[k] for k in ("input_s", "engine_s", "observed_s",
+                                  "null_s", "perms_per_s")},
+          "input_peak_gib": before_null[0] / 2**30,
+          "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "null_held_gib": max(held) / 2**30, "launches": launches,
+          "modules_preserved": int((res.p_values.max(axis=1)
+                                    < 0.05 / MODULES).sum()),
+          "card": card})
+    torch.cuda.empty_cache()
+    return res
+
+
+def _host_props(np, net, dat):
+    """The network properties of one module from its host float64
+    submatrix and data slice, by the formulas of the JAX package's numpy
+    oracle: normalized weighted degree, average edge weight, summary
+    profile (first left singular vector of the standardized slice, signed
+    to the mean profile), node contribution and coherence."""
+    deg = net.sum(axis=1) - np.diag(net)
+    m = net.shape[0]
+    mu = dat.mean(axis=0, keepdims=True)
+    sd = dat.std(axis=0, ddof=1, keepdims=True)
+    z = (dat - mu) / np.where(sd > 0, sd, np.inf)
+    u = np.linalg.svd(z, full_matrices=False)[0][:, 0]
+    prof = -u if np.dot(u, z.mean(axis=1)) < 0 else u
+    p = prof - prof.mean()
+    denom = np.linalg.norm(p) * np.linalg.norm(z, axis=0)
+    nc = np.where(denom == 0, 0.0, (z.T @ p) / np.where(denom == 0, 1,
+                                                         denom))
+    return {"degree": deg / np.abs(deg).max(),
+            "avg_weight": (net.sum() - np.trace(net)) / (m * (m - 1)),
+            "summary": prof, "contribution": nc,
+            "coherence": float(np.mean(nc**2))}
+
+
+def surface(torch, np, kw, labels, card):
+    """The exported surface on the card at the main path's width:
+    ``network_properties`` on five modules held within TOL of a float64
+    numpy computation of the same formulas on the host slices;
+    ``combine_analyses`` of two SURFACE_PERM-permutation runs (seeds 1, 2)
+    materialized and streaming, the combined p-values equal across the
+    modes; and one matrix's round trip through pinned host memory."""
+    from netrep_tpu_torch.models.preservation import module_preservation
+    from netrep_tpu_torch.models.properties import network_properties
+    from netrep_tpu_torch.models.results import combine_analyses
+
+    mods = sorted(set(labels) - {"0"}, key=int)[:5]
+    pair = {f: {k: kw[f][k] for k in ("disc", "test")}
+            for f in ("network", "data", "correlation")}
+    t0 = time.perf_counter()
+    props = network_properties(
+        **pair, module_assignments=list(labels), discovery="disc",
+        test="test", modules=mods, device="cuda")
+    props_s = time.perf_counter() - t0
+    tn, td = kw["network"]["test"], kw["data"]["test"]
+    worst = {}
+    for lab in mods:
+        ti = np.flatnonzero(labels == lab)
+        want = _host_props(np, tn[np.ix_(ti, ti)].astype(np.float64),
+                           td[:, ti].astype(np.float64))
+        got = props[lab]
+        for key, w in want.items():
+            err = float(np.max(np.abs(np.asarray(got[key]) - w)))
+            worst[key] = max(worst.get(key, 0.0), err)
+    if max(worst.values()) > TOL:
+        raise RuntimeError(f"network_properties differs from the host "
+                           f"float64 computation: {worst}")
+    call = dict(pair, module_assignments=list(labels), discovery="disc")
+    runs = {}
+    t0 = time.perf_counter()
+    for store in (True, False):
+        for seed in (1, 2):
+            runs[store, seed] = module_preservation(
+                **call, test="test", n_perm=SURFACE_PERM, seed=seed,
+                store_nulls=store, device="cuda")
+    runs_s = time.perf_counter() - t0
+    comb = {store: combine_analyses(runs[store, 1], runs[store, 2])
+            for store in (True, False)}
+    mixed = combine_analyses(runs[True, 1], runs[False, 2])
+    for c in (comb[False], mixed):
+        if not np.array_equal(c.p_values, comb[True].p_values):
+            raise RuntimeError("combined p-values differ between the "
+                               "materialized and streaming runs")
+    if comb[True].completed != 2 * SURFACE_PERM:
+        raise RuntimeError(f"combined {comb[True].completed} permutations")
+    m = torch.as_tensor(kw["correlation"]["test"], device="cuda",
+                        dtype=torch.float32)
+    trip = round_trip(torch, m)
+    del m
+    torch.cuda.empty_cache()
+    emit({"phase": "surface", "modules": mods,
+          "network_properties": {"seconds": props_s,
+                                 "max_abs_vs_host_float64": worst,
+                                 "tolerance": TOL},
+          "combine_analyses": {"n_perm_each": SURFACE_PERM,
+                               "seeds": [1, 2], "runs_s": runs_s,
+                               "completed": comb[True].completed,
+                               "p_values_equal_materialized_streaming":
+                               True, "p_values_equal_mixed": True,
+                               "min_p": float(comb[True].p_values.min())},
+          "round_trip": trip, "card": card})
+
+
 def sequential_tests(torch, np, module_preservation, ops, kw, config, card,
                      dev):
     """One discovery against the two test cohorts without ``vmap_tests``:
     the pairs run one after another. A matrix that a later pair needs
     waits on the host (float32) while a pair's null runs, so each pair's
     ``engine_s`` carries the host copies that pair makes. Also times that
-    round trip for one ``GENES``² float32 matrix. Returns the results by
-    test name."""
+    round trip for one ``GENES``² float32 matrix (``round_trip``). Returns
+    the results by test name."""
     ops.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     held = []
@@ -661,14 +1079,8 @@ def sequential_tests(torch, np, module_preservation, ops, kw, config, card,
     peak = torch.cuda.max_memory_allocated() / 2**30
     m = torch.as_tensor(kw["correlation"]["test"], device=dev,
                         dtype=torch.float32)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    host = m.cpu()
-    t1 = time.perf_counter()
-    back = host.to(dev)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    del m, host, back
+    trip = round_trip(torch, m)
+    del m
     torch.cuda.empty_cache()
     emit({"phase": "sequential_tests", "tests": list(res), "n_perm": N_PERM,
           "vmap_tests": False, "wall_s": wall,
@@ -678,8 +1090,7 @@ def sequential_tests(torch, np, module_preservation, ops, kw, config, card,
                     for name, r in res.items()},
           "launches": launches, "peak_gib": peak,
           "null_held_gib": max(held) / 2**30,
-          "matrix_round_trip_s": {"gib": GENES**2 * 4 / 2**30,
-                                  "to_host": t1 - t0, "to_card": t2 - t1},
+          "matrix_round_trip_s": trip,
           "card": card})
     return res
 
@@ -794,6 +1205,44 @@ def wide_samples(torch, np, fs, ops, module_preservation, cfg, card, dev):
                                     < 0.05 / MODULES).sum()),
           "card": card})
     return res
+
+
+def inputs_only() -> int:
+    """``--inputs``: only ``input_phase`` on the main path's host float64
+    inputs, through the ``netrep_tpu_torch`` beside this script (another
+    checkout's, to compare two versions on one card)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA device available", file=sys.stderr)
+        return 1
+    import numpy as np
+
+    dev = torch.device("cuda")
+    card = card_line()
+    _sizes, _labels, (xd, xt, _x2) = make_cohorts(np)
+    hosts = {name: tuple(m.cpu().numpy() for m in mats(torch, x, dev))
+             for name, x in (("disc", xd), ("test", xt))}
+    torch.cuda.empty_cache()
+    input_phase(torch, np, hosts, card, bound=False)
+    print(card_line(), flush=True)
+    return 0
+
+
+def genome_only() -> int:
+    """``--genome-scale``: only ``genome_scale``, through the
+    ``netrep_tpu_torch`` beside this script; an out-of-memory error of
+    that version is printed as its result."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA device available", file=sys.stderr)
+        return 1
+    import numpy as np
+
+    genome_scale(torch, np, card_line(), strict=False)
+    print(card_line(), flush=True)
+    return 0
 
 
 def p_values_only() -> int:
@@ -1243,6 +1692,10 @@ def main() -> int:
     emit({"phase": "host_inputs", "dtype": str(dc.dtype),
           "bytes": sum(m.nbytes for m in (dd, dc, dn, td, tc, tn)),
           "seconds": time.perf_counter() - t0})
+    # ---- the input phase alone: seconds, peak, checksums; host routes ---
+    input_phase(torch, np, {"disc": (dd, dc, dn), "test": (td, tc, tn)},
+                card)
+    host_copies(torch, np, tc, card)
     kw = dict(
         network={"disc": dn, "test": tn},
         data={"disc": dd, "test": td},
@@ -1538,6 +1991,8 @@ def main() -> int:
     emit({"phase": "sequential_tests_check",
           "test_p_equal_main_path": True,
           "test2_p_equal_multi_test_cohort2": True})
+    # ---- the exported surface: properties, combined runs, round trip ----
+    surface(torch, np, kw, labels, card)
     del kw, runs, a, b, comp, der, multi, fused_run, res, seq
     del dd, dc, dn, td, tc, tn, t2d, t2c, t2n
     torch.cuda.empty_cache()
@@ -1545,6 +2000,9 @@ def main() -> int:
     # ---- 1,000-sample cohorts: every shape the JAX package computes ------
     wide_samples(torch, np, fs, tops, module_preservation, cfg, card, dev)
     torch.cuda.empty_cache()
+
+    # ---- two 50,000-gene datasets from host float32 arrays ---------------
+    genome_scale(torch, np, card)
 
     # ---- a small reference: the same call on the card and on the CPU -----
     from netrep_tpu_torch.data import make_example_pair, pair_frames
@@ -1621,7 +2079,8 @@ def main() -> int:
 
 if __name__ == "__main__":
     modes = {"--sequential-tests": sequential_only, "--kernels": kernels_only,
-             "--p-values": p_values_only, "--gather": gather_only}
+             "--p-values": p_values_only, "--gather": gather_only,
+             "--inputs": inputs_only, "--genome-scale": genome_only}
     args = sys.argv[1:]
     if len(args) > 1 or (args and args[0] not in modes):
         sys.exit(f"usage: {sys.argv[0]} [{' | '.join(modes)}]")

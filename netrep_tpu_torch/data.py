@@ -1,9 +1,9 @@
 """Synthetic fixtures of the port: planted-module (discovery, test) pairs.
 
-Copies of ``make_example_pair``, ``make_mixed_pair`` and ``pair_frames``
-from ``netrep_tpu/data.py``: the same seed gives the same matrices as there,
-so tests and ``chip_smoke.py`` feed both packages identical inputs. Every
-draw comes from a seeded numpy generator.
+Copies of ``make_example_pair``, ``make_mixed_pair``, ``pair_frames`` and
+``load_example`` from ``netrep_tpu/data.py``: the same seed gives the same
+matrices as there, so tests and ``chip_smoke.py`` feed both packages
+identical inputs. Every draw comes from a seeded numpy generator.
 """
 
 from __future__ import annotations
@@ -12,7 +12,8 @@ import zlib
 
 import numpy as np
 
-__all__ = ["make_example_pair", "make_mixed_pair", "pair_frames"]
+__all__ = ["make_example_pair", "make_mixed_pair", "pair_frames",
+           "load_example"]
 
 
 def make_example_pair(
@@ -186,3 +187,28 @@ def pair_frames(pair: dict) -> tuple[dict, dict]:
         )
 
     return mk(pair["discovery"]), mk(pair["test"])
+
+
+def load_example(seed: int = 42) -> dict:
+    """The stable example fixture, shaped like NetRep's bundled data
+    objects: a dict with ``discovery_data``, ``discovery_correlation``,
+    ``discovery_network``, ``module_labels``, ``test_data``,
+    ``test_correlation``, ``test_network``, plus ``discovery_names`` /
+    ``test_names`` (node labels, since numpy arrays carry no dimnames).
+
+    Matrices are plain float64 ndarrays; ``module_labels`` maps discovery
+    node name → module label ("0" = background). Deterministic in
+    ``seed``, and equal to the JAX package's for the same seed.
+    """
+    pair = make_example_pair(np.random.default_rng(seed))
+    return {
+        "discovery_data": pair["discovery"]["data"],
+        "discovery_correlation": pair["discovery"]["correlation"],
+        "discovery_network": pair["discovery"]["network"],
+        "test_data": pair["test"]["data"],
+        "test_correlation": pair["test"]["correlation"],
+        "test_network": pair["test"]["network"],
+        "module_labels": pair["labels"],
+        "discovery_names": pair["discovery"]["names"],
+        "test_names": pair["test"]["names"],
+    }

@@ -1,19 +1,31 @@
 """Dataset containers and input normalization for the port.
 
 A copy of ``netrep_tpu/models/dataset.py`` for dense inputs, with the same
-semantics and error messages, except where the checks run: the matrices
-go to the run's device anyway, so the symmetry, finiteness and range checks
-run there, in float64, with the same comparison as ``np.allclose``
-(``|a - b| <= atol + rtol * |b|``, ``rtol=1e-5``, ``atol=1e-8``). At
-genome scale the host version of these checks costs minutes; on the card
-they cost well under a second. A :class:`Dataset` comes out of the checks
-holding float32 tensors on the device, the precision the engine runs in;
-:func:`place` then moves each matrix to where the call next needs it.
+semantics, decisions and error messages, except where the checks run. The
+JAX package checks float64 matrices on the host; here every n×n matrix is
+walked in square tiles of side :data:`TILE`, tile pair ``(I, J)``, ``J ≥
+I``, at a time. Each host tile goes to the run's device once, in its own
+float type, through pinned staging buffers on a copy stream, two pairs
+deep, so the copy of the next pair overlaps the checks of this one. The
+pair is widened to float64 there, checked (finite; ``np.allclose(arr,
+arr.T, atol=1e-8)`` in both orientations; for a correlation its largest
+magnitude), and narrowed into a float32 matrix allocated once. A tensor
+already on the device is checked in place, tile by tile. No float64 n×n
+matrix exists on the device: the float64 there is a few tiles and their
+scratch. A matrix's faults are reported after its walk, in the JAX
+package's order (non-finite before asymmetric). The float32 matrices
+equal the narrowing of the whole float64 matrix bit for bit.
+
+A :class:`Dataset` comes out of the checks holding float32 tensors on the
+device, the precision the engine runs in; :func:`place` then moves each
+matrix to where the call next needs it, a later pair's through pinned host
+memory.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Mapping, Sequence
 
 import numpy as np
@@ -28,8 +40,9 @@ except ImportError:  # pragma: no cover
 
 _SYM_TOL = 1e-8
 _SYM_RTOL = 1e-5
-#: rows compared per step of the symmetry check (bounds its scratch memory)
-_SYM_BLOCK = 2048
+#: side of the square tiles the input checks walk; the float64 on the
+#: device is a few tiles of this side (32 MiB each)
+TILE = 2048
 
 
 #: the matrices a :class:`Dataset` holds
@@ -41,7 +54,9 @@ class Dataset:
     """One dataset's aligned matrices, as float32 tensors: ``correlation``
     and ``network`` ``(n, n)``, ``data`` ``(n_samples, n)`` or None
     (data-less variant). :func:`build_datasets` leaves them on the run's
-    device; :func:`place` may move one to the host or let it go (None)."""
+    device; :func:`place` may move one to pinned host memory or let it go
+    (None). ``copies`` holds, per field, the event of a copy to the host
+    still in flight."""
 
     name: str
     correlation: torch.Tensor
@@ -49,6 +64,7 @@ class Dataset:
     data: torch.Tensor | None
     node_names: list[str]
     sample_names: list[str] | None = None
+    copies: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
     def n_nodes(self) -> int:
@@ -58,49 +74,189 @@ class Dataset:
         return {nm: i for i, nm in enumerate(self.node_names)}
 
 
-def _as_matrix(x, what: str, dataset: str, device: torch.device):
-    """(float64 tensor on ``device``, row_names, col_names) from an ndarray,
-    tensor or DataFrame. Float inputs move in their own type and widen on
-    the device."""
+def _host_tensor(arr: np.ndarray) -> torch.Tensor:
+    """A CPU tensor over ``arr``'s memory, without a copy where torch can
+    view it: any integer, bool or float type of at most 8 bytes in native
+    byte order and non-negative strides. Anything else is converted to
+    float64 on the host first, as the JAX package converts every input."""
+    if (arr.dtype.kind not in "biuf" or arr.dtype.itemsize > 8
+            or not arr.dtype.isnative or any(s < 0 for s in arr.strides)):
+        arr = np.array(arr, dtype=np.float64)
+    with warnings.catch_warnings():
+        # a read-only array is only ever read here
+        warnings.filterwarnings("ignore", message=".*not writable.*")
+        return torch.from_numpy(arr)
+
+
+def _as_matrix(x, what: str, dataset: str):
+    """(tensor, row_names, col_names) from an ndarray, tensor or DataFrame.
+    Nothing is widened, copied or moved: a host matrix stays in host
+    memory in its own type, a tensor where it lies."""
     rows = cols = None
     if pd is not None and isinstance(x, pd.DataFrame):
         rows = [str(r) for r in x.index]
         cols = [str(c) for c in x.columns]
-        t = torch.tensor(x.to_numpy(dtype=np.float64))
+        t = _host_tensor(x.to_numpy())
     elif isinstance(x, torch.Tensor):
         t = x
     else:
-        arr = np.asarray(x)
-        if not np.issubdtype(arr.dtype, np.floating):
-            arr = np.asarray(x, dtype=np.float64)
-        t = torch.as_tensor(arr if arr.flags.writeable else arr.copy())
+        t = _host_tensor(np.asarray(x))
     if t.ndim != 2:
         raise ValueError(
             f"{what} for dataset {dataset!r} must be a 2-dimensional matrix, "
             f"got {t.ndim} dimension(s)"
         )
-    return t.to(device=device).to(torch.float64), rows, cols
+    return t, rows, cols
 
 
-def _check_square_symmetric(t: torch.Tensor, what: str, dataset: str):
-    if t.shape[0] != t.shape[1]:
+class _Tiles:
+    """Float64 tiles of matrices on ``device``.
+
+    A tile of a tensor on ``device`` is a view of it, widened there. A
+    tile of a host tensor for a card is copied once into a pinned buffer
+    (torch's threaded ``copy_`` of the strided view), moved to the card on
+    a copy stream, and widened there; the buffers are allocated once and
+    used in two slots, so the host fills one slot while the other slot's
+    copy and checks run. A Fortran-ordered source is read through its
+    transpose, so each tile copy reads whole rows."""
+
+    def __init__(self, device: torch.device, side: int):
+        self.device = device
+        self.side = side
+        self._slots = None
+        self._copy = None
+        self._turn = 0
+
+    def _staging(self):
+        if self._slots is None:
+            nbytes = self.side * self.side * 8
+            self._copy = torch.cuda.Stream(self.device)
+            self._slots = [
+                dict(pin=[torch.empty(nbytes, dtype=torch.uint8,
+                                      pin_memory=True) for _ in range(2)],
+                     dev=[torch.empty(nbytes, dtype=torch.uint8,
+                                      device=self.device) for _ in range(2)],
+                     copied=torch.cuda.Event(), used=torch.cuda.Event())
+                for _ in range(2)
+            ]
+        return self._slots
+
+    def walk(self, src: torch.Tensor, items):
+        """For each item of ``items`` (a list of ``(rows, cols)`` slice
+        pairs) yield ``(item, tiles)``: ``src[rows, cols]`` of each as
+        float64 on the device. The tiles are valid until the next item is
+        asked for."""
+        flip = not src.is_contiguous() and src.T.is_contiguous()
+        base = src.T if flip else src
+
+        def view(r, c):
+            return base[c, r] if flip else base[r, c]
+
+        staged = src.device.type == "cpu" and self.device.type == "cuda"
+        for item in items:
+            if not staged:
+                tiles = [view(r, c).to(self.device, torch.float64)
+                         for r, c in item]
+                yield item, [t.T if flip else t for t in tiles]
+                continue
+            slot = self._staging()[self._turn % 2]
+            self._turn += 1
+            # the copy that last read this slot's pinned buffers is done
+            slot["copied"].synchronize()
+            pairs = []
+            for k, (r, c) in enumerate(item):
+                v = view(r, c)
+                nbytes = v.numel() * v.element_size()
+                pin = slot["pin"][k][:nbytes].view(v.dtype).view(v.shape)
+                pin.copy_(v)
+                pairs.append((pin, slot["dev"][k][:nbytes].view(v.dtype)
+                              .view(v.shape)))
+            cur = torch.cuda.current_stream(self.device)
+            with torch.cuda.stream(self._copy):
+                # the checks that last read this slot's device buffers
+                self._copy.wait_event(slot["used"])
+                for pin, dev in pairs:
+                    dev.copy_(pin, non_blocking=True)
+                slot["copied"].record(self._copy)
+            cur.wait_event(slot["copied"])
+            tiles = [dev.to(torch.float64) for _pin, dev in pairs]
+            yield item, [t.T if flip else t for t in tiles]
+            slot["used"].record(cur)
+
+
+def _pairs(n: int, side: int):
+    """The tile pairs of an n×n matrix: ``[(I, J), (J, I)]`` for ``J > I``
+    and ``[(I, I)]`` on the diagonal."""
+    cuts = [slice(i, min(n, i + side)) for i in range(0, n, side)]
+    for a, r in enumerate(cuts):
+        for c in cuts[a:]:
+            yield [(r, c)] if r == c else [(r, c), (c, r)]
+
+
+def _check_square_symmetric(src: torch.Tensor, what: str, dataset: str,
+                            tiles: _Tiles):
+    """The JAX package's square, finite and ``np.allclose(arr, arr.T,
+    atol=1e-8)`` checks, in that order, over tile pairs; returns the
+    matrix narrowed to float32 on the device and its largest magnitude
+    (float64, for a correlation's range check)."""
+    if src.shape[0] != src.shape[1]:
         raise ValueError(
             f"{what} for dataset {dataset!r} must be square, got shape "
-            f"{tuple(t.shape)}"
+            f"{tuple(src.shape)}"
         )
-    if not bool(torch.isfinite(t).all()):
+    n = src.shape[0]
+    dev = tiles.device
+    out = torch.empty((n, n), dtype=torch.float32, device=dev)
+    nonfinite = torch.zeros((), dtype=torch.bool, device=dev)
+    asym = torch.zeros((), dtype=torch.bool, device=dev)
+    top = torch.zeros((), dtype=torch.float64, device=dev)
+    for item, got in tiles.walk(src, _pairs(n, tiles.side)):
+        # a = M[I, J], bt = M[J, I].T: element (i, j) of the block passes
+        # np.isclose(M, M.T) when |a - bt| <= atol + rtol * |bt|, and its
+        # mirror when |a - bt| <= atol + rtol * |a|; both are one test
+        # against the smaller magnitude (rounding is monotone)
+        a = got[0]
+        bt = got[1].T if len(got) == 2 else a.T
+        nonfinite |= ~torch.isfinite(a).all()
+        if len(got) == 2:
+            nonfinite |= ~torch.isfinite(bt).all()
+        aa, ba = a.abs(), bt.abs()
+        top = torch.maximum(top, torch.maximum(aa.amax(), ba.amax()))
+        tol = torch.minimum(aa, ba).mul_(_SYM_RTOL).add_(_SYM_TOL)
+        del aa, ba
+        asym |= torch.gt((a - bt).abs_(), tol).any()
+        del tol
+        for (r, c), t in zip(item, got):
+            out[r, c] = t
+    nonfinite, asym, top = (v.item() for v in (nonfinite, asym, top))
+    if nonfinite:
         raise ValueError(
             f"{what} for dataset {dataset!r} contains non-finite values "
             "(NA/NaN/Inf are not allowed)"
         )
-    n = t.shape[0]
-    for r0 in range(0, n, _SYM_BLOCK):
-        r1 = min(n, r0 + _SYM_BLOCK)
-        if not torch.allclose(t[r0:r1], t[:, r0:r1].T, rtol=_SYM_RTOL,
-                              atol=_SYM_TOL):
-            raise ValueError(
-                f"{what} for dataset {dataset!r} is not symmetric"
-            )
+    if asym:
+        raise ValueError(f"{what} for dataset {dataset!r} is not symmetric")
+    return out, top
+
+
+def _check_data(src: torch.Tensor, dataset: str, tiles: _Tiles):
+    """The data matrix narrowed to float32 on the device, after the JAX
+    package's finiteness check, in blocks of about ``TILE``² entries."""
+    s, n = src.shape
+    side = tiles.side
+    width = max(side, side * side // max(1, min(s, side)))
+    items = [[(slice(i, min(s, i + side)), slice(j, min(n, j + width)))]
+             for i in range(0, s, side) for j in range(0, n, width)]
+    out = torch.empty((s, n), dtype=torch.float32, device=tiles.device)
+    nonfinite = torch.zeros((), dtype=torch.bool, device=tiles.device)
+    for item, got in tiles.walk(src, items):
+        nonfinite |= ~torch.isfinite(got[0]).all()
+        out[item[0]] = got[0]
+    if nonfinite.item():
+        raise ValueError(
+            f"data for dataset {dataset!r} contains non-finite values"
+        )
+    return out
 
 
 def _normalize_collection(x) -> dict[str, object]:
@@ -142,14 +298,16 @@ def build_datasets(network, data=None, correlation=None,
             f"datasets {sorted(nets)}"
         )
 
+    tiles = _Tiles(device, TILE)
     out: dict[str, Dataset] = {}
     for name, net_raw in nets.items():
-        net, _nr, net_names = _as_matrix(net_raw, "network", name, device)
-        _check_square_symmetric(net, "network", name)
-        corr, _cr, corr_names = _as_matrix(corrs[name], "correlation", name,
-                                           device)
-        _check_square_symmetric(corr, "correlation", name)
-        if float(corr.abs().max()) > 1 + 1e-6:
+        net_src, _nr, net_names = _as_matrix(net_raw, "network", name)
+        net, _ = _check_square_symmetric(net_src, "network", name, tiles)
+        corr_src, _cr, corr_names = _as_matrix(corrs[name], "correlation",
+                                               name)
+        corr, top = _check_square_symmetric(corr_src, "correlation", name,
+                                            tiles)
+        if top > 1 + 1e-6:
             raise ValueError(
                 f"correlation for dataset {name!r} has entries outside [-1, 1]"
             )
@@ -161,12 +319,9 @@ def build_datasets(network, data=None, correlation=None,
 
         dat = samp_names = dat_names = None
         if name in datas:
-            dat, samp_names, dat_names = _as_matrix(datas[name], "data", name,
-                                                    device)
-            if not bool(torch.isfinite(dat).all()):
-                raise ValueError(
-                    f"data for dataset {name!r} contains non-finite values"
-                )
+            dat_src, samp_names, dat_names = _as_matrix(datas[name], "data",
+                                                        name)
+            dat = _check_data(dat_src, name, tiles)
             if dat.shape[1] != net.shape[0]:
                 raise ValueError(
                     f"data for dataset {name!r} has {dat.shape[1]} nodes "
@@ -187,12 +342,47 @@ def build_datasets(network, data=None, correlation=None,
 
         out[name] = Dataset(
             name=name,
-            correlation=corr.to(torch.float32),
-            network=net.to(torch.float32),
-            data=None if dat is None else dat.to(torch.float32),
+            correlation=corr,
+            network=net,
+            data=dat,
             node_names=list(names),
             sample_names=samp_names,
         )
+    return out
+
+
+def to_host(t: torch.Tensor):
+    """``(copy, event)``: ``t`` copied into pinned host memory on a side
+    stream, after the work queued on ``t``'s stream, without blocking the
+    host; ``event`` marks the copy's end (None for a host tensor, returned
+    as it is)."""
+    if t.device.type != "cuda":
+        return t, None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    side = torch.cuda.Stream(t.device)
+    side.wait_stream(torch.cuda.current_stream(t.device))
+    with torch.cuda.stream(side):
+        host.copy_(t, non_blocking=True)
+    t.record_stream(side)  # the card's copy outlives its last reference
+    return host, side.record_event()
+
+
+def to_device(t: torch.Tensor, device: torch.device, after=None):
+    """``t`` on ``device``. A pinned host tensor is copied on a side
+    stream, after the event ``after`` (its copy to the host), and the
+    current stream waits for that copy, so work queued after this call
+    reads the matrix whole; the host does not wait."""
+    if device.type != "cuda" or t.device.type == "cuda":
+        return t.to(device)
+    out = torch.empty(t.shape, dtype=t.dtype, device=device)
+    cur = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(cur)
+    if after is not None:
+        side.wait_event(after)
+    with torch.cuda.stream(side):
+        out.copy_(t, non_blocking=True)
+    cur.wait_stream(side)
     return out
 
 
@@ -200,22 +390,26 @@ def place(datasets: dict[str, Dataset], now: Mapping[str, set],
           later: Mapping[str, set], device) -> None:
     """Put each dataset matrix where the call needs it next: the
     ``FIELDS`` named in ``now[name]`` on ``device``, those only in
-    ``later[name]`` on the host (float32, for a later pair), and every
-    other one released (set to None). A tensor an engine holds stays alive
-    through the engine's own reference; a released one the engine does not
-    hold is freed, so while a pair's null runs the device holds only what
-    its engine reads."""
+    ``later[name]`` in pinned host memory (float32, for a later pair;
+    both copies run on a side stream and do not block the host), and
+    every other one released (set to None). A tensor an engine holds
+    stays alive through the engine's own reference; a released one the
+    engine does not hold is freed, so while a pair's null runs the device
+    holds only what its engine reads."""
     for name, d in datasets.items():
         for field in FIELDS:
             t = getattr(d, field)
             if t is None:
                 continue
             if field in now.get(name, ()):
-                setattr(d, field, t.to(device))
+                t = to_device(t, device, d.copies.pop(field, None))
             elif field in later.get(name, ()):
-                setattr(d, field, t.cpu())
+                if t.device.type == "cuda":
+                    t, d.copies[field] = to_host(t)
             else:
-                setattr(d, field, None)
+                t = None
+                d.copies.pop(field, None)
+            setattr(d, field, t)
 
 
 def normalize_module_assignments(

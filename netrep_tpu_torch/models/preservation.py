@@ -11,13 +11,15 @@ shared permutation draw, :mod:`netrep_tpu_torch.parallel.multitest`) and
 replicated or split by rows, :mod:`netrep_tpu_torch.parallel.mesh`). Runs
 on the card unless ``device="cpu"`` is passed.
 
-Device memory: the input checks run on the device, after which the
+Device memory: the input checks stream each matrix to the device in
+float64 tiles and leave it there as float32
+(:func:`~netrep_tpu_torch.models.dataset.build_datasets`), after which the
 datasets hand their matrices to the engines pair by pair
 (:func:`~netrep_tpu_torch.models.dataset.place`). While a pair's null runs
 the device holds only what that pair's engine reads — the test
 correlation, the test network unless ``network_from_correlation`` derives
 it, the test data — and no discovery matrix; a matrix a later pair needs
-waits in host memory as float32.
+waits in pinned host memory as float32.
 """
 
 from __future__ import annotations
@@ -207,8 +209,9 @@ def module_preservation(
 
     Device memory: every pair's discovery side is built first; then, while
     a pair's null runs, the device holds only what that pair's engine
-    reads. A test matrix that a later pair needs waits on the host as
-    float32 meanwhile, and goes back to the device for that pair.
+    reads. A test matrix that a later pair needs waits in pinned host
+    memory as float32 meanwhile, and goes back to the device for that
+    pair; both copies run on a side stream, beside the null.
 
     - ``verbose`` — logs one line per (discovery, test) pair before its null
       and one after it, through the ``netrep_tpu_torch`` logger at INFO.
@@ -254,6 +257,7 @@ def module_preservation(
     t0 = time.perf_counter()
     datasets = ds.build_datasets(network, data=data, correlation=correlation,
                                  device=dev)
+    _sync(dev)
     input_s = time.perf_counter() - t0
     pairs = ds.resolve_pairs(datasets, discovery, test, self_preservation)
     disc_names = sorted({d for d, _ in pairs}, key=list(datasets).index)

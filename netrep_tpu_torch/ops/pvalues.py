@@ -4,8 +4,10 @@ A copy of the parts of ``netrep_tpu/ops/pvalues.py`` the dense main path
 uses: the Phipson & Smyth (2010) estimator (``statmod::permp``) over
 exceedance counts, for a materialized null (:func:`permutation_pvalues`) or
 for streamed tallies (:func:`counts_pvalues`) — one shared estimator, so the
-two result modes give identical p-values for identical counts — plus the
-permutation-space size and :func:`required_perms`. Host-side numpy/scipy;
+two result modes give identical p-values for identical counts — the lift of
+a null into count space (:func:`tail_counts`, which ``combine_analyses``
+pools with), :func:`effective_nperm` and :func:`sequential_pvalues`, plus
+the permutation-space size and :func:`required_perms`. Host-side numpy/scipy;
 the counts themselves come from the device.
 """
 
@@ -223,6 +225,39 @@ def counts_pvalues(
         p = np.minimum(2.0 * p, 1.0)
     p[np.isnan(observed)] = np.nan
     return p
+
+
+def effective_nperm(nulls: np.ndarray) -> np.ndarray:
+    """Per-module permutation counts actually present in a null array —
+    rows where *any* statistic is finite count (an adaptive run NaNs the
+    whole (module, :) row past retirement; a data-less run NaNs only the
+    data statistics, which must still count as drawn permutations).
+
+    ``nulls`` is ``(nperm, n_modules, n_stats)``; returns ``(n_modules,)``.
+    """
+    return np.asarray(
+        (~np.isnan(nulls)).any(axis=-1).sum(axis=0), dtype=np.int64
+    )
+
+
+def sequential_pvalues(
+    observed: np.ndarray,
+    nulls: np.ndarray,
+    alternative: str = "greater",
+    total_nperm: float | None = None,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Sequential (early-stopped) permutation p-values: a null whose
+    modules stopped at different permutation counts leaves each retired
+    module's rows NaN past its stop. :func:`permutation_pvalues` already
+    groups cells by their count of valid draws, so the estimator is
+    Phipson–Smyth at each module's own count; this adds the per-module
+    counts. Returns ``(p_values, n_perm_used)``, the latter
+    ``(n_modules,)``."""
+    nulls = np.asarray(nulls)
+    return (
+        permutation_pvalues(observed, nulls, alternative, total_nperm),
+        effective_nperm(nulls),
+    )
 
 
 def log_total_permutations(pool_size: int, module_sizes) -> float:

@@ -437,3 +437,141 @@ def test_one_triangle_read_within_tolerance_on_asymmetry(cuda, tier):
     _assert_close_to_plain(got, want, c["sizes"])
     _assert_close_to_plain(v, want, c["sizes"])
     assert torch.equal(hi, (v >= c["obs"][None]).sum(0, dtype=torch.int32))
+
+
+def _input_mats(n, seed=21):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((30, n))
+    c = np.corrcoef(x, rowvar=False)
+    np.fill_diagonal(c, 1.0)
+    return x, c, np.abs(c) ** 2
+
+
+@pytest.mark.parametrize("kind", ["host64", "host32_fortran", "host_readonly",
+                                  "card32", "card64"])
+@pytest.mark.parametrize("tile", [64, 2048])
+def test_tile_walk_on_card_bit_equal(cuda, monkeypatch, kind, tile):
+    """The input walk on the card (pinned staging for host inputs, in
+    place for card tensors) narrows bit-equal to the CPU walk and to the
+    whole matrix's narrowing, at a tile side with edges and one larger
+    than the matrix."""
+    from netrep_tpu_torch.models import dataset as tds
+
+    monkeypatch.setattr(tds, "TILE", tile)
+    x, c, net = _input_mats(1000)
+
+    def conv(a):
+        if kind == "host32_fortran":
+            return np.asfortranarray(a.astype(np.float32))
+        if kind == "host_readonly":
+            a = a.copy()
+            a.flags.writeable = False
+            return a
+        if kind.startswith("card"):
+            dt = torch.float32 if kind == "card32" else torch.float64
+            return torch.as_tensor(a, dtype=dt, device=cuda)
+        return a
+
+    got = tds.build_datasets({"a": conv(net)}, data={"a": conv(x)},
+                             correlation={"a": conv(c)})["a"]
+    cpu = tds.build_datasets({"a": conv(net) if not kind.startswith("card")
+                              else conv(net).cpu()},
+                             data={"a": conv(x) if not kind.startswith("card")
+                                   else conv(x).cpu()},
+                             correlation={"a": conv(c) if not kind.startswith(
+                                 "card") else conv(c).cpu()},
+                             device="cpu")["a"]
+    for f in ("network", "correlation", "data"):
+        t = getattr(got, f)
+        assert t.is_cuda and t.dtype == torch.float32
+        assert torch.equal(t.cpu(), getattr(cpu, f)), f
+        src = {"network": net, "correlation": c, "data": x}[f]
+        if kind == "host32_fortran" or kind == "card32":
+            src = src.astype(np.float32)
+        assert torch.equal(t.cpu(), torch.from_numpy(
+            src.astype(np.float64).astype(np.float32))), f
+
+
+@pytest.mark.parametrize("fault", ["asymmetric", "one_orientation",
+                                   "non_finite_late", "range"])
+def test_tile_walk_on_card_decides_as_cpu(cuda, monkeypatch, fault):
+    from netrep_tpu_torch.models import dataset as tds
+
+    monkeypatch.setattr(tds, "TILE", 64)
+    _x, c, net = _input_mats(300, seed=22)
+    net, c = net.copy(), c.copy()
+    if fault == "asymmetric":
+        net[10, 250] += 1e-3
+    elif fault == "one_orientation":
+        # fails at (250, 10) only: (1e-8 + 1e-5) * (1 + 1e-6) above 1
+        net[250, 10], net[10, 250] = 1.0 + 1.001001e-5, 1.0
+    elif fault == "non_finite_late":
+        net[0, 1] += 0.5
+        net[299, 298] = np.nan
+    else:
+        c[5, 200] = c[200, 5] = 1 + 2e-6
+    errs = []
+    for device in (None, "cpu"):
+        with pytest.raises(ValueError) as e:
+            tds.build_datasets({"a": net}, correlation={"a": c},
+                               device=device)
+        errs.append(str(e.value))
+    assert errs[0] == errs[1]
+
+
+def test_tile_walk_holds_no_float64_matrix(cuda, monkeypatch):
+    """The walk's peak above the float32 matrices it returns is a few
+    tiles, not a float64 copy of a matrix."""
+    from netrep_tpu_torch.models import dataset as tds
+
+    monkeypatch.setattr(tds, "TILE", 512)
+    n = 6000
+    _x, c, net = _input_mats(n, seed=23)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = tds.build_datasets({"a": net}, correlation={"a": c})["a"]
+    outputs = 2 * n * n * 4
+    extra = torch.cuda.max_memory_allocated() - base - outputs
+    assert extra <= 16 * 512 * 512 * 8, extra
+    assert got.network.shape == (n, n)
+
+
+def test_place_round_trip_through_pinned_memory(cuda):
+    from netrep_tpu_torch.models import dataset as tds
+
+    _x, c, net = _input_mats(800, seed=24)
+    ds = tds.build_datasets({"a": net, "b": net}, correlation={"a": c,
+                                                               "b": c})
+    want = ds["b"].correlation.clone()
+    tds.place(ds, {"a": {"correlation"}}, {"b": {"correlation"}}, cuda)
+    host = ds["b"].correlation
+    assert host.device.type == "cpu" and host.is_pinned()
+    assert "correlation" in ds["b"].copies
+    tds.place(ds, {"b": {"correlation"}}, {}, cuda)
+    back = ds["b"].correlation
+    assert back.is_cuda and torch.equal(back, want)
+    assert ds["a"].correlation is None and not ds["b"].copies
+
+
+def test_network_properties_cuda_matches_cpu(cuda):
+    from netrep_tpu_torch.models.properties import network_properties
+
+    pair = make_example_pair(np.random.default_rng(3))
+    d, t = pair_frames(pair)
+    kw = dict(network={"d": d["network"], "t": t["network"]},
+              data={"d": d["data"], "t": t["data"]},
+              correlation={"d": d["correlation"], "t": t["correlation"]},
+              module_assignments=pair["labels"], discovery="d",
+              test=["d", "t"])
+    gpu = network_properties(**kw)
+    cpu = network_properties(**kw, device="cpu")
+    for test in ("d", "t"):
+        for lab, want in cpu[test].items():
+            got = gpu[test][lab]
+            assert got["node_names"] == want["node_names"]
+            for key in ("degree", "summary", "contribution"):
+                np.testing.assert_allclose(got[key], want[key], rtol=0,
+                                           atol=1e-10)
+            for key in ("avg_weight", "coherence"):
+                assert got[key] == pytest.approx(want[key], abs=1e-10)
