@@ -65,6 +65,24 @@ launch count set to 0 just before a path and read just after:
   arrays, a streaming null of 200 permutations: its input seconds and
   peak, and the memory held during the null (where the host has less
   than about 45 GB free, a line that says it did not run);
+- ``adaptive`` (after ``multi_card``): ``adaptive=True`` at a ceiling of
+  10,000 permutations, fused materialized and streaming and composed
+  materialized, each fused kernel held to one launch per chunk and bucket
+  still active; the two fused modes equal in ``n_perm_used``, counts and
+  p-values, every module's rows equal the fixed 1,000-permutation run's
+  at the same indices (fused: bit for bit; composed: within 1e-4, its
+  batched products round by batch count); beside them a fixed
+  10,000-permutation streaming null and an adaptive run under a
+  Bonferroni-level stop rule, with each run's ``preserved_modules()`` and
+  null seconds; then ``rebucketed_kernels``: the fused values, counts and
+  gather kernels on buckets ``rebucket`` row-filtered, against their
+  plain versions and the full bucket's values;
+- ``checkpoint``: fixed materialized, fixed streaming and adaptive
+  materialized runs interrupted by a ``progress`` callback raising
+  ``KeyboardInterrupt`` after three chunks (a checkpoint every chunk),
+  resumed by the same call and held equal to their uninterrupted runs,
+  and a 256-permutation null written on the 1×4 ring mesh and resumed
+  unsplit; each file's size and a save's and a load's seconds;
 
 and checks each against the others: equal p-values where the same
 statistics run, nulls within 1e-4 where the arithmetic differs, and every
@@ -142,6 +160,11 @@ WIDE_SAMPLES, WIDE_PERM = 1000, 1000
 GENOME_GENES, GENOME_PERM = 50_000, 200
 #: the surface phase: permutations of each run that combine_analyses pools
 SURFACE_PERM = 500
+#: the adaptive phase's ceiling: the north star's depth
+ADAPTIVE_PERM = 10_000
+#: the checkpoint phase: chunks before the interrupt; permutations of the
+#: ring-mesh run resumed unsplit
+STOP_AFTER, RING_CKPT_PERM = 3, 256
 #: kernel vs plain: the kernel sums in its own fixed order and may iterate
 #: on the other Gram matrix (csrc/fused_stats.cu); the plain version forms
 #: the node-space Gram matrix — float32 rounding apart, ~1e-5 at most
@@ -1095,6 +1118,396 @@ def sequential_tests(torch, np, module_preservation, ops, kw, config, card,
     return res
 
 
+def active_after_chunks(np, n_used, chunk):
+    """Modules still drawing after each chunk of an adaptive run: a module
+    retires only at a chunk boundary, so its count is a multiple of the
+    chunk (or the ceiling)."""
+    deepest = int(n_used.max())
+    return [int((n_used > k).sum()) for k in range(chunk, deepest + chunk,
+                                                    chunk)]
+
+
+def adaptive_launches(np, n_used, caps, chunk):
+    """Launches of the fused-statistics kernel an adaptive run makes: one
+    per chunk and bucket still holding an active module."""
+    n_used, caps = np.asarray(n_used), np.asarray(caps)
+    return int(sum(len(set(caps[n_used > k]))
+                   for k in range(0, int(n_used.max()), chunk)))
+
+
+def batch_count_probe(torch, tstats, disc, sub_c, sub_n, zd, k, n_iter):
+    """Whether each kind of operation the composed statistics run, and
+    each of the seven statistics, gives the first ``k`` modules the same
+    bits in a batch of ``k`` modules as in the whole bucket's batch: the
+    bucket's discovery props ``disc``, gathered submatrices ``sub_c``,
+    ``sub_n`` ``(C, K, cap, cap)`` and standardized data ``zd`` ``(C, K,
+    s, cap)``."""
+    from netrep_tpu_torch.ops.oracle import STAT_NAMES
+
+    head = tstats.DiscProps(*(a[:k] for a in disc))
+    part = tstats.module_stats_masked(head, sub_c[:, :k], sub_n[:, :k],
+                                      zd[:, :k], n_iter=n_iter)
+    whole = tstats.module_stats_masked(disc, sub_c, sub_n, zd,
+                                       n_iter=n_iter)[:, :k]
+    stats = {f"statistic {name}": same(torch, part[..., i], whole[..., i])
+             for i, name in enumerate(STAT_NAMES)}
+    dc = disc.corr
+    ops = {
+        "matmul": lambda a, z, d: torch.matmul(a, a),
+        "matvec": lambda a, z, d: (a @ a[..., :1])[..., 0],
+        "matvec_contiguous": lambda a, z, d: (
+            a @ a[..., 0].contiguous()[..., None])[..., 0],
+        "discovery_flat_sum": lambda a, z, d: d.reshape(
+            d.shape[0], -1).sum(-1)[None],
+        "sum_last_axis": lambda a, z, d: a.sum(-1),
+        "sum_last_two_axes": lambda a, z, d: a.sum((-1, -2)),
+        "sum_sample_axis": lambda a, z, d: z.sum(-2),
+        "vector_norm_sample_axis": lambda a, z, d: torch.linalg.vector_norm(
+            z, dim=-2),
+        "vector_norm_last_axis": lambda a, z, d: torch.linalg.vector_norm(
+            a, dim=-1),
+        "data_gram": lambda a, z, d: z.transpose(-1, -2) @ z,
+        "mean_sample_axis": lambda a, z, d: z.mean(-2),
+    }
+    return {**stats, **{name: same(torch, f(sub_c[:, :k], zd[:, :k], dc[:k]),
+                                   f(sub_c, zd, dc)[:, :k])
+                        for name, f in ops.items()}}
+
+
+def rebucketed_kernels(torch, np, fs, fg, pv, engine, subsets, cfg, dev):
+    """The fused values and counts kernels and the gather kernel on buckets
+    that ``rebucket`` row-filtered, at the main path's shapes: each against
+    its plain version (statistics within TOL, tallies equal to the tail
+    counts of the kernel's own values, gather bit for bit), and each
+    surviving cell's values equal to the full bucket's bit for bit (one
+    block per cell). The composed statistics are held within TOL of the
+    full bucket's, with :func:`batch_count_probe` of each bucket beside."""
+    from netrep_tpu_torch import random as trandom
+    from netrep_tpu_torch.ops import stats as tstats
+
+    perm = trandom.permutation(
+        trandom.perm_keys(trandom.key(SEED, device=dev), 0, cfg.chunk_size),
+        engine._pool_dev)
+    tc, tn, tdT = engine._test_corr, engine._test_net, engine._test_dataT
+
+    def values(b, idx):
+        return fs.fused_stats_values(tc, tn, tdT, b.disc, idx,
+                                     n_iter=cfg.power_iters)
+
+    def composed(b, idx):
+        sub_c, sub_n = (fg.gather_submatrix_fused_many(M, [idx])[0]
+                        for M in (tc, tn))
+        return engine._stats(b, idx, sub_c, sub_n), (sub_c, sub_n)
+
+    full, full_comp, probe = {}, {}, {}
+    for b in engine.buckets:
+        idx = engine._bucket_idx(perm, b)
+        out, (comp, (sub_c, sub_n)) = values(b, idx), composed(b, idx)
+        for i, m in enumerate(b.module_pos):
+            full[m], full_comp[m] = out[:, i], comp[:, i]
+        if len(b.module_pos) > 1:
+            zd = tstats.gather_zdata(tdT, idx, b.disc.mask)
+            probe[b.cap] = batch_count_probe(
+                torch, tstats, b.disc, sub_c, sub_n, zd,
+                len(b.module_pos) // 2, cfg.power_iters)
+    comp_bit, comp_err = True, 0.0
+    err = {"fused_stats_values": 0.0, "fused_stats_counts": 0.0}
+    checked = 0
+    for subset in subsets:
+        engine.rebucket(subset)
+        idx_list = [engine._bucket_idx(perm, b) for b in engine.buckets]
+        for b, idx in zip(engine.buckets, idx_list):
+            got = values(b, idx)
+            want = fs.fused_stats_values_plain(tc, tn, tdT, b.disc, idx,
+                                               n_iter=cfg.power_iters)
+            err["fused_stats_values"] = max(err["fused_stats_values"],
+                                            abs_err(torch, got, want))
+            comp, _ = composed(b, idx)
+            for i, m in enumerate(b.module_pos):
+                if not same(torch, got[:, i], full[m]):
+                    raise RuntimeError(f"module {m}: values on the "
+                                       "re-bucketed bucket differ from the "
+                                       "full bucket's")
+                comp_bit &= same(torch, comp[:, i], full_comp[m])
+                comp_err = max(comp_err, abs_err(torch, comp[:, i],
+                                                 full_comp[m]))
+            obs = got[0].contiguous()
+            pvalid = torch.ones(idx.shape[0], dtype=torch.int32, device=dev)
+            pvalid[-3:] = 0
+            got_c = fs.fused_stats_counts(tc, tn, tdT, b.disc, idx, pvalid,
+                                          obs, n_iter=cfg.power_iters)
+            want_c = fs.fused_stats_counts_plain(tc, tn, tdT, b.disc, idx,
+                                                 pvalid, obs,
+                                                 n_iter=cfg.power_iters)
+            err["fused_stats_counts"] = max(err["fused_stats_counts"],
+                                            abs_err(torch, got_c[0],
+                                                    want_c[0]))
+            vals = got_c[0].cpu().numpy()[:-3]
+            for t, want_t in zip(got_c[1:], pv.tail_counts(
+                    obs.cpu().numpy(), vals)):
+                if not np.array_equal(t.cpu().numpy(), want_t):
+                    raise RuntimeError("re-bucketed counts kernel's tallies "
+                                       "differ from its own values'")
+            checked += 2
+        for M in (tc, tn):
+            got = fg.gather_submatrix_fused_many(M, idx_list)
+            want = fg.gather_submatrix_fused_many_plain(M, idx_list)
+            for g, w in zip(got, want):
+                if not same(torch, g, w):
+                    raise RuntimeError("gather kernel != plain on a "
+                                       "re-bucketed chunk")
+                checked += 1
+    engine.rebucket(range(engine.n_modules))
+    if max(err.values()) > TOL or comp_err > TOL:
+        raise RuntimeError(f"kernel disagrees with plain on re-bucketed "
+                           f"buckets: {err}, composed {comp_err}")
+    return err, checked, {"composed_rows_bit_equal": bool(comp_bit),
+                          "composed_max_abs": comp_err,
+                          "ops_differing_across_batch_counts": {
+                              f"cap {cap}": [k for k, v in ops.items()
+                                             if not v]
+                              for cap, ops in probe.items()}}
+
+
+def adaptive_phase(torch, np, fs, fg, pv, drive, cfg, composed_cfg, labels,
+                   fused_run, composed_run, disc, test, card, dev):
+    """``adaptive=True`` at the main path's widths and a ceiling of
+    ADAPTIVE_PERM: fused materialized and streaming, composed
+    materialized, and a fixed ADAPTIVE_PERM streaming null beside them;
+    then the kernels on re-bucketed buckets against their plain versions.
+    Fails unless the two fused modes agree exactly, every module's rows
+    equal the fixed main-path run's at the same indices (fused: bit for
+    bit; composed: within TOL of the fixed composed run's), each fused
+    kernel launched once per chunk and bucket still active, and the
+    kernels match their plain versions on re-bucketed buckets. Returns
+    ``(the fused materialized result, launches by path, the kernels'
+    largest deviation from plain on re-bucketed buckets)``."""
+    from netrep_tpu_torch.ops.sequential import StopRule
+    from netrep_tpu_torch.utils.config import EngineConfig
+
+    C = cfg.chunk_size
+    ad = dict(adaptive=True, n_perm=ADAPTIVE_PERM, completed=None)
+    many = "gather_submatrix_fused_many"
+    out, launches, caps = {}, {}, None
+    for name, config, store, kernel in (
+            ("fused_materialized", cfg, True, "fused_stats_values"),
+            ("fused_streaming", cfg, False, "fused_stats_counts"),
+            ("composed_materialized", composed_cfg, True, many)):
+        res, used, _ = drive("adaptive", [kernel], config=config,
+                             store_nulls=store, **ad)
+        n_used = np.asarray(res.n_perm_used)
+        if caps is None:
+            caps = [cfg.rounded_cap(int(s)) for s in res.n_vars_present]
+        want = (2 * -(-res.completed // C) if kernel == many
+                else adaptive_launches(np, n_used, caps, C))
+        if res.p_type != "sequential" or used[kernel] != want:
+            raise RuntimeError(f"adaptive {name}: {used[kernel]} launches of "
+                               f"{kernel}, expected {want} (one per chunk "
+                               "and active bucket)")
+        out[name] = res
+        launches[("adaptive", name)] = used
+        emit({"phase": "adaptive_run", "run": name,
+              "completed": int(res.completed),
+              "n_perm_used_sum": int(n_used.sum()),
+              "n_perm_used_ceiling": MODULES * ADAPTIVE_PERM,
+              "active_after_chunk": active_after_chunks(np, n_used, C),
+              "null_s": res.profile["null_s"],
+              "s_per_module_permutation": res.profile["null_s"]
+              / float(n_used.sum()),
+              "launches": {k: v for k, v in used.items() if v},
+              "expected_launches": {kernel: want}, "card": card})
+    mat, stream = out["fused_materialized"], out["fused_streaming"]
+    hi, lo, eff = pv.tail_counts(mat.observed, mat.nulls[: mat.completed])
+    if not (np.array_equal(mat.n_perm_used, stream.n_perm_used)
+            and mat.completed == stream.completed
+            and np.array_equal(mat.p_values, stream.p_values)
+            and np.array_equal(hi, stream.counts_hi)
+            and np.array_equal(lo, stream.counts_lo)
+            and np.array_equal(eff, stream.counts_eff)):
+        raise RuntimeError("adaptive materialized and streaming runs differ "
+                           "in n_perm_used, counts or p-values")
+    rows = {}
+    for name, fixed in (("fused_materialized", fused_run),
+                        ("composed_materialized", composed_run)):
+        res, bit, err = out[name], True, 0.0
+        for m, k in enumerate(np.asarray(res.n_perm_used)):
+            k = min(int(k), N_PERM)
+            a, b = res.nulls[:k, m], fixed.nulls[:k, m]
+            bit &= bool(np.array_equal(a, b))
+            err = max(err, float(np.abs(a - b).max()))
+            if not np.isnan(res.nulls[int(res.n_perm_used[m]):, m]).all():
+                raise RuntimeError(f"{name}: module {m} has rows past its "
+                                   "retirement")
+        if (name.startswith("fused") and not bit) or err > TOL:
+            raise RuntimeError(f"adaptive {name}: rows differ from the fixed "
+                               f"run's at the same indices (max {err})")
+        rows[name] = {"bit_equal": bit, "max_abs": err}
+    fixed, used, _ = drive("adaptive_fixed", ["fused_stats_counts"],
+                           completed=ADAPTIVE_PERM, config=cfg,
+                           store_nulls=False, n_perm=ADAPTIVE_PERM)
+    launches[("adaptive", "fixed_streaming")] = used
+    # the default rule decides each cell at alpha = 0.05; preserved_modules
+    # calls at 0.05 / MODULES (Bonferroni): a rule at that level decides
+    # as the call does
+    bonf, used, _ = drive(
+        "adaptive", ["fused_stats_counts"], config=cfg, store_nulls=False,
+        adaptive_rule=StopRule(alpha=0.05 / MODULES), **ad)
+    launches[("adaptive", "bonferroni_streaming")] = used
+    a_pres, f_pres = mat.preserved_modules(), fixed.preserved_modules()
+    b_pres = bonf.preserved_modules()
+    emit({"phase": "adaptive_check", "modes_equal": True,
+          "rows_vs_fixed_1000": rows,
+          "fixed_streaming": {"completed": int(fixed.completed),
+                              "null_s": fixed.profile["null_s"],
+                              "s_per_module_permutation":
+                                  fixed.profile["null_s"]
+                                  / float(MODULES * ADAPTIVE_PERM)},
+          "adaptive_null_s": {k: r.profile["null_s"] for k, r in out.items()},
+          "preserved_adaptive": a_pres, "preserved_fixed": f_pres,
+          "decisions_differ": sorted(set(a_pres) ^ set(f_pres)),
+          "bonferroni_rule": {
+              "alpha": 0.05 / MODULES, "completed": int(bonf.completed),
+              "n_perm_used_sum": int(np.sum(bonf.n_perm_used)),
+              "active_after_chunk": active_after_chunks(
+                  np, np.asarray(bonf.n_perm_used), C),
+              "null_s": bonf.profile["null_s"], "preserved": b_pres,
+              "decisions_differ_fixed": sorted(set(b_pres) ^ set(f_pres))},
+          "card": card})
+    # ---- the kernels on re-bucketed buckets at the main path's shapes ----
+    engine = make_engine(np, labels, disc, test, EngineConfig(), dev)
+    n_used = np.asarray(mat.n_perm_used)
+    subsets = [np.flatnonzero(n_used > C), np.arange(0, MODULES, 2)]
+    subsets = [sub for sub in subsets if sub.size]
+    err, checked, composed = rebucketed_kernels(torch, np, fs, fg, pv,
+                                                engine, subsets, cfg, dev)
+    emit({"phase": "rebucketed_kernels", "tolerance": TOL,
+          "max_abs_err": err, "outputs_checked": checked,
+          "composed_vs_full_bucket": composed,
+          "subset_sizes": [int(sub.size) for sub in subsets],
+          "values_equal_full_bucket": True, "gather_bit_equal": True})
+    del engine
+    torch.cuda.empty_cache()
+    return mat, launches, err
+
+
+def checkpoint_phase(np, pv, drive, cfg, ring_cfg, row_mesh, many, fused_run,
+                     stream_run, adaptive_run, card):
+    """Main-path runs interrupted by a ``progress`` callback that raises
+    ``KeyboardInterrupt`` after STOP_AFTER chunks (a checkpoint every
+    chunk), then resumed by the same call: fixed materialized, fixed
+    streaming (superchunks of one chunk) and adaptive materialized, each
+    equal to its uninterrupted run (nulls bit for bit, counts and
+    p-values); and a RING_CKPT_PERM null written on the 1×4 ring mesh,
+    resumed unsplit. Prints a save's and a load's seconds and the file's
+    size. Returns the launches by path."""
+    import os
+    import shutil
+    import tempfile
+
+    from netrep_tpu_torch.utils import checkpoint as tck
+    from netrep_tpu_torch.utils.config import EngineConfig
+
+    C = cfg.chunk_size
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    top = tempfile.mkdtemp(prefix="checkpoints_", dir=root)
+
+    def stop_after(n):
+        calls = []
+
+        def progress(done, total):
+            calls.append(done)
+            if len(calls) == n:
+                raise KeyboardInterrupt
+        return progress
+
+    launches, report = {}, {}
+    try:
+        for name, call, kernel, ref in (
+                ("fixed_materialized", dict(config=cfg), "fused_stats_values",
+                 fused_run),
+                ("fixed_streaming", dict(config=EngineConfig(superchunk=1),
+                                         store_nulls=False),
+                 "fused_stats_counts", stream_run),
+                ("adaptive_materialized", dict(config=cfg, adaptive=True,
+                                               n_perm=ADAPTIVE_PERM),
+                 "fused_stats_values", adaptive_run)):
+            d = os.path.join(top, name)
+            call = dict(call, checkpoint_dir=d, checkpoint_every=C)
+            part, used_p, _ = drive("checkpoint", [kernel],
+                                    completed=STOP_AFTER * C,
+                                    progress=stop_after(STOP_AFTER), **call)
+            res, used, _ = drive("checkpoint", [kernel], completed=None,
+                                 **call)
+            launches[("checkpoint", name)] = used
+            ok = (res.completed == ref.completed
+                  and np.array_equal(res.p_values, ref.p_values))
+            if ref.nulls is not None:
+                ok &= bool(np.array_equal(res.nulls, ref.nulls,
+                                          equal_nan=True))
+            else:
+                ok &= all(np.array_equal(getattr(res, f), getattr(ref, f))
+                          for f in ("counts_hi", "counts_lo", "counts_eff"))
+            if ref.n_perm_used is not None:
+                ok &= bool(np.array_equal(res.n_perm_used, ref.n_perm_used))
+            if not ok:
+                raise RuntimeError(f"checkpoint {name}: the resumed run "
+                                   "differs from the uninterrupted one")
+            report[name] = {"interrupted_at": int(part.completed),
+                            "resumed_to": int(res.completed),
+                            "launches_before": used_p[kernel],
+                            "launches_after": used[kernel],
+                            "null_s_resumed": res.profile["null_s"]}
+        # each file: a load, a save, its size
+        files = {}
+        for name in ("fixed_materialized", "fixed_streaming",
+                     "adaptive_materialized"):
+            path = os.path.join(top, name, "null_disc__test.npz")
+            t0 = time.perf_counter()
+            loaded = tck.load_null_checkpoint(path)
+            load_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            tck.save_null_checkpoint(os.path.join(top, "again.npz"),
+                                     loaded["nulls"], loaded["completed"],
+                                     loaded["key_data"],
+                                     loaded["fingerprint"],
+                                     extra=loaded["extras"])
+            files[name] = {"bytes": os.path.getsize(path),
+                           "save_s": time.perf_counter() - t0,
+                           "load_s": load_s,
+                           "null_shape": list(loaded["nulls"].shape)}
+        # written on the ring mesh, resumed unsplit
+        d = os.path.join(top, "ring")
+        ring = dict(checkpoint_dir=d, checkpoint_every=C,
+                    n_perm=RING_CKPT_PERM)
+        part, used_r, _ = drive("checkpoint", ["ring_shift_dma", many],
+                                completed=C, config=ring_cfg, mesh=row_mesh,
+                                progress=stop_after(1), **ring)
+        res, used, _ = drive("checkpoint", ["fused_stats_values"],
+                             completed=RING_CKPT_PERM, config=cfg, **ring)
+        launches[("checkpoint", "ring_written")] = used_r
+        launches[("checkpoint", "ring_resumed")] = used
+        unsplit_p = pv.permutation_pvalues(
+            res.observed, fused_run.nulls[:RING_CKPT_PERM], res.alternative,
+            total_nperm=res.total_space)
+        if not (np.array_equal(res.nulls[:C], part.nulls[:C])
+                and np.array_equal(res.nulls[C:],
+                                   fused_run.nulls[C:RING_CKPT_PERM])
+                and np.array_equal(res.p_values, unsplit_p)):
+            raise RuntimeError("checkpoint written on the ring mesh: the "
+                               "unsplit resume differs")
+        report["ring_to_unsplit"] = {
+            "interrupted_at": int(part.completed),
+            "resumed_to": int(res.completed),
+            "p_values_equal_unsplit": True}
+    finally:
+        shutil.rmtree(top, ignore_errors=True)
+    emit({"phase": "checkpoint_check", "runs": report,
+          "resumed_equal_uninterrupted": True,
+          "checkpoint_every": C, "files": files, "card": card})
+    return launches
+
+
 def sequential_only() -> int:
     """``--sequential-tests``: only the inputs and the sequential-tests
     call, through the ``netrep_tpu_torch`` that lies beside this script
@@ -1704,14 +2117,19 @@ def main() -> int:
         n_perm=N_PERM, seed=SEED, device="cuda",
     )
 
-    def drive(phase, needs, expect=None, **call):
+    def drive(phase, needs, expect=None, completed=N_PERM, **call):
         """One ``module_preservation`` call with every launch count at 0
-        just before it; fails unless each kernel in ``needs`` launched and
-        each count in ``expect`` (name: launches) is met exactly.
-        Returns ``(result, launches, memory)``: the peak device GiB of
-        the call, the most held at a progress call of its null, and the
-        null's own peak (from its first progress call on)."""
+        just before it; fails unless each kernel in ``needs`` launched,
+        each count in ``expect`` (name: launches) is met exactly and the
+        result completed ``completed`` permutations (None: not checked,
+        as for an adaptive run). A ``progress`` in ``call`` is called
+        after the memory reads. Returns ``(result, launches, memory)``:
+        the peak device GiB of the call, the most held at a progress call
+        of its null, and the null's own peak (from its first progress call
+        on)."""
         expect = expect or {}
+        n_perm = call.get("n_perm", N_PERM)
+        user_progress = call.pop("progress", None)
         tops.reset_launches()
         torch.cuda.reset_peak_memory_stats()
         held, before_null = [], []
@@ -1723,6 +2141,8 @@ def main() -> int:
                 before_null.append(torch.cuda.max_memory_allocated())
                 torch.cuda.reset_peak_memory_stats()
             held.append(torch.cuda.memory_allocated())
+            if user_progress is not None:
+                user_progress(done, total)
 
         t0 = time.perf_counter()
         res = module_preservation(**{**kw, **call}, progress=progress)
@@ -1742,9 +2162,9 @@ def main() -> int:
                                    f"(MODULES, 7): {r.observed.shape}")
             if not ((r.p_values > 0) & (r.p_values <= 1)).all():
                 raise RuntimeError("p-values outside (0, 1]")
-            if r.completed != N_PERM:
-                raise RuntimeError(f"completed {r.completed} of {N_PERM}")
-            if r.nulls is not None and r.nulls.shape != (N_PERM, MODULES, 7):
+            if completed is not None and r.completed != completed:
+                raise RuntimeError(f"completed {r.completed} of {completed}")
+            if r.nulls is not None and r.nulls.shape != (n_perm, MODULES, 7):
                 raise RuntimeError(f"null shape {r.nulls.shape}")
         prof = (next(iter(res.values())) if isinstance(res, dict)
                 else res).profile
@@ -1754,7 +2174,10 @@ def main() -> int:
                   "null_held_gib": max(held) / 2**30,
                   "null_peak_gib": null_peak / 2**30}
         emit({"phase": phase, "store_nulls": store,
-              "stat_mode": call["config"].stat_mode, "n_perm": N_PERM,
+              "stat_mode": call["config"].stat_mode, "n_perm": n_perm,
+              "adaptive": call.get("adaptive", False),
+              "completed": int(res.completed) if not isinstance(res, dict)
+              else None,
               "mesh": None if call.get("mesh") is None
               else call["mesh"].shape,
               "wall_s": wall, "input_s": prof["input_s"],
@@ -1943,6 +2366,16 @@ def main() -> int:
         emit({"phase": "multi_card", "run": False,
               "cards": torch.cuda.device_count()})
 
+    # ---- the adaptive null at the north star's depth ---------------------
+    adaptive_run, launches_ad, rebucket_err = adaptive_phase(
+        torch, np, fs, fg, pv, drive, cfg, composed_cfg, labels, fused_run,
+        comp[True], (dd, dc, dn), (td, tc, tn), card, dev)
+    launches.update(launches_ad)
+    # ---- interrupted and resumed runs ------------------------------------
+    launches.update(checkpoint_phase(
+        np, pv, drive, cfg, ring_cfg, row_mesh, many, fused_run, runs[False],
+        adaptive_run, card))
+
     # ---- two test cohorts on one shared permutation draw -----------------
     # the second cohort is built in float32 on the host to spare host
     # memory (float64 would be 6.4 GB more)
@@ -2069,6 +2502,39 @@ def main() -> int:
          "bound_ms": r_times["bound_ms"], "bound_by": "bytes",
          "library_ms": r_times["library_ms"],
          "path": "row_sharded ring store_nulls=True"})
+    # this slice's paths: launches of each kernel on each of them
+    new_paths = {
+        "adaptive fused materialized": ("adaptive", "fused_materialized"),
+        "adaptive fused streaming": ("adaptive", "fused_streaming"),
+        "adaptive composed materialized": ("adaptive",
+                                           "composed_materialized"),
+        "adaptive fixed streaming": ("adaptive", "fixed_streaming"),
+        "adaptive fused streaming, Bonferroni rule": (
+            "adaptive", "bonferroni_streaming"),
+        "checkpoint fixed materialized (resumed)": (
+            "checkpoint", "fixed_materialized"),
+        "checkpoint fixed streaming (resumed)": ("checkpoint",
+                                                 "fixed_streaming"),
+        "checkpoint adaptive materialized (resumed)": (
+            "checkpoint", "adaptive_materialized"),
+        "checkpoint written on the ring mesh": ("checkpoint",
+                                                "ring_written"),
+        "checkpoint ring resumed unsplit": ("checkpoint", "ring_resumed"),
+    }
+    ring_paths = {"checkpoint written on the ring mesh"}
+    for row in rows:
+        # the gather's one counter serves both entries: the ring path's
+        # launches are the out= entry's, every other path's the plain one's
+        name, local = row["name"].split("(")[0], "(out=)" in row["name"]
+        by_path = {p: launches[k][name] for p, k in new_paths.items()
+                   if launches[k][name] and (
+                       name != "gather_submatrix_fused_many"
+                       or (p in ring_paths) == local)}
+        row["launches_by_path"] = by_path
+        row["path"] += "".join(f"; {p}" for p in by_path)
+    rows[0]["rebucketed_max_abs_err"] = rebucket_err["fused_stats_values"]
+    rows[1]["rebucketed_max_abs_err"] = rebucket_err["fused_stats_counts"]
+    rows[2]["rebucketed_bit_equal"] = True
     emit({"kernels": rows})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

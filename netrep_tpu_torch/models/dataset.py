@@ -270,6 +270,24 @@ def _normalize_collection(x) -> dict[str, object]:
     return {"1": x}
 
 
+def input_sources(network, data=None, correlation=None
+                  ) -> dict[str, dict[str, object]]:
+    """Per dataset and field (:data:`FIELDS`), the user's input as a
+    view where it lies (None for absent data): what the checkpoint
+    identity samples (:func:`~netrep_tpu_torch.utils.checkpoint.
+    content_digest`), as the JAX package digests its datasets' float64
+    arrays. Call after :func:`build_datasets` has accepted the inputs."""
+    inputs = dict(zip(FIELDS, (_normalize_collection(correlation),
+                               _normalize_collection(network),
+                               _normalize_collection(data))))
+    return {
+        name: {f: (None if name not in inputs[f]
+                   else _as_matrix(inputs[f][name], f, name)[0])
+               for f in FIELDS}
+        for name in inputs["network"]
+    }
+
+
 def build_datasets(network, data=None, correlation=None,
                    device=None) -> dict[str, Dataset]:
     """Normalize user inputs into named, validated :class:`Dataset` objects

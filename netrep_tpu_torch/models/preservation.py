@@ -26,6 +26,8 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import os
+import re
 import time
 from typing import Callable
 
@@ -38,6 +40,7 @@ from ..parallel.engine import (
     ModuleSpec, PermutationEngine, build_discovery, check_derived_network,
 )
 from ..parallel.multitest import MultiTestEngine
+from ..utils import checkpoint as ckpt
 from ..utils.config import EngineConfig
 from . import dataset as ds
 from .results import PreservationResult, shape_results
@@ -47,16 +50,11 @@ logger = logging.getLogger("netrep_tpu_torch")
 #: arguments of the JAX entry point that belong to later slices of the
 #: port, with the ROADMAP.md Queue 1 item that brings each
 _LATER = {
-    "adaptive": (False, "item 8 (adaptive nulls)"),
-    "checkpoint_dir": (None, "item 7 (checkpoint/resume)"),
     "telemetry": (None, "item 16 (device-touching utils and CLI)"),
     "fault_policy": (None, "item 16 (device-touching utils and CLI)"),
     "data_only": (None, "item 12 (data-only atlas plane)"),
     "n_threads": (None, "item 16 (device-touching utils and CLI)"),
     "profile": (None, "item 16 (device-touching utils and CLI)"),
-    "checkpoint_every": (8192, "item 7 (checkpoint/resume)"),
-    "adaptive_rule": (None, "item 8 (adaptive nulls)"),
-    "adaptive_priors": (None, "item 8 (adaptive nulls)"),
 }
 
 
@@ -99,8 +97,9 @@ def _overlap_setup(disc_ds, test_ds, assignments, modules, background_label,
 
 
 def _make_result(d_name, t_name, labels, counts, observed, nulls, completed,
-                 np_this, alternative, total_space, profile=None, stream=None):
-    hi = lo = eff = None
+                 np_this, alternative, total_space, profile=None, stream=None,
+                 p_type="fixed"):
+    hi = lo = eff = n_perm_used = None
     if stream is not None:
         # streaming run: exact Phipson–Smyth from the device-tallied
         # exceedance counts — identical to the materialized p-values
@@ -109,6 +108,14 @@ def _make_result(d_name, t_name, labels, counts, observed, nulls, completed,
             total_nperm=total_space,
         )
         hi, lo, eff = stream.hi, stream.lo, stream.eff
+        if p_type == "sequential":
+            n_perm_used = np.asarray(stream.n_perm_used)
+    elif p_type == "sequential":
+        # adaptive run: retired modules' rows are NaN past retirement —
+        # Phipson–Smyth at each module's own count
+        p_values, n_perm_used = pv.sequential_pvalues(
+            observed, nulls[:completed], alternative, total_nperm=total_space
+        )
     else:
         p_values = pv.permutation_pvalues(
             observed, nulls[:completed], alternative, total_nperm=total_space
@@ -133,7 +140,23 @@ def _make_result(d_name, t_name, labels, counts, observed, nulls, completed,
         completed=completed,
         profile=profile,
         total_space=total_space,
+        n_perm_used=n_perm_used,
+        p_type=p_type,
     )
+
+
+def _checkpoint_path(checkpoint_dir, d_name, t_name) -> str | None:
+    """``<dir>/null_<discovery>__<test>.npz``, the JAX package's name (a
+    multi-test group's tests joined by ``+``), unsafe characters as
+    ``_``."""
+    if checkpoint_dir is None:
+        return None
+
+    def safe(s):
+        return re.sub(r"[^A-Za-z0-9_.-]", "_", str(s))
+
+    return os.path.join(checkpoint_dir,
+                        f"null_{safe(d_name)}__{safe(t_name)}.npz")
 
 
 def module_preservation(
@@ -215,25 +238,40 @@ def module_preservation(
 
     - ``verbose`` — logs one line per (discovery, test) pair before its null
       and one after it, through the ``netrep_tpu_torch`` logger at INFO.
+    - ``checkpoint_dir`` — each pair's partial null (or, streaming, its
+      tallies) is saved to ``<dir>/null_<discovery>__<test>.npz`` every
+      ``checkpoint_every`` permutations, on an interrupt and at the end;
+      the same call again resumes exactly. The file, its key data and its
+      fingerprint are the JAX package's: either package resumes the
+      other's checkpoint of the same inputs, modules and seed. A
+      ``KeyboardInterrupt`` ends the run after the pair it lands in, whose
+      result covers the permutations completed.
+    - ``adaptive`` — sequential early stopping (Besag & Clifford 1991,
+      :mod:`netrep_tpu_torch.ops.sequential`): ``n_perm`` becomes a
+      ceiling and a module whose decision at the rule's alpha is settled
+      stops drawing permutations and drops out of later chunks;
+      p-values are Phipson–Smyth at each module's own count
+      (``p_type='sequential'``, ``result.n_perm_used``). Both null modes;
+      the same seed gives the JAX package's retirements, counts and
+      p-values. ``adaptive_rule`` is a
+      :class:`~netrep_tpu_torch.ops.sequential.StopRule`;
+      ``adaptive_priors`` a ``(counts_hi, counts_lo, n_perm_used)``
+      triple of a prior run of the one pair, seeded into the rule's
+      decisions only (needs ``adaptive=True``, ``store_nulls=True`` and
+      one pair).
 
-    ``adaptive``, ``adaptive_rule``, ``adaptive_priors``,
-    ``checkpoint_dir``, ``checkpoint_every``, ``telemetry``,
-    ``fault_policy``, ``data_only``, ``n_threads``, ``profile`` and
-    ``backend='native'`` belong to later slices: any value but the JAX
-    package's default raises ``NotImplementedError`` naming the item.
+    ``telemetry``, ``fault_policy``, ``data_only``, ``n_threads``,
+    ``profile`` and ``backend='native'`` belong to later slices: any value
+    but the JAX package's default raises ``NotImplementedError`` naming
+    the item.
 
     Returns ``{discovery: {test: PreservationResult}}``, collapsed by
     ``simplify``.
     """
-    given = dict(adaptive=adaptive, checkpoint_dir=checkpoint_dir,
-                 telemetry=telemetry, fault_policy=fault_policy,
-                 data_only=data_only, n_threads=n_threads, profile=profile,
-                 checkpoint_every=checkpoint_every,
-                 adaptive_rule=adaptive_rule,
-                 adaptive_priors=adaptive_priors)
+    given = dict(telemetry=telemetry, fault_policy=fault_policy,
+                 data_only=data_only, n_threads=n_threads, profile=profile)
     for name, (default, item) in _LATER.items():
-        value = given[name]
-        if value is not default and (default is None or value != default):
+        if given[name] is not default:
             raise NotImplementedError(
                 f"{name}= is not ported yet: ROADMAP.md Queue 1 {item}"
             )
@@ -260,6 +298,26 @@ def module_preservation(
     _sync(dev)
     input_s = time.perf_counter() - t0
     pairs = ds.resolve_pairs(datasets, discovery, test, self_preservation)
+    if adaptive_priors is not None:
+        if not adaptive:
+            raise ValueError(
+                "adaptive_priors seeds the sequential stop monitor; it "
+                "requires adaptive=True"
+            )
+        if not store_nulls:
+            raise ValueError(
+                "adaptive_priors requires the default backend='torch' with "
+                "store_nulls=True (the materialized adaptive path)"
+            )
+        if len(pairs) != 1:
+            raise ValueError(
+                "adaptive_priors carries ONE cell's prior tallies; got "
+                f"{len(pairs)} (discovery, test) pairs — warm-start each "
+                "pair separately (grid_preservation does this per cell)"
+            )
+    # the checkpoint identity samples the inputs as the user gave them
+    sources = (None if checkpoint_dir is None
+               else ds.input_sources(network, data, correlation))
     disc_names = sorted({d for d, _ in pairs}, key=list(datasets).index)
     assign = ds.normalize_module_assignments(
         module_assignments, datasets, disc_names
@@ -317,15 +375,17 @@ def module_preservation(
             fields = {"correlation", "network"} | ({"data"} if with_data
                                                     else set())
             plan.append((d_name, group, with_data, setup, buckets, fields,
-                         time.perf_counter() - t1))
+                         time.perf_counter() - t1,
+                         _identity(sources, d_name, group, with_data)))
+    del sources
 
     results: dict[str, dict[str, PreservationResult]] = {}
     for gi, (d_name, group, with_data, (labels, mod_specs, counts, pool),
-             buckets, fields, disc_s) in enumerate(plan):
+             buckets, fields, disc_s, digests) in enumerate(plan):
         # the group's test matrices on the device; those of a later group
         # wait on the host; the rest (every discovery-only matrix) go
         later: dict[str, set] = {}
-        for _d, g, *_, f, _s in plan[gi + 1:]:
+        for _d, g, _w, _s, _b, f, *_ in plan[gi + 1:]:
             for t in g:
                 later.setdefault(t, set()).update(f)
         multi = len(group) > 1
@@ -344,11 +404,14 @@ def module_preservation(
             engine = MultiTestEngine.from_parts(
                 [t.correlation for t in tests], [t.network for t in tests],
                 [t.data.T for t in tests] if with_data else None, *parts,
+                modules=mod_specs, digest=digests[0],
+                test_digest=digests[1],
             )
         else:
             engine = PermutationEngine.from_parts(
                 tests[0].correlation, tests[0].network,
                 tests[0].data.T if with_data else None, *parts, mesh=mesh,
+                modules=mod_specs, digest=digests[0],
             )
         # the engine holds what its null reads; the datasets let go of the
         # rest (a matrix of a later group waits on the host)
@@ -362,14 +425,29 @@ def module_preservation(
                 "discovery %r → test(s) %s: %d modules, %d permutations, "
                 "null=%r", d_name, group, len(labels), np_this, null,
             )
-        if store_nulls:
-            nulls, completed = engine.run_null(np_this, key=seed,
-                                               progress=progress)
-            stream = None
+        run = dict(key=seed, progress=progress,
+                   checkpoint_path=_checkpoint_path(checkpoint_dir, d_name,
+                                                    "+".join(group)),
+                   checkpoint_every=checkpoint_every)
+        nulls = stream = None
+        if adaptive:
+            run.update(alternative=alternative, rule=adaptive_rule)
+            if store_nulls:
+                if adaptive_priors is not None:
+                    run["priors"] = adaptive_priors
+                nulls, completed, finished = engine.run_null_adaptive(
+                    np_this, observed, **run)
+            else:
+                stream = engine.run_null_adaptive_streaming(
+                    np_this, observed, **run)
+                completed, finished = stream.completed, stream.finished
         else:
-            stream = engine.run_null_streaming(np_this, observed, key=seed,
-                                               progress=progress)
-            nulls, completed = None, stream.completed
+            if store_nulls:
+                nulls, completed = engine.run_null(np_this, **run)
+            else:
+                stream = engine.run_null_streaming(np_this, observed, **run)
+                completed = stream.completed
+            finished = completed >= np_this
         t4 = time.perf_counter()
         del engine
         times = dict(
@@ -396,5 +474,40 @@ def module_preservation(
                 else dataclasses.replace(stream, hi=stream.hi[ti],
                                          lo=stream.lo[ti],
                                          eff=stream.eff[ti]),
+                p_type="sequential" if adaptive else "fixed",
             )
+        if not finished:
+            # Ctrl-C ends the whole run; the pairs done so far return
+            logger.warning(
+                "interrupted after %d/%d permutations; p-values use the "
+                "completed subset; stopping remaining pairs",
+                completed, np_this,
+            )
+            break
     return shape_results(results, simplify)
+
+
+def _identity(sources, d_name, group, with_data):
+    """``(digest, test_digest)`` of a pair's (or a multi-test group's)
+    checkpoint identity from the user's inputs, as the JAX package digests
+    its float64 datasets: the engine's six inputs, or the discovery side
+    and the stacked test side (``(None, None)`` without checkpoints)."""
+    if sources is None:
+        return None, None
+    d = sources[d_name]
+    tests = [sources[t] for t in group]
+    if len(group) == 1:
+        t = tests[0]
+        return ckpt.content_digest(
+            [d["correlation"], d["network"], d["data"], t["correlation"],
+             t["network"], t["data"]], dtype="float64"), None
+    return (
+        ckpt.content_digest([d["correlation"], d["network"],
+                             d["data"] if with_data else None, None, None,
+                             None], dtype="float64"),
+        ckpt.content_digest(
+            [ckpt.Stack([t["correlation"] for t in tests]),
+             ckpt.Stack([t["network"] for t in tests])]
+            + ([t["data"] for t in tests] if with_data else []),
+            dtype="float64"),
+    )

@@ -1,14 +1,13 @@
 """Result objects of the port's ``module_preservation``.
 
-A copy of the fixed-n parts of ``netrep_tpu/models/results.py``:
-:class:`PreservationResult` (with ``save``/``load`` in the same ``.npz``
-format, version 1, so either package reads the other's files, and the
-accessors ``stat_names``, ``max_pvalue``, ``preserved_modules``,
-``to_frame`` and ``module_n_perm``), :func:`combine_analyses`,
-:func:`results_table` and :func:`shape_results`, with the same error
-texts. The sequential fields come with the adaptive nulls and the
-generalized-Pareto tail fit with the screened null (ROADMAP.md Queue 1
-items 8 and 13).
+A copy of ``netrep_tpu/models/results.py`` without the generalized-Pareto
+tail: :class:`PreservationResult` (with ``save``/``load`` in the same
+``.npz`` format, version 1, so either package reads the other's files,
+fixed-n and sequential, and the accessors ``stat_names``, ``max_pvalue``,
+``preserved_modules``, ``to_frame`` and ``module_n_perm``),
+:func:`combine_analyses`, :func:`results_table` and
+:func:`shape_results`, with the same error texts. The tail fit comes with
+the screened null (ROADMAP.md Queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -16,8 +15,6 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
-import os
-import tempfile
 import warnings
 from collections import Counter
 
@@ -30,53 +27,28 @@ except ImportError:  # pragma: no cover
 
 from ..ops import pvalues as pv
 from ..ops.oracle import STAT_NAMES
-
-
-def _atomic_savez(path: str, **arrays) -> None:
-    """Write a compressed ``.npz`` through a temporary file in the target
-    directory and ``os.replace``, so an interrupt never leaves a torn
-    file."""
-    d = os.path.dirname(os.path.abspath(path)) or "."
-    os.makedirs(d, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=d, suffix=".npz.tmp")
-    try:
-        with os.fdopen(fd, "wb") as f:
-            np.savez_compressed(f, **arrays)
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-
+from ..utils.checkpoint import atomic_savez
 
 #: result fields of the JAX package's files that this port cannot carry
-#: yet, with the ROADMAP.md Queue 1 item that brings each
-_SEQUENTIAL = "item 8 (adaptive nulls)"
+#: yet, with the ROADMAP.md Queue 1 item that brings them
 _TAIL = "item 13 (screened null and GPD tail)"
 
 
 def _refuse_unported(path: str, meta: dict, files) -> None:
     """Raise a ``ValueError`` naming the field and its item when a file
-    holds what a fixed-n result of this port cannot represent: a
-    sequential p-value type or per-module permutation counts, inexact
-    (screened) null values, or GPD tail p-values. Loading such a file as
-    fixed-n would drop them without a word."""
-    p_type = meta.get("p_type", "fixed")
-    if p_type != "fixed":
-        raise ValueError(
-            f"{path}: p_type={p_type!r} is not ported yet (this port loads "
-            f"fixed-n results only): ROADMAP.md Queue 1 {_SEQUENTIAL}"
-        )
+    holds what this port's results cannot represent: inexact (screened)
+    null values or GPD tail p-values. Loading such a file would drop them
+    without a word."""
     if not meta.get("nulls_exact", True):
         raise ValueError(
             f"{path}: nulls_exact=False (a screened null) is not ported yet: "
             f"ROADMAP.md Queue 1 {_TAIL}"
         )
-    for name, item in (("n_perm_used", _SEQUENTIAL), ("p_tail", _TAIL),
-                       ("tail_ok", _TAIL)):
+    for name in ("p_tail", "tail_ok"):
         if name in files:
             raise ValueError(
                 f"{path}: the {name} array is not ported yet: ROADMAP.md "
-                f"Queue 1 {item}"
+                f"Queue 1 {_TAIL}"
             )
 
 
@@ -87,7 +59,10 @@ class PreservationResult:
     ``p_values`` are Phipson–Smyth exact permutation p-values (never zero);
     ``alternative='two.sided'`` uses min-tail × 2 capped at 1. A streaming
     run (``store_nulls=False``) carries the exceedance tallies
-    ``counts_hi``/``counts_lo``/``counts_eff`` and ``nulls=None``.
+    ``counts_hi``/``counts_lo``/``counts_eff`` and ``nulls=None``. An
+    adaptive run has ``p_type='sequential'`` and each module's
+    permutation count in ``n_perm_used`` (its null rows are NaN past it);
+    a fixed run ``p_type='fixed'`` and ``n_perm_used=None``.
     ``profile`` holds the run's per-phase seconds (not persisted).
     """
 
@@ -108,6 +83,8 @@ class PreservationResult:
     counts_hi: np.ndarray | None = None
     counts_lo: np.ndarray | None = None
     counts_eff: np.ndarray | None = None
+    n_perm_used: np.ndarray | None = None  # (n_modules,) adaptive runs
+    p_type: str = "fixed"         # 'fixed' or 'sequential'
 
     @property
     def stat_names(self) -> tuple[str, ...]:
@@ -187,8 +164,11 @@ class PreservationResult:
         })
 
     def module_n_perm(self) -> np.ndarray:
-        """(n_modules,) permutations backing each module's p-values: a
-        fixed-n result's ``completed`` for every module."""
+        """(n_modules,) permutations backing each module's p-values:
+        ``n_perm_used`` for adaptive runs, ``completed`` for every module of
+        a fixed run."""
+        if self.n_perm_used is not None:
+            return np.asarray(self.n_perm_used, dtype=np.int64)
         return np.full(len(self.module_labels), int(self.completed),
                        dtype=np.int64)
 
@@ -209,16 +189,17 @@ class PreservationResult:
                 else "inf" if np.isinf(self.total_space)
                 else float(self.total_space)
             ),
-            "p_type": "fixed",
+            "p_type": self.p_type,
             "store_nulls": self.nulls is not None,
             "nulls_exact": True,
         }
         extra = {
             name: np.asarray(getattr(self, name))
-            for name in ("counts_hi", "counts_lo", "counts_eff")
+            for name in ("n_perm_used", "counts_hi", "counts_lo",
+                         "counts_eff")
             if getattr(self, name) is not None
         }
-        _atomic_savez(
+        atomic_savez(
             path,
             **extra,
             result_version=np.int64(self._SAVE_VERSION),
@@ -236,8 +217,8 @@ class PreservationResult:
 
     @classmethod
     def load(cls, path: str) -> "PreservationResult":
-        """Load a result saved by :meth:`save`, or a fixed-n result the JAX
-        package saved. A sequential, screened or GPD-tail file raises
+        """Load a result saved by :meth:`save`, or one the JAX package
+        saved (fixed-n or sequential). A screened or GPD-tail file raises
         ``ValueError`` naming the field and the item that will carry it."""
         with np.load(path) as z:
             if "result_version" not in z.files:
@@ -273,6 +254,10 @@ class PreservationResult:
                 n_perm=meta["n_perm"],
                 completed=meta["completed"],
                 total_space=None if ts is None else float(ts),
+                n_perm_used=(
+                    z["n_perm_used"] if "n_perm_used" in z.files else None
+                ),
+                p_type=meta.get("p_type", "fixed"),
             )
 
 
@@ -391,6 +376,10 @@ def _combine_pair_results(results, allow_duplicate_nulls):
         _refuse_duplicate_nulls(blocks, total_space)
 
     nulls = np.concatenate(blocks, axis=0)
+    # pooled with a sequential input, per-module counts stay ragged (each
+    # block brings its own NaN tail); they are recounted from the pooled
+    # array, whose p-values permutation_pvalues already groups by count
+    any_seq = _any_sequential(results)
     return PreservationResult(
         discovery=first.discovery,
         test=first.test,
@@ -407,7 +396,14 @@ def _combine_pair_results(results, allow_duplicate_nulls):
         n_perm=int(sum(r.n_perm for r in results)),
         completed=int(nulls.shape[0]),
         total_space=total_space,
+        n_perm_used=pv.effective_nperm(nulls) if any_seq else None,
+        p_type="sequential" if any_seq else "fixed",
     )
+
+
+def _any_sequential(results) -> bool:
+    return any(r.p_type == "sequential" or r.n_perm_used is not None
+               for r in results)
 
 
 def _refuse_duplicate_nulls(blocks, total_space) -> None:
@@ -492,6 +488,7 @@ def _combine_count_results(results, total_space):
     hi = sum(p[0] for p in parts)
     lo = sum(p[1] for p in parts)
     eff = sum(p[2] for p in parts)
+    any_seq = _any_sequential(results)
     return PreservationResult(
         discovery=first.discovery,
         test=first.test,
@@ -512,6 +509,9 @@ def _combine_count_results(results, total_space):
         n_perm=int(sum(r.n_perm for r in results)),
         completed=int(sum(r.completed for r in results)),
         total_space=total_space,
+        n_perm_used=(sum(r.module_n_perm() for r in results) if any_seq
+                     else None),
+        p_type="sequential" if any_seq else "fixed",
     )
 
 

@@ -41,8 +41,19 @@ The port of the main path of ``netrep_tpu/parallel/engine.py``'s
   launch writing the rows it owns in place). The observed pass and the
   discovery side of a row-sharded engine gather that way too.
 
-Checkpoints, fault handling, telemetry, the multi-test engine on a mesh,
-the screened and adaptive nulls are later slices (ROADMAP.md, Queue 1).
+Every null loop takes a checkpoint path (:class:`Checkpointer`): a resumed
+run equals the uninterrupted one, at any mesh shape and across packages
+(the JAX package's file, key data and fingerprint). The adaptive nulls
+(:meth:`PermutationEngine.run_null_adaptive`, ``_streaming``) fold each
+chunk into a :class:`~netrep_tpu_torch.ops.sequential.StopMonitor` and
+:meth:`~PermutationEngine.rebucket` the engine to the modules still
+drawing; the kernels then run on the smaller buckets, each (permutation,
+module) cell computed as in the fixed run. Streaming tallies stay int32 on
+the device: per chunk at most ``chunk_size`` draws, per run at most
+``n_perm`` — far below 2**31 at any ceiling a user runs (100,000).
+
+Fault handling, telemetry, the multi-test engine on a mesh and the
+screened null are later slices (ROADMAP.md, Queue 1 items 16, 14, 13).
 """
 
 from __future__ import annotations
@@ -61,6 +72,8 @@ from ..ops.fused_stats import (
     fused_stats_counts, fused_stats_values, ring_gather_all,
 )
 from ..ops.oracle import N_STATS
+from ..ops.sequential import StopMonitor, StopRule
+from ..utils import checkpoint as ckpt
 from ..utils.config import EngineConfig
 from . import mesh as tmesh
 from .mesh import PERM_AXIS, ROW_AXIS, Mesh
@@ -100,12 +113,16 @@ class StreamCounts:
     """Result of a streaming null: per-(module, statistic) counts of null
     draws ``>=`` / ``<=`` the observed statistic and of valid (non-NaN)
     draws, ``(n_modules, 7)`` int64 each — for the same key, equal to
-    ``pvalues.tail_counts`` of the materialized null."""
+    ``pvalues.tail_counts`` of the materialized null. The adaptive
+    streaming loop also sets ``n_perm_used`` (per module) and
+    ``finished`` (False after a ``KeyboardInterrupt``)."""
 
     hi: np.ndarray
     lo: np.ndarray
     eff: np.ndarray
     completed: int
+    n_perm_used: np.ndarray | None = None
+    finished: bool = True
 
 
 def _as_f32(a, device) -> torch.Tensor:
@@ -284,54 +301,350 @@ def build_buckets(disc_corr, disc_net, disc_data, modules, pool,
     return buckets
 
 
-def _run_chunks(key, n_perm: int, C: int, chunk: Callable, write: Callable,
-                progress, full: bool = False) -> int:
+@dataclasses.dataclass
+class Checkpointer:
+    """Where and how often a null loop saves, and the identity its
+    checkpoints carry: the key data of the permutation stream and the
+    problem's fingerprint (:func:`checkpointer`)."""
+
+    path: str
+    every: int
+    key_data: np.ndarray
+    fingerprint: np.ndarray
+
+    def load(self) -> dict | None:
+        return ckpt.load_null_checkpoint(self.path)
+
+    def save(self, nulls, done: int, extra: dict | None = None) -> None:
+        ckpt.save_null_checkpoint(self.path, nulls, done, self.key_data,
+                                  self.fingerprint, extra=extra)
+
+
+#: namespace of the streaming loops' checkpoint identity: a streaming
+#: checkpoint never resumes a materialized run and the reverse (the JAX
+#: package's ``_STREAM_FP``)
+_STREAM_FP = b"stream-counts|"
+
+
+def checkpointer(engine, key: trandom.ThreefryKey, path: str | None,
+                 every: int, fingerprint_extra: bytes = b""
+                 ) -> Checkpointer | None:
+    """The :class:`Checkpointer` of a run at ``path`` (None: no
+    checkpoints). Its identity is the JAX package's, byte for byte, for
+    the same problem and seed (``netrep_tpu/parallel/engine.py::
+    _checkpoint_identity``): the key's words and the engine's fingerprint
+    with ``fingerprint_extra`` appended."""
+    if path is None:
+        return None
+    engine.fingerprint_digest()  # raises without a checkpoint identity
+    fp = ckpt.engine_fingerprint(engine)
+    if fingerprint_extra:
+        fp = np.concatenate(
+            [fp, np.frombuffer(fingerprint_extra, dtype=np.uint8)])
+    return Checkpointer(str(path), int(every), key.data(), fp)
+
+
+def chunk_counts(stream_parts: Callable, monitor,
+                 to_active: Callable) -> Callable:
+    """``build() -> counts(keys, valid)`` for
+    :func:`run_adaptive_stream_chunks`: ``stream_parts()`` gives the
+    ``(count, pull)`` of the current buckets, whose device tallies
+    accumulate; a chunk's ``(hi, lo, eff)`` is the difference of two host
+    reads (one copy each), ``to_active(delta, positions)`` reshaping each
+    to the monitor's ``(n_active, n_cells)``."""
+
+    def build():
+        count, pull = stream_parts()
+        last = [pull()]
+
+        def counts(keys, valid):
+            count(keys, valid)
+            now = pull()
+            pos = monitor.active_positions()
+            out = tuple(to_active(a - b, pos) for a, b in zip(now, last[0]))
+            last[0] = now
+            return out
+
+        return counts
+
+    return build
+
+
+def run_checkpointed_chunks(key, n_perm: int, C: int, chunk: Callable,
+                            write: Callable, alloc_shape: tuple,
+                            progress=None, ck: Checkpointer | None = None,
+                            perm_axis: int = 0, full: bool = False
+                            ) -> tuple[np.ndarray, int]:
     """The materialized null loop: ``chunk(keys)`` for permutations
-    ``[start, start + C)``, ``write(outs, start, take)`` once they land
-    (``outs`` may run past ``take``: with ``full`` every chunk, the tail
-    too, draws all ``C`` keys, so that a mesh splits it evenly). Chunk k+1
-    is enqueued before chunk k is copied back, so the device works while
-    the host waits on the copy."""
+    ``[start, start + C)``, ``write(nulls, outs, start, take)`` once they
+    land (``outs`` may run past ``take``: with ``full`` every chunk, the
+    tail too, draws all ``C`` keys, so that a mesh splits it evenly). Chunk
+    k+1 is enqueued before chunk k is copied back, so the device works
+    while the host waits on the copy.
+
+    With a :class:`Checkpointer` the loop resumes from its file (exact:
+    the keys depend only on the permutation index), saves every
+    ``ck.every`` permutations at chunk boundaries and at the end; a
+    ``KeyboardInterrupt`` copies back the chunk that was landing and
+    returns the partial null (a second one abandons that chunk), and any
+    other exception saves what completed before it propagates. Returns
+    ``(nulls, completed)``, NaN past ``completed``."""
+    nulls, start = None, 0
+    if ck is not None:
+        loaded = ck.load()
+        if loaded is not None:
+            nulls, start = ckpt.validate_resume(
+                loaded, n_perm, ck.key_data, ck.fingerprint, ck.path,
+                perm_axis=perm_axis)
+    if nulls is None:
+        nulls = np.full(alloc_shape, np.nan)
+    dispatched = completed = last_saved = start
     pending = None
-    completed = 0
-    for start in list(range(0, n_perm, C)) + [None]:
-        nxt = None
-        if start is not None:
-            take = min(C, n_perm - start)
-            nxt = (chunk(trandom.perm_keys(key, start, C if full else take)),
-                   start, take)
+    try:
+        while dispatched < n_perm or pending is not None:
+            nxt = None
+            if dispatched < n_perm:
+                take = min(C, n_perm - dispatched)
+                nxt = (chunk(trandom.perm_keys(key, dispatched,
+                                               C if full else take)),
+                       dispatched, take)
+                dispatched += take
+            if pending is not None:
+                outs, at, take_p = pending
+                write(nulls, outs, at, take_p)
+                completed = at + take_p
+                if progress is not None:
+                    progress(completed, n_perm)
+                if ck is not None and completed - last_saved >= ck.every:
+                    ck.save(nulls, completed)
+                    last_saved = completed
+            pending = nxt
+    except KeyboardInterrupt:
+        # the copy back waits for the chunk's kernels to finish
         if pending is not None:
-            outs, at, take_p = pending
-            write(outs, at, take_p)
-            completed = at + take_p
-            if progress is not None:
-                progress(completed, n_perm)
-        pending = nxt
-    return completed
+            try:
+                outs, at, take_p = pending
+                write(nulls, outs, at, take_p)
+                completed = at + take_p
+            except KeyboardInterrupt:
+                pass
+    except BaseException:
+        if pending is not None:
+            try:
+                outs, at, take_p = pending
+                write(nulls, outs, at, take_p)
+                completed = at + take_p
+            except Exception:  # the original error re-raises below
+                pass
+        if ck is not None and completed > last_saved:
+            ck.save(nulls, completed)
+        raise
+    if ck is not None and completed > last_saved:
+        ck.save(nulls, completed)
+    return nulls, completed
 
 
-def _run_stream(key, n_perm: int, C: int, K: int, count: Callable,
-                pull: Callable, progress):
+def run_stream_superchunks(key, n_perm: int, C: int, K: int,
+                           count: Callable, pull: Callable, progress=None,
+                           ck: Checkpointer | None = None):
     """The streaming null loop: ``count(keys, valid)`` folds chunk tallies
     on the device; ``pull()`` reads them to the host once per superchunk of
     ``K`` chunks. Chunk j of a superchunk starting at ``done`` draws
     ``fold_in(key, done + j*C + i)`` — the permutations the materialized
     loop draws at the same indices — and its tail past ``n_perm`` is gated
-    off. Returns ``(pull(), completed)``."""
-    counts = pull()
-    completed = 0
-    while completed < n_perm:
-        take = min(K * C, n_perm - completed)
-        for j in range(K):
-            valid = min(C, n_perm - completed - j * C)
-            if valid <= 0:
-                break
-            count(trandom.perm_keys(key, completed + j * C, C), valid)
-        completed += take
-        counts = pull()
-        if progress is not None:
-            progress(completed, n_perm)
+    off.
+
+    With a :class:`Checkpointer` the ``(hi, lo, eff)`` tallies are saved
+    at superchunk boundaries (``stream_*`` extras beside an empty null, the
+    identity in the streaming namespace) and resumed: the device then
+    counts from zero and the saved tallies are added on the host. A
+    ``KeyboardInterrupt`` returns the tallies of the last whole superchunk
+    (tallies and counter commit in one statement). Returns ``((hi, lo,
+    eff), completed)``."""
+    completed, base = 0, None
+    if ck is not None:
+        loaded = ck.load()
+        if loaded is not None:
+            extras = loaded.get("extras") or {}
+            if "stream_hi" not in extras:
+                raise ValueError(
+                    f"checkpoint {ck.path!r} has no streaming "
+                    "tallies (it was written by a store_nulls=True run); "
+                    "resume it with store_nulls=True or delete it"
+                )
+            ckpt.validate_identity(loaded, ck.key_data, ck.fingerprint,
+                                   ck.path)
+            completed = min(int(loaded["completed"]), n_perm)
+            base = tuple(np.asarray(extras[f"stream_{f}"], np.int64)
+                         for f in ("hi", "lo", "eff"))
+
+    def total():
+        now = pull()
+        return now if base is None else tuple(b + t
+                                              for b, t in zip(base, now))
+
+    def save(counts, done):
+        ck.save(np.zeros((0,)), done,
+                extra=dict(zip(("stream_hi", "stream_lo", "stream_eff"),
+                               counts)))
+
+    counts = total()
+    last_saved = completed
+    try:
+        while completed < n_perm:
+            take = min(K * C, n_perm - completed)
+            for j in range(K):
+                valid = min(C, n_perm - completed - j * C)
+                if valid <= 0:
+                    break
+                count(trandom.perm_keys(key, completed + j * C, C), valid)
+            counts, completed = total(), completed + take
+            if progress is not None:
+                progress(completed, n_perm)
+            if ck is not None and completed - last_saved >= ck.every:
+                save(counts, completed)
+                last_saved = completed
+    except KeyboardInterrupt:
+        pass
+    except BaseException:
+        if ck is not None and completed > last_saved:
+            save(counts, completed)
+        raise
+    if ck is not None and completed > last_saved:
+        save(counts, completed)
     return counts, completed
+
+
+def run_adaptive_chunks(key, n_perm: int, C: int, chunk: Callable,
+                        write: Callable, alloc_shape: tuple,
+                        slice_vals: Callable, monitor, rebucket: Callable,
+                        progress=None, ck: Checkpointer | None = None,
+                        perm_axis: int = 0, full: bool = False
+                        ) -> tuple[np.ndarray, int, bool]:
+    """The materialized adaptive (sequential early-stopping) loop: after
+    each chunk the :class:`~netrep_tpu_torch.ops.sequential.StopMonitor`
+    folds its values (``slice_vals(nulls, done, take, positions)`` views
+    them as ``(take, n_active, n_cells)``) and retires decided modules;
+    ``rebucket(active)`` then shrinks the engine's buckets, so later
+    chunks compute only the active modules. Every chunk still draws
+    ``fold_in(key, i)`` over the full pool and a surviving module keeps its
+    slice of the draw, so its rows are the fixed run's at the same
+    indices; a retired module's later rows stay NaN.
+
+    The loop is synchronous: the monitor must see chunk k before chunk
+    k+1's module set is known. Checkpoints carry the monitor's state; on
+    resume a chunk written but not yet folded is folded first. Returns
+    ``(nulls, completed, finished)``, ``finished`` False only after a
+    ``KeyboardInterrupt``."""
+    nulls, completed = np.full(alloc_shape, np.nan), 0
+    if ck is not None:
+        loaded = ck.load()
+        if loaded is not None:
+            nulls, completed = ckpt.validate_resume(
+                loaded, n_perm, ck.key_data, ck.fingerprint, ck.path,
+                perm_axis=perm_axis)
+            if completed:
+                monitor.restore_state(loaded.get("extras") or {})
+                gap = completed - monitor.folded
+                if gap > 0:
+                    monitor.update(slice_vals(nulls, monitor.folded, gap,
+                                              monitor.active_positions()),
+                                   gap)
+    pos = monitor.active_positions()
+    if pos.size and pos.size < monitor.n_modules:
+        rebucket(pos)
+    last_saved = completed
+    finished = True
+    try:
+        while completed < n_perm and monitor.any_active():
+            pos = monitor.active_positions()
+            take = min(C, n_perm - completed)
+            outs = chunk(trandom.perm_keys(key, completed,
+                                           C if full else take))
+            write(nulls, outs, completed, take)
+            completed += take
+            newly = monitor.update(
+                slice_vals(nulls, completed - take, take, pos), take)
+            if progress is not None:
+                progress(completed, n_perm)
+            if newly.size and monitor.any_active():
+                rebucket(monitor.active_positions())
+            if ck is not None and completed - last_saved >= ck.every:
+                ck.save(nulls, completed, extra=monitor.state_arrays())
+                last_saved = completed
+    except KeyboardInterrupt:
+        finished = False
+    except BaseException:
+        if ck is not None and completed > last_saved:
+            ck.save(nulls, completed, extra=monitor.state_arrays())
+        raise
+    if ck is not None and completed > last_saved:
+        ck.save(nulls, completed, extra=monitor.state_arrays())
+    return nulls, completed, finished
+
+
+def run_adaptive_stream_chunks(key, n_perm: int, C: int,
+                               make_counts: Callable, monitor,
+                               rebucket: Callable, progress=None,
+                               ck: Checkpointer | None = None
+                               ) -> tuple[int, bool]:
+    """The streaming adaptive loop: one chunk per dispatch, so decisions
+    land at the chunk boundaries the materialized adaptive loop takes
+    them at, but the dispatch returns each active module's ``(hi, lo,
+    eff)`` tallies of the chunk and the monitor folds them
+    (:meth:`~netrep_tpu_torch.ops.sequential.StopMonitor.update_counts`).
+    The kernel's tallies compare the same float32 values the materialized
+    loop widens, so retirement is the same in both modes.
+
+    ``make_counts()`` returns ``counts(keys, valid) -> (hi, lo, eff)``
+    over the active modules in ``monitor.active_positions()`` order for
+    the current buckets; it is rebuilt after each re-bucketing. Counts and
+    monitor commit together, so a checkpoint (the monitor's state in the
+    streaming namespace) has no unfolded gap. Returns ``(completed,
+    finished)``."""
+    completed = 0
+    if ck is not None:
+        loaded = ck.load()
+        if loaded is not None:
+            ckpt.validate_identity(loaded, ck.key_data, ck.fingerprint,
+                                   ck.path)
+            monitor.restore_state(loaded.get("extras") or {})
+            completed = min(int(loaded["completed"]), n_perm)
+
+    def save(done):
+        ck.save(np.zeros((0,)), done, extra=monitor.state_arrays())
+
+    pos = monitor.active_positions()
+    if pos.size and pos.size < monitor.n_modules:
+        rebucket(pos)
+    counts = make_counts() if monitor.any_active() else None
+    last_saved = completed
+    finished = True
+    try:
+        while completed < n_perm and monitor.any_active():
+            take = min(C, n_perm - completed)
+            hi, lo, eff = counts(trandom.perm_keys(key, completed, C), take)
+            newly = monitor.update_counts(hi, lo, take, eff=eff)
+            completed = monitor.folded
+            if progress is not None:
+                progress(completed, n_perm)
+            if newly.size and monitor.any_active():
+                rebucket(monitor.active_positions())
+                counts = make_counts()
+            if ck is not None and completed - last_saved >= ck.every:
+                save(completed)
+                last_saved = completed
+    except KeyboardInterrupt:
+        finished = False
+        completed = monitor.folded
+    except BaseException:
+        completed = monitor.folded
+        if ck is not None and completed > last_saved:
+            save(completed)
+        raise
+    if ck is not None and completed > last_saved:
+        save(completed)
+    return completed, finished
 
 
 def root_key(key, device) -> trandom.ThreefryKey:
@@ -425,17 +738,25 @@ class PermutationEngine:
             pool, buckets, len(modules), config, dev, mesh,
         )
         self.modules = modules
+        # the checkpoint identity digests the inputs as given, as the JAX
+        # engine does, so the two packages fingerprint a problem alike
+        self._digest = ckpt.content_digest(
+            [disc_corr, disc_net, disc_data, test_corr, test_net, test_data])
 
     @classmethod
     def from_parts(cls, test_corr, test_net, test_dataT, pool, buckets,
                    n_modules: int, config: EngineConfig = EngineConfig(),
-                   device=None, mesh: Mesh | None = None
-                   ) -> "PermutationEngine":
+                   device=None, mesh: Mesh | None = None,
+                   modules: Sequence[ModuleSpec] | None = None,
+                   digest: str | None = None) -> "PermutationEngine":
         """An engine from its device operands directly (see
         :mod:`netrep_tpu_torch.state`): ``buckets`` is a list of dicts with
         ``cap``, ``module_pos``, ``disc`` (:class:`DiscProps`), ``obs_idx``
         ``(K, cap)`` and ``slices``. ``test_net`` is not read when
-        ``config.network_from_correlation`` is set."""
+        ``config.network_from_correlation`` is set. ``modules`` and
+        ``digest`` (:func:`~netrep_tpu_torch.utils.checkpoint.content_digest`
+        of the six original inputs) make the problem's checkpoint
+        identity; without them the engine takes no checkpoint."""
         self = cls.__new__(cls)
         dev = tmesh.resolve_device(mesh, device)
 
@@ -452,7 +773,8 @@ class PermutationEngine:
              for b in buckets],
             n_modules, config, dev, mesh,
         )
-        self.modules = None
+        self.modules = None if modules is None else list(modules)
+        self._digest = digest
         return self
 
     def _setup(self, tc, tn, tdT, pool, buckets, n_modules, config, dev,
@@ -499,6 +821,9 @@ class PermutationEngine:
             )
             for b in buckets
         ]
+        #: every module's bucket; ``buckets`` is the active subset
+        #: (:meth:`rebucket`)
+        self._buckets_full = list(self.buckets)
         self._shards = None
 
     # ------------------------------------------------------------------
@@ -741,13 +1066,10 @@ class PermutationEngine:
         ]
 
     def _pull(self, tallies) -> tuple:
-        """Device tallies → ``(n_modules, 7)`` int64 host arrays."""
-        out = [np.zeros((self.n_modules, N_STATS), np.int64)
-               for _ in range(3)]
-        for b, acc in zip(self.buckets, tallies):
-            for o, t in zip(out, acc):
-                o[b.module_pos] = t.cpu().numpy()
-        return tuple(out)
+        """Device tallies → ``(n_modules, 7)`` int64 host arrays, every
+        bucket's in one copy."""
+        return tuple(pull_tallies([(self.buckets, tallies)],
+                                  self.n_modules)[0])
 
     def _stream_parts(self, observed):
         """``(count(keys, valid), pull())`` of the streaming null. On a
@@ -789,42 +1111,233 @@ class PermutationEngine:
 
         return count, pull
 
+    # ------------------------------------------------------------------
+    # Null runs: fixed, checkpointed, adaptive
+    # ------------------------------------------------------------------
+
+    def fingerprint_digest(self) -> str:
+        """Content digest of the six original inputs (the JAX engine's
+        ``fingerprint_digest``), part of the checkpoint identity."""
+        if self._digest is None or self.modules is None:
+            raise ValueError(
+                "this engine was built from parts without modules= and "
+                "digest=, so it has no checkpoint identity; pass both to "
+                "from_parts or build it from the inputs"
+            )
+        return self._digest
+
+    def rebucket(self, active) -> None:
+        """Restrict the buckets to the modules at the global positions
+        ``active`` — the adaptive loops' retirement: later chunks compute
+        only those modules. Each survivor keeps its original slice of the
+        drawn permutation (and the ``take`` positions built from it), and
+        permutations are still drawn over the full pool, so its index sets
+        are the fixed run's. Discovery properties, observed indices and
+        ``take`` are row-filtered on the device; a mesh's shard views are
+        rebuilt from the new buckets. ``rebucket(range(n_modules))``
+        restores the full set."""
+        keep = {int(a) for a in np.asarray(active, dtype=np.int64).ravel()}
+        bad = keep - set(range(self.n_modules))
+        if bad:
+            raise ValueError(f"unknown module positions: {sorted(bad)}")
+        if keep == set(range(self.n_modules)) and sum(
+                len(b.module_pos) for b in self.buckets) == self.n_modules:
+            return
+        new = []
+        for b in self._buckets_full:
+            sel = [i for i, p in enumerate(b.module_pos) if p in keep]
+            if not sel:
+                continue
+            if len(sel) == len(b.module_pos):
+                new.append(b)
+                continue
+            ix = torch.as_tensor(sel, device=b.obs_idx.device)
+            new.append(_Bucket(
+                cap=b.cap, module_pos=[b.module_pos[i] for i in sel],
+                disc=tstats.DiscProps(*(a.index_select(0, ix)
+                                        for a in b.disc)),
+                obs_idx=b.obs_idx.index_select(0, ix),
+                slices=[b.slices[i] for i in sel],
+                take=b.take.index_select(0, ix),
+            ))
+        if not new:
+            raise ValueError("rebucket needs at least one active module")
+        self.buckets = new
+        self._shards = None
+
+    def _null_write(self) -> Callable:
+        """Chunk → null scatter of the fixed and adaptive loops; reads
+        ``self.buckets`` at call time, so after :meth:`rebucket` it writes
+        exactly the surviving modules."""
+
+        def write(nulls, outs, at, take):
+            for b, o in zip(self.buckets, outs):
+                nulls[at: at + take, b.module_pos] = (
+                    o[:take].cpu().numpy().astype(np.float64)
+                )
+
+        return write
+
     def run_null(self, n_perm: int, key=0,
                  progress: Callable[[int, int], None] | None = None,
+                 checkpoint_path: str | None = None,
+                 checkpoint_every: int = 8192,
                  ) -> tuple[np.ndarray, int]:
         """The materialized permutation null: ``(nulls, completed)`` with
         ``nulls`` ``(n_perm, n_modules, 7)`` float64. ``key`` is an integer
         seed or a :class:`~netrep_tpu_torch.random.ThreefryKey`; the same
         key gives the same null regardless of chunk size and mesh.
         ``progress(done, total)`` is called after each chunk lands on the
-        host."""
-        nulls = np.full((n_perm, self.n_modules, N_STATS), np.nan)
+        host.
 
-        def write(outs, at, take):
-            for b, o in zip(self.buckets, outs):
-                nulls[at: at + take, b.module_pos] = (
-                    o[:take].cpu().numpy().astype(np.float64)
-                )
-
-        completed = _run_chunks(root_key(key, self.device), n_perm,
-                                self.effective_chunk(), self._chunk, write,
-                                progress, full=self.mesh is not None)
-        return nulls, completed
+        ``checkpoint_path``: the partial null is saved there every
+        ``checkpoint_every`` permutations (at chunk boundaries), on an
+        interrupt or error and at the end, and an existing checkpoint of
+        the same problem and key is resumed — exactly, and across mesh
+        shapes and packages (:func:`run_checkpointed_chunks`). A
+        ``KeyboardInterrupt`` returns the partial null with ``completed <
+        n_perm``."""
+        key = root_key(key, self.device)
+        return run_checkpointed_chunks(
+            key, n_perm, self.effective_chunk(), self._chunk,
+            self._null_write(), (n_perm, self.n_modules, N_STATS),
+            progress, checkpointer(self, key, checkpoint_path,
+                                   checkpoint_every),
+            full=self.mesh is not None,
+        )
 
     def run_null_streaming(self, n_perm: int, observed: np.ndarray, key=0,
                            progress: Callable[[int, int], None] | None = None,
+                           checkpoint_path: str | None = None,
+                           checkpoint_every: int = 8192,
                            ) -> StreamCounts:
         """The streaming permutation null: exceedance tallies against
         ``observed`` ``(n_modules, 7)``, accumulated on the device in int32
         over ``config.superchunk`` chunks between host reads. For the same
         key the tallies equal ``tail_counts`` of :meth:`run_null`'s
-        null."""
+        null. Checkpoints as :meth:`run_null`, saved at superchunk
+        boundaries (:func:`run_stream_superchunks`); a materialized
+        checkpoint is refused."""
+        key = root_key(key, self.device)
         count, pull = self._stream_parts(observed)
-        (hi, lo, eff), completed = _run_stream(
-            root_key(key, self.device), n_perm, self.effective_chunk(),
+        (hi, lo, eff), completed = run_stream_superchunks(
+            key, n_perm, self.effective_chunk(),
             self.config.resolved_superchunk, count, pull, progress,
+            checkpointer(self, key, checkpoint_path, checkpoint_every,
+                         _STREAM_FP),
         )
         return StreamCounts(hi=hi, lo=lo, eff=eff, completed=completed)
+
+    def _monitor(self, observed, alternative, rule) -> StopMonitor:
+        return StopMonitor(
+            np.asarray(observed, dtype=np.float64).reshape(
+                self.n_modules, -1),
+            alternative, rule or StopRule(),
+        )
+
+    def run_null_adaptive(self, n_perm: int, observed: np.ndarray, key=0,
+                          alternative: str = "greater", rule=None,
+                          progress: Callable[[int, int], None] | None = None,
+                          checkpoint_path: str | None = None,
+                          checkpoint_every: int = 8192, priors=None,
+                          ) -> tuple[np.ndarray, int, bool]:
+        """Sequential early-stopping variant of :meth:`run_null`:
+        ``n_perm`` becomes a ceiling, and a module whose decision at the
+        stop rule's alpha is settled retires and drops out of later chunks,
+        its remaining rows left NaN (per-module counts:
+        :func:`~netrep_tpu_torch.ops.pvalues.effective_nperm`).
+        ``observed`` are the engine's observed statistics and
+        ``alternative`` the tail the p-values will use; ``priors`` an
+        optional ``(hi, lo, n_used)`` triple seeded into the monitor's
+        decisions (:meth:`~netrep_tpu_torch.ops.sequential.StopMonitor.
+        seed_priors`). Returns ``(nulls, completed, finished)``:
+        ``completed`` is the deepest module's count, ``finished`` False
+        only after a ``KeyboardInterrupt``."""
+        monitor = self._monitor(observed, alternative, rule)
+        if priors is not None:
+            monitor.seed_priors(*priors)
+        return self.run_null_monitored(
+            n_perm, key, monitor, progress=progress,
+            checkpoint_path=checkpoint_path,
+            checkpoint_every=checkpoint_every)
+
+    def run_null_monitored(self, n_perm: int, key, monitor,
+                           progress: Callable[[int, int], None] | None = None,
+                           checkpoint_path: str | None = None,
+                           checkpoint_every: int = 8192,
+                           ) -> tuple[np.ndarray, int, bool]:
+        """The materialized null under a caller's retirement monitor (the
+        :class:`~netrep_tpu_torch.ops.sequential.StopMonitor` surface):
+        after each chunk it folds the active modules' values and names the
+        modules to retire, which :meth:`rebucket` drops from later chunks
+        (:func:`run_adaptive_chunks`). The engine is left at full strength
+        on exit."""
+        key = root_key(key, self.device)
+
+        def slice_vals(nulls, done, take, pos):
+            return nulls[done: done + take][:, pos, :]
+
+        try:
+            return run_adaptive_chunks(
+                key, n_perm, self.effective_chunk(), self._chunk,
+                self._null_write(), (n_perm, self.n_modules, N_STATS),
+                slice_vals, monitor, self.rebucket, progress,
+                checkpointer(self, key, checkpoint_path, checkpoint_every),
+                full=self.mesh is not None,
+            )
+        finally:
+            self.rebucket(range(self.n_modules))
+
+    def run_null_adaptive_streaming(
+            self, n_perm: int, observed: np.ndarray, key=0,
+            alternative: str = "greater", rule=None,
+            progress: Callable[[int, int], None] | None = None,
+            checkpoint_path: str | None = None, checkpoint_every: int = 8192,
+    ) -> StreamCounts:
+        """Streaming variant of :meth:`run_null_adaptive`: one chunk per
+        dispatch, the monitor folding the kernel's tallies
+        (:func:`run_adaptive_stream_chunks`), so retirement equals the
+        materialized adaptive run's at the same key. Returns a
+        :class:`StreamCounts` with per-module ``n_perm_used`` and the
+        ``finished`` flag."""
+        monitor = self._monitor(observed, alternative, rule)
+        key = root_key(key, self.device)
+        try:
+            completed, finished = run_adaptive_stream_chunks(
+                key, n_perm, self.effective_chunk(),
+                chunk_counts(lambda: self._stream_parts(observed), monitor,
+                             lambda a, pos: a[pos]), monitor,
+                self.rebucket, progress,
+                checkpointer(self, key, checkpoint_path, checkpoint_every,
+                             _STREAM_FP),
+            )
+        finally:
+            self.rebucket(range(self.n_modules))
+        eff = monitor.eff if monitor.eff is not None else np.zeros_like(
+            monitor.hi)
+        return StreamCounts(
+            hi=monitor.hi.copy(), lo=monitor.lo.copy(), eff=eff.copy(),
+            completed=completed, n_perm_used=monitor.n_used.copy(),
+            finished=finished,
+        )
+
+
+def pull_tallies(parts, n_modules: int) -> list[np.ndarray]:
+    """``(3, n_modules, 7)`` int64 host tallies ``(hi, lo, eff)`` of each
+    ``(buckets, tallies)`` part (tensors on one device): every bucket's
+    brought to the host in one copy."""
+    flat = torch.cat([t.reshape(-1) for _b, tallies in parts
+                      for acc in tallies for t in acc]).cpu().numpy()
+    out, at = [], 0
+    for buckets, _t in parts:
+        o = np.zeros((3, n_modules, N_STATS), np.int64)
+        for b in buckets:
+            n = len(b.module_pos) * N_STATS
+            for f in range(3):
+                o[f, b.module_pos] = flat[at: at + n].reshape(-1, N_STATS)
+                at += n
+        out.append(o)
+    return out
 
 
 def _add_tallies(tallies, deltas) -> None:

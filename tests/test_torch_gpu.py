@@ -575,3 +575,113 @@ def test_network_properties_cuda_matches_cpu(cuda):
                                            atol=1e-10)
             for key in ("avg_weight", "coherence"):
                 assert got[key] == pytest.approx(want[key], abs=1e-10)
+
+
+def _example_kw(**extra):
+    pair = make_example_pair(np.random.default_rng(3))
+    d, t = pair_frames(pair)
+    return dict(network={"d": d["network"], "t": t["network"]},
+                data={"d": d["data"], "t": t["data"]},
+                correlation={"d": d["correlation"], "t": t["correlation"]},
+                module_assignments=pair["labels"], seed=4, **extra)
+
+
+@pytest.mark.parametrize("store_nulls", (True, False))
+@pytest.mark.parametrize("stat_mode", ("fused", "xla"))
+def test_adaptive_cuda_matches_cpu(cuda, store_nulls, stat_mode):
+    """The adaptive null on the card, through the kernels on re-bucketed
+    buckets, retires the modules the CPU run retires, with its counts and
+    p-values."""
+    kw = _example_kw(n_perm=2000, adaptive=True, store_nulls=store_nulls,
+                     config=EngineConfig(stat_mode=stat_mode))
+    tops.reset_launches()
+    gpu = module_preservation(**kw)
+    launched = {fn.__name__: fn.launches for fn in tops.kernels()}
+    kernel = ("gather_submatrix_fused_many" if stat_mode == "xla"
+              else "fused_stats_values" if store_nulls
+              else "fused_stats_counts")
+    assert launched[kernel] > 0, launched
+    cpu = module_preservation(**kw, device="cpu")
+    assert gpu.p_type == cpu.p_type == "sequential"
+    np.testing.assert_array_equal(gpu.n_perm_used, cpu.n_perm_used)
+    np.testing.assert_array_equal(gpu.p_values, cpu.p_values)
+    assert gpu.n_perm_used.min() < 2000  # a module retired early
+    if store_nulls:
+        np.testing.assert_allclose(gpu.nulls, cpu.nulls, rtol=0, atol=TOL)
+
+
+@pytest.mark.parametrize("store_nulls", (True, False))
+def test_checkpoint_resume_cuda_matches_cpu(cuda, tmp_path, store_nulls):
+    """Interrupted on the card after two chunks, resumed on the card: the
+    uninterrupted card run's null bit for bit; the card's checkpoint also
+    resumes on the CPU to the CPU run's p-values."""
+    kw = _example_kw(n_perm=500, store_nulls=store_nulls,
+                     config=EngineConfig(superchunk=1),
+                     checkpoint_every=128)
+    calls = []
+
+    def stop(done, total):
+        calls.append(done)
+        if len(calls) == 2:
+            raise KeyboardInterrupt
+
+    card_dir, cpu_dir = tmp_path / "card", tmp_path / "cpu"
+    part = module_preservation(**kw, checkpoint_dir=str(card_dir),
+                               progress=stop)
+    assert part.completed == 256
+    import shutil
+
+    shutil.copytree(card_dir, cpu_dir)
+    resumed = module_preservation(**kw, checkpoint_dir=str(card_dir))
+    whole = module_preservation(**kw)
+    np.testing.assert_array_equal(resumed.p_values, whole.p_values)
+    if store_nulls:
+        np.testing.assert_array_equal(resumed.nulls, whole.nulls)
+    on_cpu = module_preservation(**kw, checkpoint_dir=str(cpu_dir),
+                                 device="cpu")
+    cpu = module_preservation(**kw, device="cpu")
+    np.testing.assert_array_equal(on_cpu.p_values, cpu.p_values)
+
+
+@pytest.mark.parametrize("mode", ("values", "counts"))
+def test_kernels_on_rebucketed_buckets_match_plain(cuda, mode):
+    """The fused kernel on a bucket that ``rebucket`` row-filtered (its
+    discovery props and ``take`` by ``index_select``) matches its plain
+    version, and each surviving cell equals its value in the full bucket
+    bit for bit (one block per cell)."""
+    from netrep_tpu_torch import random as trandom
+    from netrep_tpu_torch.data import make_mixed_pair
+    from netrep_tpu_torch.parallel.engine import ModuleSpec, PermutationEngine
+
+    mixed = make_mixed_pair(400, 6, n_samples=40, seed=7)
+    (dd, dc, dn), (td, tc, tn) = mixed["discovery"], mixed["test"]
+    eng = PermutationEngine(dc, dn, dd, tc, tn, td,
+                            [ModuleSpec(lab, i, i) for lab, i in
+                             mixed["specs"]], mixed["pool"], device=cuda)
+    perm = trandom.permutation(trandom.perm_keys(trandom.key(5, cuda), 0, 32),
+                               eng._pool_dev)
+    full = {p: o[:, i] for b, o in zip(eng.buckets, eng._values(perm))
+            for i, p in enumerate(b.module_pos)}
+    keep = [p for b in eng.buckets for p in b.module_pos][1::2]
+    eng.rebucket(keep)
+    for b in eng.buckets:
+        idx = eng._bucket_idx(perm, b)
+        if mode == "values":
+            got = tfused.fused_stats_values(
+                eng._test_corr, eng._test_net, eng._test_dataT, b.disc, idx)
+            want = tfused.fused_stats_values_plain(
+                eng._test_corr, eng._test_net, eng._test_dataT, b.disc, idx)
+            for i, p in enumerate(b.module_pos):
+                assert _bit_equal(got[:, i], full[p])
+        else:
+            obs = torch.zeros((len(b.module_pos), 7), device=cuda)
+            pvalid = torch.ones(idx.shape[0], dtype=torch.int32, device=cuda)
+            got = tfused.fused_stats_counts(
+                eng._test_corr, eng._test_net, eng._test_dataT, b.disc, idx,
+                pvalid, obs)
+            want = tfused.fused_stats_counts_plain(
+                eng._test_corr, eng._test_net, eng._test_dataT, b.disc, idx,
+                pvalid, obs)
+            got, want = got[0], want[0]
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=0, atol=TOL)

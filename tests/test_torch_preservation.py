@@ -179,6 +179,31 @@ def test_input_errors_match_jax(frames, case):
     assert str(terr.value) == str(jerr.value)
 
 
+#: keywords a later slice brought: they now behave as the JAX package's
+PORTED = {"adaptive", "checkpoint_dir", "checkpoint_every", "adaptive_rule",
+          "adaptive_priors"}
+
+
+def _as_jax_does(frames, tmp_path, arg, value):
+    """A keyword the port has since ported gives the JAX package's result,
+    or raises its ``ValueError`` with the same text."""
+    def call(fn, sub, **extra):
+        kw = {**frames, "n_perm": 10, arg: value, **extra}
+        if arg == "checkpoint_dir":
+            kw[arg] = str(tmp_path / sub / value)
+        try:
+            return fn(**kw), None
+        except ValueError as e:
+            return None, str(e)
+
+    rt, terr = call(module_preservation, "port", device="cpu")
+    rj, jerr = call(netrep_tpu.module_preservation, "jax")
+    assert terr == jerr
+    if rt is not None:
+        assert rt.p_type == rj.p_type
+        np.testing.assert_array_equal(rt.p_values, rj.p_values)
+
+
 @pytest.mark.parametrize("arg,value", [
     ("adaptive", True),
     ("checkpoint_dir", "x"), ("telemetry", True), ("fault_policy", True),
@@ -186,7 +211,13 @@ def test_input_errors_match_jax(frames, case):
     ("n_threads", 4), ("profile", True), ("checkpoint_every", 100),
     ("adaptive_rule", "bayes"), ("adaptive_priors", np.ones((1, 7, 3))),
 ])
-def test_later_slice_arguments_raise(frames, arg, value):
+def test_later_slice_arguments_raise(frames, tmp_path, arg, value):
+    """The keywords of later slices raise ``NotImplementedError``; those
+    ported since (checkpoints and adaptive nulls) behave as the JAX
+    package's."""
+    if arg in PORTED:
+        _as_jax_does(frames, tmp_path, arg, value)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         module_preservation(**frames, n_perm=10, device="cpu",
                             **{arg: value})
@@ -197,10 +228,15 @@ def test_later_slice_arguments_raise(frames, arg, value):
     ("checkpoint_every", 1024, 7), ("adaptive_rule", "bayes", 8),
     ("adaptive_priors", np.ones((1, 7, 3)), 8),
 ])
-def test_jax_only_keywords_name_their_item(frames, arg, value, item):
-    """The six keywords the port's signature once lacked (a TypeError) now
-    raise the item that brings them, and only at a value other than the
-    JAX package's default."""
+def test_jax_only_keywords_name_their_item(frames, tmp_path, arg, value,
+                                           item):
+    """The six keywords the port's signature once lacked (a TypeError) raise
+    the item that brings them, and only at a value other than the JAX
+    package's default; those whose item is done behave as the JAX
+    package's."""
+    if arg in PORTED:
+        _as_jax_does(frames, tmp_path, arg, value)
+        return
     with pytest.raises(NotImplementedError,
                        match=f"{arg}= .*ROADMAP.md Queue 1 item {item} "):
         module_preservation(**frames, n_perm=10, device="cpu",
@@ -253,7 +289,16 @@ def _jax_written(frames, tmp_path, kind):
 ])
 def test_load_refuses_what_the_port_cannot_carry(frames, tmp_path, kind,
                                                  field, item):
-    _res, path = _jax_written(frames, tmp_path, kind)
+    """A screened or GPD-tail file raises naming its item (13); the
+    sequential fields came with item 8 and now load as written."""
+    res, path = _jax_written(frames, tmp_path, kind)
+    if item == 8:
+        back = PreservationResult.load(path)
+        assert back.p_type == res.p_type
+        np.testing.assert_array_equal(back.n_perm_used, res.n_perm_used)
+        np.testing.assert_array_equal(back.module_n_perm(),
+                                      res.module_n_perm())
+        return
     with pytest.raises(ValueError, match=f"{field}.*ROADMAP.md Queue 1 "
                                          f"item {item} "):
         PreservationResult.load(path)

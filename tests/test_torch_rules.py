@@ -58,6 +58,7 @@ import netrep_tpu_torch.ops.fused_stats, netrep_tpu_torch.ops._build
 import netrep_tpu_torch.ops.fused_gather, netrep_tpu_torch.parallel.multitest
 import netrep_tpu_torch.parallel.mesh, netrep_tpu_torch.parallel.sharded
 import netrep_tpu_torch.models.properties, netrep_tpu_torch.plot
+import netrep_tpu_torch.ops.sequential, netrep_tpu_torch.utils.checkpoint
 bad = [m for m in set(sys.modules) - before
        if m in ("jax", "jaxlib", "netrep_tpu") or m.startswith(("jax.", "jaxlib.", "netrep_tpu."))]
 print(",".join(sorted(bad)))
