@@ -132,6 +132,7 @@ on the same inputs.
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import re
@@ -980,6 +981,422 @@ def genome_scale(torch, np, card, strict=True):
           "card": card})
     torch.cuda.empty_cache()
     return res
+
+
+#: the sparse phase (Config E, bench.py's bench_e): nodes, random
+#: neighbours per node, modules and their size range, permutations; the
+#: reduced card-vs-CPU run's nodes, modules, size range and permutations
+SPARSE_NODES, SPARSE_K, SPARSE_MODULES, SPARSE_SIZES = 50_000, 30, 30, (50,
+                                                                       500)
+SPARSE_PERM, SPARSE_ITERS = 1000, 40
+SPARSE_SMALL = (2000, 8, (20, 150), 200)
+#: the data_only phase (the atlas shape, bench.py's bench_atlas): genes,
+#: modules and their size range, planted factor, β, adaptive ceiling; the
+#: acceptance pin's genes and modules
+ATLAS_GENES, ATLAS_MODULES, ATLAS_SIZES = 100_000, 50, (30, 200)
+ATLAS_FACTOR, ATLAS_PERM, ATLAS_SMALL = 1.1, 10_000, (400, 4)
+
+
+def no_kernel(tops, phase) -> dict:
+    """The launch counts since the last reset; no kernel of the port runs
+    on the sparse and data-only paths (no Pallas kernel runs on the JAX
+    package's), so any launch means the path went astray."""
+    launches = {fn.__name__: fn.launches for fn in tops.kernels()}
+    if any(launches.values()):
+        raise RuntimeError(f"{phase} launched a kernel: {launches}")
+    return launches
+
+
+def sparse_problem(np, n, k, samples, modules, sizes, plant=0.0, seed=0):
+    """Config E's inputs as ``bench.py``'s ``bench_e`` draws them from
+    ``default_rng(seed)``: ``k`` random neighbours per node, weights uniform
+    in [0.05, 1), symmetrized by ``from_coo``; data ``samples × n``;
+    ``modules`` contiguous modules of log-uniform size. ``plant`` adds a
+    shared factor of that scale to each module's data (0: pure noise, as
+    the bench). Also a precomputed sparse correlation on the graph's edge
+    pattern: each edge's Pearson correlation of the data."""
+    from netrep_tpu_torch.ops.sparse import SparseAdjacency
+
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(n, dtype=np.int64), k)
+    cols = rng.integers(0, n, size=n * k)
+    vals = rng.uniform(0.05, 1.0, size=n * k).astype(np.float32)
+    adj = SparseAdjacency.from_coo(rows, cols, vals, n)
+    data = rng.standard_normal((samples, n)).astype(np.float32)
+    lo, hi = sizes
+    msz = np.exp(rng.uniform(np.log(lo), np.log(hi), size=modules)).astype(
+        int)
+    labels = np.full(n, "0", dtype=object)
+    pos = 0
+    for i, sz in enumerate(msz):
+        if plant:
+            data[:, pos:pos + sz] += plant * rng.standard_normal(
+                samples).astype(np.float32)[:, None]
+        labels[pos:pos + sz] = str(i + 1)
+        pos += sz
+    z = (data - data.mean(0)) / data.std(0, ddof=1)
+    wgt = np.zeros(adj.wgt.shape, np.float32)
+    for r0 in range(0, n, 4096):
+        nb = adj.nbr[r0:r0 + 4096]
+        real = nb < n
+        prod = np.einsum("si,sij->ij", z[:, r0:r0 + nb.shape[0]],
+                         z[:, np.where(real, nb, 0)])
+        wgt[r0:r0 + nb.shape[0]] = np.where(real, prod / (samples - 1), 0)
+    corr = SparseAdjacency.from_arrays(adj.nbr, wgt, n)
+    return adj, data, corr, labels, msz
+
+
+def chunk_trace(torch, engine) -> dict:
+    """Where one null chunk of ``engine`` (its first keys) spends its time:
+    the chunk's ms by CUDA events, and the device time of its kernels from
+    ``torch.profiler``, by kernel; their ratio is the device's busy share
+    (the rest is the host issuing the chunk's small ops)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from netrep_tpu_torch import random as trandom
+
+    keys = trandom.perm_keys(trandom.key(SEED, device=engine.device), 0,
+                             engine.effective_chunk())
+    chunk_ms = make_timer(torch)(lambda: engine._chunk(keys), reps=3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        engine._chunk(keys)
+        torch.cuda.synchronize()
+    ops = {}
+    for e in prof.key_averages():
+        if "cuda" not in str(getattr(e, "device_type", "")).lower():
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us:
+            ops[e.key] = ops.get(e.key, 0.0) + us / 1e3
+    device_ms = sum(ops.values())
+    return {"unit": f"one chunk of {engine.effective_chunk()} permutations",
+            "chunk_ms": chunk_ms, "device_ms": device_ms,
+            "device_busy_share": device_ms / chunk_ms,
+            "kernels": len(ops), "profiler_saw_device_time": bool(ops),
+            "top_kernels_ms": dict(sorted(ops.items(),
+                                          key=lambda kv: -kv[1])[:8])}
+
+
+def tallies_of(pv, res):
+    return pv.tail_counts(res.observed, res.nulls)
+
+
+def card_vs_cpu(np, pv, run, what):
+    """``run(device)`` on the card and on the CPU: equal p-values and
+    tail counts, values within TOL; returns the largest deviations."""
+    card, cpu = run("cuda"), run("cpu")
+    if not np.array_equal(np.isnan(card.nulls), np.isnan(cpu.nulls)):
+        raise RuntimeError(f"{what}: NaN patterns of card and CPU differ")
+    obs_err = float(np.nanmax(np.abs(card.observed - cpu.observed)))
+    null_err = float(np.nanmax(np.abs(card.nulls - cpu.nulls)))
+    same = all(np.array_equal(a, b) for a, b in zip(tallies_of(pv, card),
+                                                   tallies_of(pv, cpu)))
+    if obs_err > TOL or null_err > TOL or not same or not np.array_equal(
+            card.p_values, cpu.p_values, equal_nan=True):
+        raise RuntimeError(f"{what}: card and CPU disagree (observed "
+                           f"{obs_err}, null {null_err}, counts equal "
+                           f"{same})")
+    return {"max_abs_observed": obs_err, "max_abs_null": null_err,
+            "counts_equal": True, "p_values_equal": True}
+
+
+def sparse_phase(torch, np, card) -> dict:
+    """Config E at full width through ``sparse_module_preservation``: a
+    SPARSE_NODES-node kNN graph, data SAMPLES × SPARSE_NODES, SPARSE_MODULES
+    modules, SPARSE_PERM permutations, chunk 128, SPARSE_ITERS power
+    iterations; with data (7 statistics) and with a precomputed sparse
+    correlation and no data (4), after a 128-permutation warm-up call.
+    Inputs are host numpy. Checks: the first
+    chunk's index sets on the card equal the CPU's (two sort rounds at
+    this pool); a reduced run (SPARSE_SMALL: nodes, modules, sizes,
+    permutations; planted modules, so no null value lies within rounding
+    of an observed one) on the card gives the CPU's counts and p-values,
+    values within TOL. Returns the launch counts of each run (all 0)."""
+    from netrep_tpu_torch import ops as tops
+    from netrep_tpu_torch import random as trandom
+    from netrep_tpu_torch.models.sparse_api import sparse_module_preservation
+    from netrep_tpu_torch.ops import pvalues as pv
+    from netrep_tpu_torch.parallel.engine import ModuleSpec, _take_blocks
+    from netrep_tpu_torch.parallel.sparse import SparsePermutationEngine
+    from netrep_tpu_torch.utils.config import EngineConfig
+
+    t0 = time.perf_counter()
+    adj, data, corr, labels, msz = sparse_problem(
+        np, SPARSE_NODES, SPARSE_K, SAMPLES, SPARSE_MODULES, SPARSE_SIZES)
+    made_s = time.perf_counter() - t0
+    cfg = EngineConfig(chunk_size=128, power_iters=SPARSE_ITERS)
+    runs, launches = {}, {}
+    # the statistics each input mode defines, and those NaN for a module
+    # without an edge inside it, as in the JAX package: cor.degree (its
+    # degrees are all 0) and, where the correlation lies on the edges,
+    # cor.cor — the random graph leaves a small module a few such
+    modes = (("with_data", dict(discovery_data=data, test_data=data),
+              [0, 1, 2, 3, 4, 5, 6], [3]),
+             ("correlation_no_data", dict(discovery_correlation=corr,
+                                          test_correlation=corr),
+              [0, 2, 3, 5], [2, 3]))
+    # warm-up: the first call in the process pays the libraries' set-up
+    t1 = time.perf_counter()
+    sparse_module_preservation(adj, adj, labels, n_perm=128, seed=SEED,
+                               config=cfg, **modes[0][1])
+    warm_s = time.perf_counter() - t1
+    for name, extra, defined, edge_nan in modes:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tops.reset_launches()
+        t1 = time.perf_counter()
+        res = sparse_module_preservation(
+            adj, adj, labels, n_perm=SPARSE_PERM, seed=SEED, config=cfg,
+            **extra)
+        wall = time.perf_counter() - t1
+        launches[name] = no_kernel(tops, f"sparse {name}")
+        obs = res.observed
+        undefined = [j for j in range(7) if j not in defined]
+        always = [j for j in defined if j not in edge_nan]
+        edgeless = obs[:, 0] == 0
+        if (obs.shape != (SPARSE_MODULES, 7)
+                or not np.isnan(obs[:, undefined]).all()
+                or not np.isfinite(obs[:, always]).all()
+                or not np.isfinite(obs[~edgeless][:, edge_nan]).all()):
+            raise RuntimeError(f"sparse {name}: observed statistics "
+                               f"{obs.tolist()}")
+        p = res.p_values[np.isfinite(obs)]
+        if res.completed != SPARSE_PERM or not ((p > 0) & (p <= 1)).all():
+            raise RuntimeError(f"sparse {name}: completed {res.completed}")
+        runs[name] = {"wall_s": wall, **res.profile,
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                      "statistics_defined": defined,
+                      "modules_without_an_inner_edge": int(edgeless.sum()),
+                      "launches": launches[name]}
+    # the first chunk's index sets: card vs CPU
+    specs = [ModuleSpec(str(i + 1), np.arange(a, a + s), np.arange(a, a + s))
+             for i, (a, s) in enumerate(zip(np.cumsum(np.r_[0, msz[:-1]]),
+                                            msz))]
+    pool = np.arange(SPARSE_NODES, dtype=np.int32)
+    tops.reset_launches()
+    trace = {
+        "with_data": chunk_trace(torch, SparsePermutationEngine(
+            adj, data, adj, data, specs, pool, config=cfg)),
+        "correlation_no_data": chunk_trace(torch, SparsePermutationEngine(
+            adj, None, adj, None, specs, pool, config=cfg, disc_corr=corr,
+            test_corr=corr)),
+    }
+    no_kernel(tops, "sparse chunk_trace")
+    draws = {}
+    for dev in ("cuda", "cpu"):
+        eng = SparsePermutationEngine(adj, None, adj, None, specs, pool,
+                                      config=cfg, device=dev)
+        perm = trandom.permutation(trandom.perm_keys(
+            trandom.key(SEED, dev), 0, 128), eng._pool_dev)
+        draws[dev] = [_take_blocks(perm, b.take).cpu().numpy()
+                      for b in eng.buckets]
+    if not all(np.array_equal(a, b) for a, b in zip(draws["cuda"],
+                                                   draws["cpu"])):
+        raise RuntimeError("sparse: the card's first chunk of index sets "
+                           "differs from the CPU's")
+    # a reduced run: card vs CPU
+    n, mods, sizes, n_perm = SPARSE_SMALL
+    s_adj, s_data, s_corr, s_labels, _ = sparse_problem(
+        np, n, SPARSE_K, SAMPLES, mods, sizes, plant=ATLAS_FACTOR, seed=1)
+    small = {}
+    for name, extra in (("with_data", dict(discovery_data=s_data,
+                                           test_data=s_data)),
+                        ("correlation_no_data", dict(
+                            discovery_correlation=s_corr,
+                            test_correlation=s_corr))):
+        small[name] = card_vs_cpu(np, pv, lambda dev: sparse_module_preservation(
+            s_adj, s_adj, s_labels, n_perm=n_perm, seed=SEED, config=cfg,
+            device=dev, **extra), f"sparse reduced {name}")
+    emit({"phase": "sparse", "nodes": SPARSE_NODES, "k_drawn": SPARSE_K,
+          "nnz": adj.nnz, "k_padded": adj.k, "samples": SAMPLES,
+          "modules": SPARSE_MODULES, "module_sizes": [int(v) for v in msz],
+          "n_perm": SPARSE_PERM, "chunk": 128, "power_iters": SPARSE_ITERS,
+          "make_inputs_s": made_s, "warm_up_s": warm_s, "runs": runs,
+          "chunk_trace": trace, "first_chunk_index_sets_equal_cpu": True,
+          "reduced_vs_cpu": {"nodes": n, "modules": mods, "n_perm": n_perm,
+                             "tolerance": TOL, **small},
+          "card": card})
+    torch.cuda.empty_cache()
+    return launches
+
+
+def atlas_inputs(np, genes, modules, sizes, samples=SAMPLES, seed=0):
+    """The atlas shape as ``bench.py``'s ``bench_atlas`` draws it from
+    ``default_rng(seed)``: ``modules`` contiguous modules of log-uniform
+    size, two datasets of ``samples × genes`` standard normal data with a
+    planted factor ``ATLAS_FACTOR · N(0, 1)`` per module. Returns the
+    datasets and the per-position labels."""
+    rng = np.random.default_rng(seed)
+    lo, hi = sizes
+    msz = np.exp(rng.uniform(np.log(lo), np.log(hi), size=modules)).astype(
+        int)
+    starts = np.cumsum(np.r_[0, msz[:-1]])
+
+    def planted():
+        x = rng.standard_normal((samples, genes)).astype(np.float32)
+        for a, s in zip(starts, msz):
+            x[:, a:a + s] += ATLAS_FACTOR * rng.standard_normal(
+                samples).astype(np.float32)[:, None]
+        return x
+
+    labels = np.full(genes, "0", dtype=object)
+    for i, (a, s) in enumerate(zip(starts, msz)):
+        labels[a:a + s] = str(i + 1)
+    return planted(), planted(), list(labels), msz
+
+
+def largest_allocation(torch, fn):
+    """``(fn(), bytes)``: the largest single device allocation made while
+    ``fn`` runs, from the caching allocator's recorded history."""
+    torch.cuda.memory._record_memory_history(context=None, stacks="python",
+                                             max_entries=2_000_000)
+    try:
+        out = fn()
+        snap = torch.cuda.memory._snapshot()
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    sizes = [e["size"] for trace in snap["device_traces"] for e in trace
+             if e["action"] == "alloc"]
+    return out, max(sizes)
+
+
+def data_only_phase(torch, np, card) -> dict:
+    """The atlas shape at full width through ``atlas_module_preservation``:
+    ATLAS_GENES genes, ATLAS_MODULES planted modules, SAMPLES samples,
+    β = BETA, chunk 128, SPARSE_ITERS power iterations; N_PERM permutations
+    materialized and streaming, and adaptive streaming at a ceiling of
+    ATLAS_PERM. Reports each run's seconds, permutations per second, peak
+    device GiB, and the largest device allocation of a 256-permutation
+    materialized call (recorded apart: the history slows allocation).
+    Checks: every peak below 8 GiB, far below one float32
+    ATLAS_GENES² matrix, and no allocation that large; at ATLAS_SMALL
+    (genes, modules) the data-only run on the card gives the counts and
+    p-values of the dense path on the derived matrices
+    (``dense_reference_stats``) on the card. Returns the launch counts."""
+    from netrep_tpu_torch import ops as tops
+    from netrep_tpu_torch.atlas.modules import dense_reference_stats
+    from netrep_tpu_torch.models.atlas_api import atlas_module_preservation
+    from netrep_tpu_torch.models.preservation import module_preservation
+    from netrep_tpu_torch.ops import pvalues as pv
+    from netrep_tpu_torch.parallel.engine import ModuleSpec, PermutationEngine
+    from netrep_tpu_torch.utils.config import EngineConfig
+
+    t0 = time.perf_counter()
+    xd, xt, labels, msz = atlas_inputs(np, ATLAS_GENES, ATLAS_MODULES,
+                                       ATLAS_SIZES)
+    made_s = time.perf_counter() - t0
+    nn_bytes = 4 * ATLAS_GENES ** 2
+    cfg = EngineConfig(chunk_size=128, power_iters=SPARSE_ITERS)
+    kw = dict(data={"disc": xd, "test": xt}, module_assignments=labels,
+              discovery="disc", test="test", data_only=BETA, seed=SEED,
+              config=cfg)
+    runs, launches, results = {}, {}, {}
+    # the allocator's history slows every allocation, so it is recorded
+    # apart from the timed calls, over two chunks of the same shapes; it
+    # also pays the first call's set-up of the libraries
+    tops.reset_launches()
+    t1 = time.perf_counter()
+    _r, biggest = largest_allocation(
+        torch, lambda: atlas_module_preservation(**kw, n_perm=256))
+    warm_s = time.perf_counter() - t1
+    no_kernel(tops, "data_only largest allocation")
+    if biggest >= nn_bytes:
+        raise RuntimeError(f"data_only: an allocation of {biggest} bytes")
+    for name, extra in (("materialized", dict(n_perm=N_PERM)),
+                        ("streaming", dict(n_perm=N_PERM, store_nulls=False)),
+                        ("adaptive_streaming", dict(
+                            n_perm=ATLAS_PERM, adaptive=True,
+                            store_nulls=False))):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tops.reset_launches()
+        t1 = time.perf_counter()
+        res = atlas_module_preservation(**kw, **extra)
+        wall = time.perf_counter() - t1
+        launches[name] = no_kernel(tops, f"data_only {name}")
+        peak = torch.cuda.max_memory_allocated()
+        if res.observed.shape != (ATLAS_MODULES, 7) or not np.isfinite(
+                res.observed).all():
+            raise RuntimeError(f"data_only {name}: observed statistics are "
+                               "not finite (ATLAS_MODULES, 7)")
+        if not ((res.p_values > 0) & (res.p_values <= 1)).all():
+            raise RuntimeError(f"data_only {name}: p-values outside (0, 1]")
+        if peak >= 8 * 2**30:
+            raise RuntimeError(f"data_only {name}: peak {peak} bytes")
+        runs[name] = {"wall_s": wall, **{k: res.profile[k] for k in (
+            "input_s", "engine_s", "observed_s", "null_s", "perms_per_s")},
+            "completed": int(res.completed), "peak_gib": peak / 2**30,
+            "launches": launches[name]}
+        if res.n_perm_used is not None:
+            runs[name]["n_perm_used_sum"] = int(res.n_perm_used.sum())
+            runs[name]["n_perm_used_max"] = int(res.n_perm_used.max())
+        results[name] = res
+    specs = [ModuleSpec(str(i + 1), np.arange(a, a + s), np.arange(a, a + s))
+             for i, (a, s) in enumerate(zip(np.cumsum(np.r_[0, msz[:-1]]),
+                                            msz))]
+    trace = chunk_trace(torch, PermutationEngine(
+        None, None, xd, None, None, xt, specs,
+        np.arange(ATLAS_GENES, dtype=np.int32),
+        config=dataclasses.replace(cfg, network_from_correlation=BETA)))
+    no_kernel(tops, "data_only chunk_trace")
+    mat, stream = results["materialized"], results["streaming"]
+    if not (np.array_equal(mat.p_values, stream.p_values) and all(
+            np.array_equal(a, b) for a, b in zip(
+                tallies_of(pv, mat), (stream.counts_hi, stream.counts_lo,
+                                      stream.counts_eff)))):
+        raise RuntimeError("data_only: streaming tallies differ from the "
+                           "materialized null's")
+    # the acceptance pin: data-only = the dense path on derived matrices
+    genes, mods = ATLAS_SMALL
+    sd, st, s_labels, _ = atlas_inputs(np, genes, mods, (20, 60), seed=1)
+    (rdc, rdn), (rtc, rtn) = dense_reference_stats(sd, st, None, BETA)
+    pin = dict(data={"d": sd, "t": st}, module_assignments=s_labels,
+               discovery="d", test="t", n_perm=N_PERM, seed=SEED)
+    a = atlas_module_preservation(**pin, data_only=BETA, config=cfg)
+    b = module_preservation(
+        network={"d": rdn, "t": rtn}, correlation={"d": rdc, "t": rtc},
+        **pin, config=EngineConfig(chunk_size=128, power_iters=SPARSE_ITERS,
+                                   stat_mode="xla"))
+    pin_err = float(np.abs(a.nulls - b.nulls).max())
+    if not (np.array_equal(a.p_values, b.p_values) and all(
+            np.array_equal(x, y) for x, y in zip(tallies_of(pv, a),
+                                                 tallies_of(pv, b)))
+            and pin_err <= TOL):
+        raise RuntimeError(f"data_only at {genes} genes differs from the "
+                           f"dense path on the derived matrices ({pin_err})")
+    emit({"phase": "data_only", "genes": ATLAS_GENES, "samples": SAMPLES,
+          "modules": ATLAS_MODULES, "module_sizes": [int(v) for v in msz],
+          "beta": BETA, "n_perm": N_PERM, "adaptive_ceiling": ATLAS_PERM,
+          "chunk": 128, "power_iters": SPARSE_ITERS,
+          "make_inputs_s": made_s, "float32_nxn_gib": nn_bytes / 2**30,
+          "largest_allocation_bytes": int(biggest),
+          "largest_allocation_call_s": warm_s, "runs": runs,
+          "chunk_trace": trace, "streaming_equals_materialized": True,
+          "dense_pin": {"genes": genes, "modules": mods, "n_perm": N_PERM,
+                        "p_values_equal": True, "counts_equal": True,
+                        "max_abs_null": pin_err},
+          "card": card})
+    torch.cuda.empty_cache()
+    return launches
+
+
+def pr9_only(phase) -> int:
+    """``--sparse`` / ``--data-only``: that phase alone."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA device available", file=sys.stderr)
+        return 1
+    import numpy as np
+
+    card = card_line()
+    emit({"phase": "device", "kind": torch.cuda.get_device_name(0),
+          "card": card, "torch": torch.__version__})
+    phase(torch, np, card)
+    return 0
 
 
 def _host_props(np, net, dat):
@@ -2437,6 +2854,11 @@ def main() -> int:
     # ---- two 50,000-gene datasets from host float32 arrays ---------------
     genome_scale(torch, np, card)
 
+    # ---- Config E (sparse) and the atlas shape (data-only) ---------------
+    pr9 = {f"sparse {k}": v for k, v in sparse_phase(torch, np, card).items()}
+    pr9.update({f"data_only {k}": v
+                for k, v in data_only_phase(torch, np, card).items()})
+
     # ---- a small reference: the same call on the card and on the CPU -----
     from netrep_tpu_torch.data import make_example_pair, pair_frames
 
@@ -2532,6 +2954,9 @@ def main() -> int:
                        or (p in ring_paths) == local)}
         row["launches_by_path"] = by_path
         row["path"] += "".join(f"; {p}" for p in by_path)
+        # the sparse and data-only paths run no kernel (checked as they ran)
+        row["launches_sparse_data_only"] = {p: counts[name]
+                                            for p, counts in pr9.items()}
     rows[0]["rebucketed_max_abs_err"] = rebucket_err["fused_stats_values"]
     rows[1]["rebucketed_max_abs_err"] = rebucket_err["fused_stats_counts"]
     rows[2]["rebucketed_bit_equal"] = True
@@ -2546,7 +2971,9 @@ def main() -> int:
 if __name__ == "__main__":
     modes = {"--sequential-tests": sequential_only, "--kernels": kernels_only,
              "--p-values": p_values_only, "--gather": gather_only,
-             "--inputs": inputs_only, "--genome-scale": genome_only}
+             "--inputs": inputs_only, "--genome-scale": genome_only,
+             "--sparse": lambda: pr9_only(sparse_phase),
+             "--data-only": lambda: pr9_only(data_only_phase)}
     args = sys.argv[1:]
     if len(args) > 1 or (args and args[0] not in modes):
         sys.exit(f"usage: {sys.argv[0]} [{' | '.join(modes)}]")

@@ -19,7 +19,8 @@ equal the narrowing of the whole float64 matrix bit for bit.
 A :class:`Dataset` comes out of the checks holding float32 tensors on the
 device, the precision the engine runs in; :func:`place` then moves each
 matrix to where the call next needs it, a later pair's through pinned host
-memory.
+memory. A data-only dataset (:func:`build_data_only_datasets`) holds its
+data alone: its correlation and network derive from it on demand.
 """
 
 from __future__ import annotations
@@ -52,15 +53,17 @@ FIELDS = ("correlation", "network", "data")
 @dataclasses.dataclass
 class Dataset:
     """One dataset's aligned matrices, as float32 tensors: ``correlation``
-    and ``network`` ``(n, n)``, ``data`` ``(n_samples, n)`` or None
-    (data-less variant). :func:`build_datasets` leaves them on the run's
+    and ``network`` ``(n, n)`` (both None for a data-only dataset, whose
+    matrices derive from its data and are never materialized), ``data``
+    ``(n_samples, n)`` or None (data-less variant). :func:`build_datasets`
+    and :func:`build_data_only_datasets` leave them on the run's
     device; :func:`place` may move one to pinned host memory or let it go
     (None). ``copies`` holds, per field, the event of a copy to the host
     still in flight."""
 
     name: str
-    correlation: torch.Tensor
-    network: torch.Tensor
+    correlation: torch.Tensor | None
+    network: torch.Tensor | None
     data: torch.Tensor | None
     node_names: list[str]
     sample_names: list[str] | None = None
@@ -284,7 +287,8 @@ def input_sources(network, data=None, correlation=None
         name: {f: (None if name not in inputs[f]
                    else _as_matrix(inputs[f][name], f, name)[0])
                for f in FIELDS}
-        for name in inputs["network"]
+        # data-only inputs have no network: their datasets are the data's
+        for name in inputs["network"] or inputs["data"]
     }
 
 
@@ -366,6 +370,62 @@ def build_datasets(network, data=None, correlation=None,
             node_names=list(names),
             sample_names=samp_names,
         )
+    return out
+
+
+def _column_sd(src: torch.Tensor) -> np.ndarray:
+    """Population standard deviation of each column in float64, as the
+    JAX package's ``np.std(data, axis=0)``: by numpy on a host matrix
+    (the same arithmetic), where it lies otherwise."""
+    if src.device.type == "cpu":
+        return np.std(np.asarray(src.numpy(), dtype=np.float64), axis=0)
+    return src.to(torch.float64).std(0, correction=0).cpu().numpy()
+
+
+def build_data_only_datasets(data, device=None) -> dict[str, Dataset]:
+    """Normalize DATA-ONLY inputs: each dataset is just an ``(n_samples,
+    n)`` data matrix — its correlation and network derive on demand and
+    are never materialized, so the dense checks have no object. What can
+    be checked is, with the JAX package's texts and order: 2-D, at least
+    two samples, finite, no zero-variance (constant) column (its derived
+    correlations would be NaN; float64 ``np.std`` on the host for a host
+    matrix), no duplicate node names. The data goes to ``device`` (None
+    means ``"cuda"``; raises without a card) as float32, in tiles
+    (:func:`build_datasets`); nothing ``n × n`` is made."""
+    device = resolve_device(device)
+    datas = _normalize_collection(data)
+    if not datas:
+        raise ValueError(
+            "data_only runs need data (matrix, list, or dict): the "
+            "correlation and network are derived from it"
+        )
+    tiles = _Tiles(device, TILE)
+    out: dict[str, Dataset] = {}
+    for name, raw in datas.items():
+        src, samp_names, names = _as_matrix(raw, "data", name)
+        if src.shape[0] < 2:
+            raise ValueError(
+                f"data for dataset {name!r} needs at least 2 samples to "
+                f"correlate, got {src.shape[0]}"
+            )
+        dat = _check_data(src, name, tiles)
+        sd = _column_sd(src)
+        if (sd == 0).any():
+            bad = np.flatnonzero(sd == 0)
+            raise ValueError(
+                f"data for dataset {name!r} has {bad.size} zero-variance "
+                f"(constant) column(s), e.g. positions {bad[:3].tolist()}: "
+                "their derived correlations are NaN (np.corrcoef "
+                "semantics) — drop or jitter these nodes, exactly as the "
+                "dense surface's non-finite-correlation check would demand"
+            )
+        if names is None:
+            names = [f"node_{i}" for i in range(dat.shape[1])]
+        if len(set(names)) != len(names):
+            raise ValueError(f"duplicate node names in dataset {name!r}")
+        out[name] = Dataset(name=name, correlation=None, network=None,
+                            data=dat, node_names=list(names),
+                            sample_names=samp_names)
     return out
 
 
@@ -528,11 +588,25 @@ def resolve_pairs(datasets: dict[str, Dataset], discovery, test,
 def module_overlap(disc_ds: Dataset, test_ds: Dataset,
                    assignments: dict[str, str], modules: Sequence[str] | None,
                    background_label: str | None = "0"):
+    """:func:`module_overlap_names` of two datasets."""
+    return module_overlap_names(
+        disc_ds.node_names, test_ds.node_names, assignments, modules,
+        background_label, disc_label=repr(disc_ds.name),
+    )
+
+
+def module_overlap_names(disc_names: Sequence[str],
+                         test_names: Sequence[str],
+                         assignments: dict[str, str],
+                         modules: Sequence[str] | None,
+                         background_label: str | None = "0",
+                         disc_label: str = "discovery"):
     """Per-module aligned (discovery, test) index vectors over the nodes
-    present in both datasets, plus overlap bookkeeping. Returns
-    ``(module_labels, specs, counts)``: ``specs`` a list of ``(label,
-    disc_idx, test_idx)``, ``counts`` label → ``(n_present, total_size)``."""
-    tpos = test_ds.index_of()
+    present in both name lists, plus overlap bookkeeping — the core the
+    dense and sparse surfaces share. Returns ``(module_labels, specs,
+    counts)``: ``specs`` a list of ``(label, disc_idx, test_idx)``,
+    ``counts`` label → ``(n_present, total_size)``."""
+    tpos = {nm: i for i, nm in enumerate(test_names)}
     all_labels = sorted(
         {v for v in assignments.values() if v != str(background_label)},
         key=lambda s: (len(s), s),
@@ -543,7 +617,7 @@ def module_overlap(disc_ds: Dataset, test_ds: Dataset,
         if unknown:
             raise ValueError(
                 f"requested module(s) {unknown} do not exist in the "
-                f"module assignments for discovery dataset {disc_ds.name!r}"
+                f"module assignments for discovery dataset {disc_label}"
             )
         labels = modules
     else:
@@ -553,7 +627,7 @@ def module_overlap(disc_ds: Dataset, test_ds: Dataset,
     for lab in labels:
         disc_idx, test_idx = [], []
         total = 0
-        for i, nm in enumerate(disc_ds.node_names):
+        for i, nm in enumerate(disc_names):
             if assignments[nm] != lab:
                 continue
             total += 1

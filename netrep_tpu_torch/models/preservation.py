@@ -52,7 +52,6 @@ logger = logging.getLogger("netrep_tpu_torch")
 _LATER = {
     "telemetry": (None, "item 16 (device-touching utils and CLI)"),
     "fault_policy": (None, "item 16 (device-touching utils and CLI)"),
-    "data_only": (None, "item 12 (data-only atlas plane)"),
     "n_threads": (None, "item 16 (device-touching utils and CLI)"),
     "profile": (None, "item 16 (device-touching utils and CLI)"),
 }
@@ -260,7 +259,18 @@ def module_preservation(
       decisions only (needs ``adaptive=True``, ``store_nulls=True`` and
       one pair).
 
-    ``telemetry``, ``fault_policy``, ``data_only``, ``n_threads``,
+    - ``data_only`` — the atlas module plane: a soft-threshold power β
+      (or ``(β, kind)``) and ``network=None, correlation=None``; each
+      dataset is only its data (:func:`~netrep_tpu_torch.models.dataset.
+      build_data_only_datasets`), and every submatrix derives from
+      gathered data rows (``zᵀz/(s-1)``, then the construction), so no
+      ``n × n`` matrix exists on the device. It runs every null mode and
+      mesh above; ``vmap_tests`` pairs run one by one, with the warning.
+      The same seed gives the JAX package's permutations, counts and
+      p-values (:func:`netrep_tpu_torch.models.atlas_api.
+      module_preservation` is the same call with β 2.0 by default).
+
+    ``telemetry``, ``fault_policy``, ``n_threads``,
     ``profile`` and ``backend='native'`` belong to later slices: any value
     but the JAX package's default raises ``NotImplementedError`` naming
     the item.
@@ -269,7 +279,7 @@ def module_preservation(
     ``simplify``.
     """
     given = dict(telemetry=telemetry, fault_policy=fault_policy,
-                 data_only=data_only, n_threads=n_threads, profile=profile)
+                 n_threads=n_threads, profile=profile)
     for name, (default, item) in _LATER.items():
         if given[name] is not default:
             raise NotImplementedError(
@@ -289,12 +299,19 @@ def module_preservation(
             "alternative must be one of 'greater', 'less', 'two.sided', "
             f"got {alternative!r}"
         )
+    if data_only is not None:
+        config = _data_only_config(network, data, correlation, data_only,
+                                   config)
     dev = tmesh.resolve_device(mesh, device)
     config = config or EngineConfig()
 
     t0 = time.perf_counter()
-    datasets = ds.build_datasets(network, data=data, correlation=correlation,
-                                 device=dev)
+    datasets = (
+        ds.build_data_only_datasets(data, device=dev)
+        if data_only is not None
+        else ds.build_datasets(network, data=data, correlation=correlation,
+                               device=dev)
+    )
     _sync(dev)
     input_s = time.perf_counter() - t0
     pairs = ds.resolve_pairs(datasets, discovery, test, self_preservation)
@@ -343,6 +360,9 @@ def module_preservation(
         can_vmap = (
             vmap_tests
             and len(t_names) > 1
+            # data-only pairs run one by one: the multi-test engine stacks
+            # the cohorts' matrices, which data-only datasets do not hold
+            and data_only is None
             and all(datasets[t].node_names == datasets[t_names[0]].node_names
                     for t in t_names)
             and len({datasets[t].data is not None for t in t_names}) == 1
@@ -394,7 +414,7 @@ def module_preservation(
         t1 = time.perf_counter()
         ds.place(datasets, {t: fields for t in group}, later, dev)
         tests = [datasets[t] for t in group]
-        if config.network_from_correlation is not None:
+        if config.network_from_correlation is not None and data_only is None:
             for i, t in enumerate(tests):
                 check_derived_network(t.correlation, t.network,
                                       config.network_from_correlation,
@@ -485,6 +505,31 @@ def module_preservation(
             )
             break
     return shape_results(results, simplify)
+
+
+def _data_only_config(network, data, correlation, data_only,
+                      config: EngineConfig | None) -> EngineConfig:
+    """The JAX package's argument rules of ``data_only``, with its texts;
+    returns ``config`` with ``network_from_correlation`` set to the
+    derivation spec."""
+    if network is not None or correlation is not None:
+        raise ValueError(
+            "data_only derives the correlation and network from data "
+            "— drop the network/correlation arguments (or drop "
+            "data_only to run on materialized matrices)"
+        )
+    if data is None:
+        raise ValueError("data_only runs need data")
+    cfg0 = config or EngineConfig()
+    if (cfg0.network_from_correlation is not None
+            and cfg0.network_from_correlation != data_only):
+        raise ValueError(
+            "config.network_from_correlation "
+            f"({cfg0.network_from_correlation!r}) disagrees with "
+            f"data_only ({data_only!r}); pass the derivation spec once"
+        )
+    return dataclasses.replace(cfg0, network_from_correlation=(
+        tuple(data_only) if isinstance(data_only, list) else data_only))
 
 
 def _identity(sources, d_name, group, with_data):

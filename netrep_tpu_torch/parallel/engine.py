@@ -52,6 +52,11 @@ module) cell computed as in the fixed run. Streaming tallies stay int32 on
 the device: per chunk at most ``chunk_size`` draws, per run at most
 ``n_perm`` — far below 2**31 at any ceiling a user runs (100,000).
 
+In data-only mode (all four matrices None) the engine stores no ``n ×
+n`` matrix: every submatrix derives from gathered data rows
+(:mod:`netrep_tpu_torch.atlas.modules`) through the composed statistics,
+as the JAX engine pins it, and every loop above runs it unchanged.
+
 Fault handling, telemetry, the multi-test engine on a mesh and the
 screened null are later slices (ROADMAP.md, Queue 1 items 16, 14, 13).
 """
@@ -66,6 +71,9 @@ import numpy as np
 import torch
 
 from .. import random as trandom
+from ..atlas.modules import (
+    data_only_gather_and_stats, make_disc_props_data_only,
+)
 from ..ops import stats as tstats
 from ..ops.fused_gather import gather_submatrix_fused_many
 from ..ops.fused_stats import (
@@ -239,7 +247,10 @@ def build_buckets(disc_corr, disc_net, disc_data, modules, pool,
     derive from the gathered correlation and ``disc_net`` is not read. With
     a ``mesh`` (one perm row of a row-sharded engine's) the discovery
     matrices are split by rows over it and gathered by the sum of the row
-    blocks' shares, as the JAX package's row-sharded engine does."""
+    blocks' shares, as the JAX package's row-sharded engine does. With
+    ``disc_corr`` None (data-only) every submatrix derives from the
+    discovery data (:func:`~netrep_tpu_torch.atlas.modules.
+    make_disc_props_data_only`)."""
     modules = list(modules)
     sizes = [m.size for m in modules]
     if min(sizes, default=1) < 2:
@@ -255,7 +266,8 @@ def build_buckets(disc_corr, disc_net, disc_data, modules, pool,
             "modules"
         )
     net_beta = config.network_from_correlation
-    dc = _as_f32(disc_corr, dev)
+    data_only = disc_corr is None
+    dc = None if data_only else _as_f32(disc_corr, dev)
     dn = None if net_beta is not None else _as_f32(disc_net, dev)
     dd = None if disc_data is None else _as_f32(disc_data, dev)
     offsets = np.concatenate([[0], np.cumsum(sizes)])
@@ -266,7 +278,10 @@ def build_buckets(disc_corr, disc_net, disc_data, modules, pool,
     didxs = [torch.as_tensor(np.stack(
         [_pad_to(modules[k].disc_idx.astype(np.int64), cap)
          for k in by_cap[cap]]), device=dev) for cap in caps]
-    if mesh is not None:
+    if data_only:
+        # the submatrices derive from the transposed data's rows below
+        subs = [(None, None)] * len(caps)
+    elif mesh is not None:
         # every bucket's submatrices in one gather launch per row block
         R = mesh.shape[ROW_AXIS]
         dc = shard_rows(pad_square_to_multiple(dc, R), mesh)
@@ -287,10 +302,13 @@ def build_buckets(disc_corr, disc_net, disc_data, modules, pool,
         mask = np.zeros((len(pos), cap), np.float32)
         for r, k in enumerate(pos):
             mask[r, : modules[k].size] = 1.0
-        disc = tstats.make_disc_props(
-            sub_c, sub_n,
-            dd[:, didx].permute(1, 0, 2) if dd is not None else None,
-            torch.as_tensor(mask, device=dev),
+        mask = torch.as_tensor(mask, device=dev)
+        disc = (
+            make_disc_props_data_only(dd.T, didx, mask, net_beta)
+            if data_only else tstats.make_disc_props(
+                sub_c, sub_n,
+                dd[:, didx].permute(1, 0, 2) if dd is not None else None,
+                mask)
         )
         buckets.append(dict(
             cap=cap, module_pos=pos, disc=disc,
@@ -669,19 +687,55 @@ def _check_sharding(config: EngineConfig, mesh: Mesh | None) -> bool:
     return mesh is not None and config.matrix_sharding == "row"
 
 
+def check_data_only(config: EngineConfig, has_data: bool) -> None:
+    """The JAX engine's guards of the data-only mode (no correlation, no
+    network: every submatrix derives from data), with its texts."""
+    if config.network_from_correlation is None:
+        raise ValueError(
+            "data-only engines (correlation=None, network=None) need the "
+            "derivation spec: set EngineConfig.network_from_correlation to "
+            "the soft-threshold β (or (β, kind))"
+        )
+    if not has_data:
+        raise ValueError(
+            "data-only engines need discovery AND test data matrices — with "
+            "no matrices and no data there is nothing to test"
+        )
+    if config.matrix_sharding == "row":
+        raise ValueError(
+            "matrix_sharding='row' shards the n×n matrices the data-only "
+            "mode exists to never materialize; use 'replicated' (the data "
+            "matrix is O(n·samples))"
+        )
+    if config.gather_mode == "fused":
+        raise ValueError(
+            "gather_mode='fused' DMAs stored matrix rows; the data-only mode "
+            "derives submatrices from data columns — use gather_mode='auto'"
+        )
+    if config.stat_mode == "fused":
+        raise ValueError(
+            "stat_mode='fused' is not yet taught the data-only derivation; "
+            "use stat_mode='auto' (resolves to the XLA composition here)"
+        )
+
+
 def build_discovery(disc_corr, disc_net, disc_data, modules, pool,
                     config: EngineConfig, dev, mesh: Mesh | None = None
                     ) -> list[dict]:
     """The discovery half of an engine build: the buckets of
-    :func:`build_buckets`, after the checks that come first (the
-    ``matrix_sharding`` knob against ``mesh``; with
-    ``config.network_from_correlation`` the discovery network against the
-    construction). On a row-sharded mesh the discovery matrices are
-    gathered through perm shard 0's row blocks. Once every pair's buckets
-    exist, no discovery matrix is read again (``from_parts`` takes them)."""
+    :func:`build_buckets`, after the checks that come first (data-only,
+    :func:`check_data_only`; the ``matrix_sharding`` knob against
+    ``mesh``; with ``config.network_from_correlation`` the discovery
+    network against the construction). On a row-sharded mesh the
+    discovery matrices are gathered through perm shard 0's row blocks.
+    Once every pair's buckets exist, no discovery matrix is read again
+    (``from_parts`` takes them)."""
+    data_only = disc_corr is None and disc_net is None
+    if data_only:
+        check_data_only(config, disc_data is not None)
     row = _check_sharding(config, mesh)
     net_beta = config.network_from_correlation
-    if net_beta is not None:
+    if net_beta is not None and not data_only:
         check_derived_network(disc_corr, disc_net, net_beta, "discovery")
     return build_buckets(disc_corr, disc_net, disc_data, modules,
                          np.asarray(pool, dtype=np.int32), config, dev,
@@ -713,6 +767,14 @@ class PermutationEngine:
     ``config.network_from_correlation`` both networks are checked against
     the construction (:func:`check_derived_network`) and only the
     correlations are kept.
+
+    Data-only mode (the atlas module plane): with all four matrices None
+    the engine stores no ``n × n`` matrix at all. Every submatrix, observed
+    and null, derives from gathered data rows — correlation ``zᵀz/(s-1)``,
+    network by ``config.network_from_correlation``
+    (:mod:`netrep_tpu_torch.atlas.modules`) — through the composed
+    statistics; the device holds ``O(n·s)``. Every null loop runs it
+    unchanged. Its guards are the JAX engine's (:func:`check_data_only`).
     """
 
     def __init__(self, disc_corr, disc_net, disc_data, test_corr, test_net,
@@ -723,16 +785,18 @@ class PermutationEngine:
         modules = list(modules)
         has_data = disc_data is not None and test_data is not None
         net_beta = config.network_from_correlation
+        data_only = all(m is None for m in (disc_corr, disc_net, test_corr,
+                                            test_net))
         pool = np.asarray(pool, dtype=np.int32)
         buckets = build_discovery(disc_corr, disc_net,
                                   disc_data if has_data else None, modules,
                                   pool, config, dev, mesh)
-        if net_beta is not None:
+        if net_beta is not None and not data_only:
             check_derived_network(test_corr, test_net, net_beta, "test")
         # the test data is kept TRANSPOSED, (n, n_samples): a module's data
         # slice is then a gather of contiguous rows
         self._setup(
-            _as_f32(test_corr, dev),
+            None if data_only else _as_f32(test_corr, dev),
             None if net_beta is not None else _as_f32(test_net, dev),
             _as_f32(test_data, dev).T if has_data else None,
             pool, buckets, len(modules), config, dev, mesh,
@@ -753,7 +817,8 @@ class PermutationEngine:
         :mod:`netrep_tpu_torch.state`): ``buckets`` is a list of dicts with
         ``cap``, ``module_pos``, ``disc`` (:class:`DiscProps`), ``obs_idx``
         ``(K, cap)`` and ``slices``. ``test_net`` is not read when
-        ``config.network_from_correlation`` is set. ``modules`` and
+        ``config.network_from_correlation`` is set; ``test_corr`` None
+        (with ``test_net`` None) builds the data-only mode. ``modules`` and
         ``digest`` (:func:`~netrep_tpu_torch.utils.checkpoint.content_digest`
         of the six original inputs) make the problem's checkpoint
         identity; without them the engine takes no checkpoint."""
@@ -765,8 +830,8 @@ class PermutationEngine:
 
         derived = config.network_from_correlation is not None
         self._setup(
-            f32(test_corr), None if derived or test_net is None
-            else f32(test_net),
+            None if test_corr is None else f32(test_corr),
+            None if derived or test_net is None else f32(test_net),
             None if test_dataT is None else f32(test_dataT),
             np.asarray(pool, dtype=np.int32),
             [dict(b, disc=tstats.DiscProps(*(f32(a) for a in b["disc"])))
@@ -786,7 +851,12 @@ class PermutationEngine:
             raise ValueError(
                 "test_net is None but network_from_correlation is not set"
             )
-        self.stat_mode = config.resolved_stat_mode()
+        #: no stored test matrix: every submatrix derives from the data
+        self.data_only = tc is None
+        if self.data_only:
+            check_data_only(config, tdT is not None)
+        self.stat_mode = ("xla" if self.data_only
+                          else config.resolved_stat_mode())
         self.n_modules = int(n_modules)
         self.mesh = mesh
         self.row_sharded = _check_sharding(config, mesh)
@@ -949,7 +1019,11 @@ class PermutationEngine:
         subs = (zip(*self._gather([b.obs_idx for b in self.buckets]))
                 if self.row_sharded else None)
         for b in self.buckets:
-            if self.row_sharded:
+            if self.data_only:
+                res = data_only_gather_and_stats(
+                    b.disc, b.obs_idx, self._test_dataT, self.net_beta,
+                    n_iter=self.config.power_iters, summary_method="eigh")
+            elif self.row_sharded:
                 res = self._stats(b, b.obs_idx, *next(subs),
                                   summary_method="eigh")
             else:
@@ -1007,8 +1081,16 @@ class PermutationEngine:
         permutations ``perm`` ``(C, P)``: one fused-statistics launch per
         bucket, or the composed statistics — every bucket's submatrices
         gathered at once (one launch per matrix), then :meth:`_stats`
-        bucket by bucket, each bucket's submatrices freed once used."""
+        bucket by bucket, each bucket's submatrices freed once used. In
+        data-only mode each bucket's submatrices derive from its gathered
+        data rows instead, and no kernel runs."""
         idxs = [self._bucket_idx(perm, b) for b in self.buckets]
+        if self.data_only:
+            return [data_only_gather_and_stats(
+                b.disc, idx, self._test_dataT, self.net_beta,
+                n_iter=self.config.power_iters,
+                summary_method=self.config.summary_method,
+            ) for b, idx in zip(self.buckets, idxs)]
         if self.stat_mode == "fused":
             return [fused_stats_values(
                 self._test_corr, self._test_net, self._test_dataT, b.disc,

@@ -20,9 +20,9 @@ are gathered there and the degrees, summary profiles and contributions
 computed there in float64, as ``network_properties`` does. Only the
 plotted submatrices come to the host. The drawing code is the JAX
 package's. matplotlib is optional: it is imported when a panel is drawn,
-and its absence raises ``ImportError`` naming the ``plot`` extra. The
-sparse composite (``plot_module_sparse``) comes with the sparse path
-(ROADMAP.md Queue 1 item 11).
+and its absence raises ``ImportError`` naming the ``plot`` extra.
+``plot_module_sparse`` draws the composite of a sparse network's modules,
+densifying only their subgraph.
 """
 
 from __future__ import annotations
@@ -43,6 +43,7 @@ from .utils.config import resolve_device
 
 __all__ = [
     "plot_module",
+    "plot_module_sparse",
     "plot_data",
     "plot_correlation",
     "plot_network",
@@ -672,3 +673,102 @@ def plot_module(
         fontsize=11, y=0.995,
     )
     return fig, axes
+
+
+def plot_module_sparse(
+    network,
+    data=None,
+    correlation=None,
+    module_assignments=None,
+    names=None,
+    modules=None,
+    background_label: str = "0",
+    max_nodes: int = 4000,
+    device=None,
+    **kw,
+):
+    """Composite module plot of a SPARSE network (Config E): only the
+    requested modules' subgraph is densified — m ≪ n nodes, so the m×m
+    panels are cheap where the n×n matrix could never exist — and drawn
+    by :func:`plot_module`'s panel stack.
+
+    ``network`` is a :class:`~netrep_tpu_torch.ops.sparse.SparseAdjacency`;
+    ``correlation`` an optional sparse correlation in the same format (the
+    correlation panel's values when given, else they come from ``data``;
+    one of the two is required). ``max_nodes`` guards against densifying a
+    huge node set. ``device`` and the remaining keyword arguments go to
+    :func:`plot_module`.
+    """
+    import pandas as pd
+
+    from .models.sparse_api import _normalize_assignments, _normalize_names
+    from .ops.sparse import SparseAdjacency
+
+    if not isinstance(network, SparseAdjacency):
+        raise TypeError("network must be a SparseAdjacency")
+    if data is None and correlation is None:
+        raise ValueError(
+            "provide data= and/or correlation= (sparse): the correlation "
+            "heatmap panel needs one of them"
+        )
+    if data is not None:
+        data = np.asarray(data)
+        if data.ndim != 2 or data.shape[1] != network.n:
+            raise ValueError(
+                f"data must be (n_samples, {network.n}), got "
+                f"{getattr(data, 'shape', None)}"
+            )
+    if correlation is not None and (
+            not isinstance(correlation, SparseAdjacency)
+            or correlation.n != network.n):
+        raise ValueError(
+            "correlation must be a SparseAdjacency over the same "
+            f"{network.n} nodes"
+        )
+    names = _normalize_names(names, network.n)
+    assignments = _normalize_assignments(module_assignments, names)
+    wanted = (
+        [str(m) for m in modules] if modules is not None
+        else sorted({lab for lab in assignments.values()
+                     if lab != str(background_label)})
+    )
+    keep = [i for i, nm in enumerate(names) if assignments[nm] in wanted]
+    if not keep:
+        raise ValueError(f"no nodes carry module label(s) {wanted}")
+    if len(keep) > max_nodes:
+        raise ValueError(
+            f"selected modules cover {len(keep)} nodes (> max_nodes="
+            f"{max_nodes}); pass a smaller modules= selection"
+        )
+    idx = np.asarray(keep, dtype=np.int64)
+    sub_names = [names[i] for i in idx]
+    # global id → local position, -1 elsewhere; width n + 1 so the padded
+    # slots' sentinel id n lands on -1
+    local_of = np.full(network.n + 1, -1, dtype=np.int64)
+    local_of[idx] = np.arange(idx.size)
+
+    def densify(adj, diag):
+        nbr = adj.nbr[idx]
+        wgt = adj.wgt[idx].astype(np.float64)
+        cols = local_of[nbr]
+        rows = np.broadcast_to(np.arange(idx.size)[:, None], nbr.shape)
+        hit = cols >= 0
+        out = np.zeros((idx.size, idx.size))
+        out[rows[hit], cols[hit]] = wgt[hit]
+        np.fill_diagonal(out, diag)
+        return pd.DataFrame(out, index=sub_names, columns=sub_names)
+
+    net_df = densify(network, 1.0)
+    if correlation is not None:
+        corr_df = densify(correlation, 1.0)
+    else:
+        corr_df = pd.DataFrame(np.corrcoef(data[:, idx], rowvar=False),
+                               index=sub_names, columns=sub_names)
+    data_df = (pd.DataFrame(data[:, idx], columns=sub_names)
+               if data is not None else None)
+    return plot_module(
+        network=net_df, data=data_df, correlation=corr_df,
+        module_assignments={nm: assignments[nm] for nm in sub_names},
+        modules=wanted, background_label=background_label, device=device,
+        **kw,
+    )

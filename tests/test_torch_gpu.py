@@ -10,7 +10,10 @@ matrix, the sample-space one, or streams the data rows each step; the
 plain version forms the node-space Gram matrix, ``csrc/fused_stats.cu``
 notes) — also on test matrices asymmetric up to the datasets' tolerance,
 which the kernel's cached tier reads from one triangle; the gather and the
-ring shift none — both are copies, so they are bit-equal.
+ring shift none — both are copies, so they are bit-equal. The sparse path
+and the data-only plane launch none of the kernels; their card runs are
+held to the CPU run of the same call at the same 1e-4, with counts,
+p-values and retirements equal.
 """
 
 import numpy as np
@@ -685,3 +688,104 @@ def test_kernels_on_rebucketed_buckets_match_plain(cuda, mode):
             got, want = got[0], want[0]
         np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                    rtol=0, atol=TOL)
+
+
+def _sparse_problem(n=2000, k=12, s=32, sizes=(60, 25, 140, 33), seed=0):
+    """A kNN-style graph over more than 1,625 nodes (two sort rounds per
+    permutation) with planted module data and a precomputed sparse
+    correlation on its edge pattern."""
+    from netrep_tpu_torch.ops.sparse import SparseAdjacency
+
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(n), k)
+    adj = SparseAdjacency.from_coo(rows, rng.integers(0, n, n * k),
+                                   rng.uniform(0.05, 1.0, n * k), n)
+    x = rng.standard_normal((s, n))
+    labels = np.full(n, "0", dtype=object)
+    pos = 0
+    for i, sz in enumerate(sizes):
+        x[:, pos:pos + sz] += rng.standard_normal(s)[:, None]
+        labels[pos:pos + sz] = str(i + 1)
+        pos += sz
+    z = (x - x.mean(0)) / x.std(0, ddof=1)
+    r, c = np.nonzero(adj.nbr < n)
+    cols = adj.nbr[r, c]
+    corr = SparseAdjacency.from_coo(r, cols, (z[:, r] * z[:, cols]).sum(0)
+                                    / (s - 1), n, symmetrize=False)
+    return adj, x, corr, labels
+
+
+@pytest.mark.parametrize("mode", ("data", "corr", "neither"))
+def test_sparse_cuda_matches_cpu(cuda, mode):
+    """The sparse path on the card gives the CPU's counts and p-values,
+    values within the tolerance, and launches no kernel of the port (no
+    Pallas kernel runs on the JAX package's sparse path)."""
+    from netrep_tpu_torch.ops import pvalues as tpv
+    from netrep_tpu_torch.models.sparse_api import sparse_module_preservation
+
+    adj, x, corr, labels = _sparse_problem()
+    kw = dict(discovery_network=adj, test_network=adj,
+              module_assignments=labels, n_perm=300, seed=2)
+    if mode == "data":
+        kw.update(discovery_data=x, test_data=x)
+    elif mode == "corr":
+        kw.update(discovery_correlation=corr, test_correlation=corr)
+    tops.reset_launches()
+    gpu = sparse_module_preservation(**kw)
+    assert all(fn.launches == 0 for fn in tops.kernels())
+    cpu = sparse_module_preservation(**kw, device="cpu")
+    assert np.array_equal(np.isnan(gpu.nulls), np.isnan(cpu.nulls))
+    np.testing.assert_allclose(gpu.observed, cpu.observed, rtol=0, atol=TOL)
+    np.testing.assert_allclose(gpu.nulls, cpu.nulls, rtol=0, atol=TOL)
+    for a, b in zip(tpv.tail_counts(gpu.observed, gpu.nulls),
+                    tpv.tail_counts(cpu.observed, cpu.nulls)):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(gpu.p_values, cpu.p_values)
+
+
+@pytest.mark.parametrize("n", (2000, 50_000))
+def test_permutation_draw_on_card_equals_cpu(cuda, n):
+    """Above 1,625 elements the shuffle takes two stable int64 sorts; the
+    card draws the CPU's index sets."""
+    from netrep_tpu_torch import random as trandom
+
+    pool = np.arange(n, dtype=np.int32)
+    got = trandom.permutation(trandom.perm_keys(trandom.key(3, cuda), 0, 64),
+                              torch.as_tensor(pool, device=cuda))
+    want = trandom.permutation(
+        trandom.perm_keys(trandom.key(3, "cpu"), 0, 64),
+        torch.as_tensor(pool))
+    assert trandom.shuffle_rounds(n) == 2
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("run", ("materialized", "streaming", "adaptive"))
+def test_data_only_cuda_matches_cpu(cuda, run):
+    """The data-only plane on the card gives the CPU's counts, p-values
+    and retirements, values within the tolerance, no kernel launched."""
+    from netrep_tpu_torch.data import make_mixed_pair
+    from netrep_tpu_torch.models.atlas_api import atlas_module_preservation
+
+    mixed = make_mixed_pair(600, 6, n_samples=40, seed=7)
+    dd, td = mixed["discovery"][0], mixed["test"][0]
+    assign = {f"node_{i}": "0" for i in range(dd.shape[1])}
+    for lab, idx in mixed["specs"]:
+        for i in idx:
+            assign[f"node_{i}"] = str(lab)
+    kw = dict(module_assignments={"d": assign}, discovery="d", test="t",
+              n_perm=1000, seed=1, store_nulls=run != "streaming",
+              adaptive=run == "adaptive")
+    data = {"d": dd, "t": td}
+    tops.reset_launches()
+    gpu = atlas_module_preservation(data, **kw)
+    assert all(fn.launches == 0 for fn in tops.kernels())
+    cpu = atlas_module_preservation(data, **kw, device="cpu")
+    np.testing.assert_allclose(gpu.observed, cpu.observed, rtol=0, atol=TOL)
+    np.testing.assert_array_equal(gpu.p_values, cpu.p_values)
+    if run == "adaptive":
+        np.testing.assert_array_equal(gpu.n_perm_used, cpu.n_perm_used)
+    if gpu.nulls is not None:
+        np.testing.assert_allclose(gpu.nulls, cpu.nulls, rtol=0, atol=TOL)
+    else:
+        for f in ("counts_hi", "counts_lo", "counts_eff"):
+            np.testing.assert_array_equal(getattr(gpu, f), getattr(cpu, f))

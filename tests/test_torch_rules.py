@@ -59,6 +59,8 @@ import netrep_tpu_torch.ops.fused_gather, netrep_tpu_torch.parallel.multitest
 import netrep_tpu_torch.parallel.mesh, netrep_tpu_torch.parallel.sharded
 import netrep_tpu_torch.models.properties, netrep_tpu_torch.plot
 import netrep_tpu_torch.ops.sequential, netrep_tpu_torch.utils.checkpoint
+import netrep_tpu_torch.models.sparse_api, netrep_tpu_torch.models.atlas_api
+import netrep_tpu_torch.parallel.sparse, netrep_tpu_torch.atlas
 bad = [m for m in set(sys.modules) - before
        if m in ("jax", "jaxlib", "netrep_tpu") or m.startswith(("jax.", "jaxlib.", "netrep_tpu."))]
 print(",".join(sorted(bad)))
@@ -84,20 +86,32 @@ def test_no_card_means_no_run(monkeypatch):
 
 
 @pytest.mark.parametrize("entry", ["build_datasets", "key", "key_from_data",
-                                   "multitest", "vmap_tests"])
+                                   "multitest", "vmap_tests", "sparse",
+                                   "sparse_properties", "sparse_engine",
+                                   "data_only", "data_only_datasets"])
 def test_device_defaults_to_the_card(monkeypatch, entry):
     # every function that places tensors takes device=None as "cuda", so a
     # caller that names no device never lands on the CPU unawares
     import numpy as np
 
     from netrep_tpu_torch import random as trandom
-    from netrep_tpu_torch.models.dataset import build_datasets
+    from netrep_tpu_torch.models.atlas_api import atlas_module_preservation
+    from netrep_tpu_torch.models.dataset import (
+        build_data_only_datasets, build_datasets,
+    )
     from netrep_tpu_torch.models.preservation import module_preservation
+    from netrep_tpu_torch.models.sparse_api import (
+        sparse_module_preservation, sparse_network_properties,
+    )
+    from netrep_tpu_torch.ops.sparse import SparseAdjacency
     from netrep_tpu_torch.parallel.engine import ModuleSpec
     from netrep_tpu_torch.parallel.multitest import MultiTestEngine
+    from netrep_tpu_torch.parallel.sparse import SparsePermutationEngine
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     eye, spec = np.eye(4), [ModuleSpec("1", np.arange(2), np.arange(2))]
+    adj = SparseAdjacency.from_dense(np.ones((4, 4)) - eye)
+    data = np.random.default_rng(0).standard_normal((5, 4))
     call = {
         "build_datasets": lambda: build_datasets(np.eye(3),
                                                  correlation=np.eye(3)),
@@ -110,6 +124,15 @@ def test_device_defaults_to_the_card(monkeypatch, entry):
             {"a": eye, "b": eye, "c": eye}, correlation={"a": eye, "b": eye,
                                                          "c": eye},
             discovery="a", test=["b", "c"], vmap_tests=True),
+        "sparse": lambda: sparse_module_preservation(adj, adj, ["1"] * 4,
+                                                     n_perm=8),
+        "sparse_properties": lambda: sparse_network_properties(
+            adj, module_assignments=["1"] * 4),
+        "sparse_engine": lambda: SparsePermutationEngine(
+            adj, None, adj, None, spec, np.arange(4)),
+        "data_only": lambda: atlas_module_preservation(
+            {"a": data, "b": data}, module_assignments=["1"] * 4, n_perm=8),
+        "data_only_datasets": lambda: build_data_only_datasets(data),
     }[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()
