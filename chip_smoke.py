@@ -1486,8 +1486,322 @@ def data_only_phase(torch, np, card) -> dict:
     return launches
 
 
+#: the atlas_build phase (the tile network builder). The screening pair is
+#: ``bench.py``'s ``bench_atlas_screen`` shape: genes, samples, sample
+#: groups (= screen segments), tile edge, top-k; then the headline row's
+#: genes, τ, the grouped τ pair's genes (one tile per sample group) and the
+#: dense check's genes
+BUILD_GENES, BUILD_SAMPLES, BUILD_GROUPS, BUILD_EDGE, BUILD_K = (
+    100_000, 64, 16, 1024, 16)
+BUILD_HEADLINE, BUILD_TAU, BUILD_TAU_GENES, BUILD_DENSE = (
+    1_000_000, 0.3, 16_384, 4096)
+#: a selected r against the host float64 correlation, and the card's
+#: against the CPU's: float32 dot products of 64–128 terms err by ~1e-7
+BUILD_TOL = 1e-6
+
+
+def grouped_support(np, genes, samples, groups, seed=0):
+    """``bench.py``'s ``_grouped_support_data``: each gene expressed
+    (zero-mean within its block) in one sample block, genes sorted by
+    block, over a small everywhere-noise floor; float32."""
+    rng = np.random.default_rng(seed)
+    x = 0.01 * rng.standard_normal((samples, genes)).astype(np.float32)
+    gsz, ssz = genes // groups, samples // groups
+    for g in range(groups):
+        c0, c1 = g * gsz, (g + 1) * gsz if g < groups - 1 else genes
+        r0, r1 = g * ssz, (g + 1) * ssz if g < groups - 1 else samples
+        blk = rng.standard_normal((r1 - r0, c1 - c0))
+        fac = rng.standard_normal(r1 - r0)
+        blk += 1.5 * fac[:, None] * (rng.random(c1 - c0) < 0.5)
+        x[r0:r1, c0:c1] += (blk - blk.mean(axis=0)).astype(np.float32)
+    return x
+
+
+def same_build(np, a, b) -> bool:
+    """Two builds' outputs equal bit for bit."""
+    return a.selected_edges == b.selected_edges and all(
+        np.array_equal(getattr(getattr(a, g), f), getattr(getattr(b, g), f))
+        for g in ("adjacency", "correlation") for f in ("nbr", "wgt"))
+
+
+def emitted(np, path):
+    """``(rows, cols, r)`` in the order a pass emitted them: its final
+    checkpoint's COO extras."""
+    with np.load(path) as z:
+        return z["x_atlas_rows"], z["x_atlas_cols"], z["x_atlas_corr"]
+
+
+def compare_edges(np, got, want, ref, what, tau=None):
+    """Two emitted edge lists held to each other and to the float64
+    correlation ``ref``: each r of ``got`` within BUILD_TOL of ``ref``, and
+    the lists equal, or different only where values tie to rounding:
+    top-k, the emitted sequences of reference |r| equal within BUILD_TOL
+    (so only near-equal entries swapped); τ, each edge in one list only
+    with a reference |r| within BUILD_TOL of τ. Returns the counts."""
+    (gr, gc, gv), (wr, wc, _wv) = got, want
+    err = float(np.abs(gv - ref[gr, gc]).max()) if gr.size else 0.0
+    if err > BUILD_TOL:
+        raise RuntimeError(f"{what}: r off the float64 correlation by {err}")
+    swapped = 0
+    if not (np.array_equal(gr, wr) and np.array_equal(gc, wc)):
+        if tau is None:
+            if not np.array_equal(gr, wr):
+                raise RuntimeError(f"{what}: rows hold other edge counts")
+            gap = float(np.abs(np.abs(ref[gr, gc])
+                               - np.abs(ref[wr, wc])).max())
+            swapped = int((gc != wc).sum())
+        else:
+            n = ref.shape[0]
+            diff = np.setxor1d(gr * n + gc, wr * n + wc)
+            gap = float(np.abs(np.abs(ref.reshape(-1)[diff]) - tau).max())
+            swapped = int(diff.size)
+        if not gap <= BUILD_TOL:
+            raise RuntimeError(f"{what}: the edges differ beyond near-ties "
+                               f"({gap})")
+    return {"max_abs_r_vs_float64": err, "edges_equal": swapped == 0,
+            "near_tie_differences": swapped}
+
+
+class BuildClock:
+    """Splits a build's seconds, while a ``with`` block runs, into the
+    builder's dispatches (each tile strip's products, masks and selection
+    with the copies to the host, synchronised: device-bound time), the
+    final assembly (``SparseAdjacency.from_coo``, host) and the rest (host:
+    moments, screening bounds, merges, decoding), by wrapping those
+    functions."""
+
+    def __init__(self, torch, tbuilder):
+        self.torch, self.tb = torch, tbuilder
+        self.s = {"dispatch": 0.0, "assembly": 0.0}
+
+    def _wrap(self, fn, part):
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            self.torch.cuda.synchronize()
+            self.s[part] += time.perf_counter() - t0
+            return out
+        return timed
+
+    def __enter__(self):
+        tb, adj = self.tb, self.tb.SparseAdjacency
+        self.saved = (tb._Tiles.strip, tb._Tiles.degree_parts, tb._topk,
+                      tb._tau_select, adj.__dict__["from_coo"])
+        tb._Tiles.strip = self._wrap(tb._Tiles.strip, "dispatch")
+        tb._Tiles.degree_parts = self._wrap(tb._Tiles.degree_parts,
+                                            "dispatch")
+        tb._topk = self._wrap(tb._topk, "dispatch")
+        tb._tau_select = self._wrap(tb._tau_select, "dispatch")
+        adj.from_coo = classmethod(self._wrap(
+            adj.__dict__["from_coo"].__func__, "assembly"))
+        return self
+
+    def __exit__(self, *exc):
+        tb = self.tb
+        (tb._Tiles.strip, tb._Tiles.degree_parts, tb._topk, tb._tau_select,
+         tb.SparseAdjacency.from_coo) = self.saved
+
+
+def atlas_build_phase(torch, np, card, headline=False) -> dict:
+    """The tile network builder on the card
+    (``netrep_tpu_torch.atlas.build_sparse_network``), every build after a
+    reset of the launch counts and of the peak memory:
+
+    1. dense check at BUILD_DENSE genes (grouped-support data): top-k and
+       τ builds against the host float64 ``corr_tile`` reference and
+       against the port's ``device="cpu"`` build — edges and emit order
+       equal up to near-ties, r within BUILD_TOL; also the warm-up;
+    2. the screening pair (``bench_atlas_screen``): BUILD_GENES genes,
+       top-k BUILD_K, ``degree=False``, unscreened then screened, equal bit
+       for bit; the unscreened pass's bound (2·n_pad²·s FLOP at
+       F32_FLOPS, its strips written and read at HBM_BPS) and its share;
+    3. τ pairs, equal bit for bit: BUILD_TAU_GENES grouped genes (one
+       tile per sample group, so screening skips), and ATLAS_GENES of the
+       atlas shape's planted data (128 samples: the grouped data would keep
+       ~4.7e8 edges at τ = 0.3, 4 samples per group);
+    4. with ``headline`` (``--atlas-build`` only: ~140 s), the headline
+       row: BUILD_HEADLINE grouped genes, screened top-k;
+    5. the bridge (``bench_atlas``): ATLAS_GENES genes, ATLAS_MODULES
+       planted modules, top-k BUILD_K with degrees, then
+       ``sparse_module_preservation`` on the graph with N_PERM
+       permutations — finite (ATLAS_MODULES, 7) observed statistics.
+
+    Each build reports seconds, genes/s, peak GiB, its tile tallies and
+    its seconds split (:class:`BuildClock`). No kernel of the port
+    launches (``no_kernel``); returns the launch counts."""
+    import os
+
+    from netrep_tpu_torch import ops as tops
+    from netrep_tpu_torch.atlas import TiledNetwork, build_sparse_network
+    from netrep_tpu_torch.atlas import builder as tbuilder
+    from netrep_tpu_torch.models.sparse_api import sparse_module_preservation
+    from netrep_tpu_torch.utils.config import EngineConfig
+
+    ckdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                         "atlas_build")
+    os.makedirs(ckdir, exist_ok=True)
+    launches, runs = {}, {}
+
+    def run(label, tn, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tops.reset_launches()
+        with BuildClock(torch, tbuilder) as clock:
+            t0 = time.perf_counter()
+            b = build_sparse_network(tn, **kw)
+            torch.cuda.synchronize()
+            s = time.perf_counter() - t0
+        parts = clock.s
+        launches[label] = no_kernel(tops, f"atlas_build {label}")
+        runs[label] = {
+            "genes": tn.n, "samples": tn.n_samples, "seconds": s,
+            "genes_per_s": tn.n / s,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "dispatch_s": parts["dispatch"],
+            "assembly_s": parts["assembly"],
+            "host_loop_s": s - parts["dispatch"] - parts["assembly"],
+            "tile_edge": b.tile_edge, "supertile": b.supertile,
+            "tiles_total": b.tiles_total,
+            "tiles_dispatched": b.tiles_dispatched,
+            "tiles_skipped": b.tiles_skipped,
+            "skipped_share": b.tiles_skipped / b.tiles_total,
+            "strip_bytes_moved": b.strip_bytes_moved,
+            "strip_bytes_full": b.strip_bytes_full,
+            "selected_edges": b.selected_edges,
+            "launches": launches[label]}
+        return b
+
+    # 1. dense check, card and CPU against host float64
+    x = grouped_support(np, BUILD_DENSE, BUILD_SAMPLES, BUILD_GROUPS, seed=1)
+    tn = TiledNetwork.from_data(x, BETA)
+    ref = tn.corr_tile(slice(None), slice(None))
+    np.fill_diagonal(ref, 0.0)
+    a = np.abs(ref)
+    np.fill_diagonal(a, -1.0)
+    top = np.argsort(-a, axis=1, kind="stable")[:, :BUILD_K]
+    want_topk = (np.repeat(np.arange(BUILD_DENSE), BUILD_K), top.reshape(-1),
+                 ref[np.arange(BUILD_DENSE)[:, None], top].reshape(-1))
+    sel = a >= BUILD_TAU
+    want_tau = (*np.nonzero(sel), ref[sel])
+    dense = {}
+    for rule, kw, want in (("topk", dict(top_k=BUILD_K), want_topk),
+                           ("tau", dict(tau=BUILD_TAU), want_tau)):
+        got = {}
+        for dev in ("cuda", "cpu"):
+            path = os.path.join(ckdir, f"dense_{rule}_{dev}.npz")
+            if os.path.exists(path):
+                os.remove(path)
+            kwd = dict(kw, checkpoint_path=path, checkpoint_every=1,
+                       device=dev)
+            if dev == "cuda":
+                run(f"dense {rule}", tn, **kwd)
+            else:
+                build_sparse_network(tn, **kwd)
+            got[dev] = emitted(np, path)
+        tau = BUILD_TAU if rule == "tau" else None
+        dense[rule] = {
+            "vs_float64": compare_edges(np, got["cuda"], want, ref,
+                                        f"dense {rule} card", tau),
+            "cpu_vs_float64": compare_edges(np, got["cpu"], want, ref,
+                                            f"dense {rule} cpu", tau),
+            "card_vs_cpu": compare_edges(np, got["cuda"], got["cpu"], ref,
+                                         f"dense {rule} card vs cpu", tau),
+            "card_vs_cpu_max_abs_r": float(np.abs(
+                got["cuda"][2] - got["cpu"][2]).max())
+            if np.array_equal(got["cuda"][1], got["cpu"][1]) else None}
+    del x, tn, ref, a, sel, want_topk, want_tau
+
+    # 2. the screening pair at BUILD_GENES
+    pair = dict(top_k=BUILD_K, tile_edge=BUILD_EDGE, degree=False,
+                screen_segments=BUILD_GROUPS)
+    t0 = time.perf_counter()
+    x = grouped_support(np, BUILD_GENES, BUILD_SAMPLES, BUILD_GROUPS)
+    tn = TiledNetwork.from_data(x, BETA)
+    made_s = time.perf_counter() - t0
+    un = run("topk unscreened", tn, **pair)
+    sc = run("topk screened", tn, screen=True, **pair)
+    if not same_build(np, un, sc):
+        raise RuntimeError("atlas_build: the screened top-k pass differs "
+                           "from the unscreened one")
+    n_pad = -(-BUILD_GENES // un.tile_edge) * un.tile_edge
+    flop_ms = 2 * n_pad ** 2 * BUILD_SAMPLES / F32_FLOPS * 1e3
+    byte_ms = 2 * 4 * n_pad * n_pad / HBM_BPS * 1e3
+    bound = {"n_pad": n_pad, "flop_ms": flop_ms, "strip_bytes_ms": byte_ms,
+             "bound_ms": max(flop_ms, byte_ms),
+             "bound_by": "operations" if flop_ms > byte_ms else "bytes",
+             "share_of_bound": max(flop_ms, byte_ms) / (
+                 runs["topk unscreened"]["seconds"] * 1e3)}
+    del x, tn, un, sc
+
+    # 3. τ pairs: grouped (screening skips) and the planted atlas data
+    xd, xt, labels, msz = atlas_inputs(np, ATLAS_GENES, ATLAS_MODULES,
+                                       ATLAS_SIZES)
+    planted = TiledNetwork.from_data(xd, BETA)
+    for label, tn in (
+            ("grouped", TiledNetwork.from_data(grouped_support(
+                np, BUILD_TAU_GENES, BUILD_SAMPLES, BUILD_GROUPS), BETA)),
+            ("planted", planted)):
+        kw = dict(tau=BUILD_TAU, tile_edge=BUILD_EDGE, degree=False,
+                  screen_segments=BUILD_GROUPS)
+        un = run(f"tau {label} unscreened", tn, **kw)
+        sc = run(f"tau {label} screened", tn, screen=True, **kw)
+        if not same_build(np, un, sc):
+            raise RuntimeError(f"atlas_build: the screened τ pass ({label}) "
+                               "differs from the unscreened one")
+        del un, sc
+
+    # 4. the headline row
+    headline_made_s = None
+    if headline:
+        t0 = time.perf_counter()
+        tn = TiledNetwork.from_data(grouped_support(
+            np, BUILD_HEADLINE, BUILD_SAMPLES, BUILD_GROUPS), BETA)
+        headline_made_s = time.perf_counter() - t0
+        run("headline topk screened", tn, screen=True, **pair)
+        del tn
+
+    # 5. the bridge to the sparse engine
+    build = run("bridge topk degree", planted, top_k=BUILD_K)
+    if not (build.degree is not None and np.isfinite(build.degree).all()):
+        raise RuntimeError("atlas_build: the bridge's degrees")
+    cfg = EngineConfig(chunk_size=128, power_iters=SPARSE_ITERS)
+    kw = dict(discovery_data=xd, test_data=xt, seed=SEED, config=cfg)
+    sparse_module_preservation(build.adjacency, build.adjacency, labels,
+                               n_perm=128, **kw)      # warm-up
+    tops.reset_launches()
+    t0 = time.perf_counter()
+    res = sparse_module_preservation(build.adjacency, build.adjacency,
+                                     labels, n_perm=N_PERM, **kw)
+    wall = time.perf_counter() - t0
+    launches["bridge sparse_module_preservation"] = no_kernel(
+        tops, "atlas_build bridge sparse_module_preservation")
+    if res.observed.shape != (ATLAS_MODULES, 7) or not np.isfinite(
+            res.observed).all() or res.completed != N_PERM:
+        raise RuntimeError("atlas_build bridge: observed statistics are not "
+                           f"finite ({ATLAS_MODULES}, 7)")
+    emit({"phase": "atlas_build", "beta": BETA, "top_k": BUILD_K,
+          "tau": BUILD_TAU, "screen_segments": BUILD_GROUPS,
+          "tolerance": BUILD_TOL, "make_inputs_s": made_s,
+          "headline_make_inputs_s": headline_made_s,
+          "dense_check": {"genes": BUILD_DENSE, **dense},
+          "screened_equals_unscreened": True,
+          "unscreened_topk_bound": bound, "runs": runs,
+          "bridge": {"genes": ATLAS_GENES, "modules": ATLAS_MODULES,
+                     "module_sizes": [int(v) for v in msz],
+                     "nnz": build.adjacency.nnz, "k_padded": build.adjacency.k,
+                     "n_perm": N_PERM, "wall_s": wall, **res.profile,
+                     "observed_finite": True,
+                     "launches": launches[
+                         "bridge sparse_module_preservation"]},
+          "card": card})
+    torch.cuda.empty_cache()
+    return launches
+
+
 def pr9_only(phase) -> int:
-    """``--sparse`` / ``--data-only``: that phase alone."""
+    """``--sparse`` / ``--data-only`` / ``--atlas-build``: that phase
+    alone."""
     import torch
 
     if not torch.cuda.is_available():
@@ -3505,6 +3819,9 @@ def main() -> int:
     pr9 = {f"sparse {k}": v for k, v in sparse_phase(torch, np, card).items()}
     pr9.update({f"data_only {k}": v
                 for k, v in data_only_phase(torch, np, card).items()})
+    # ---- the atlas tile network builder, into the sparse engine ----------
+    pr9.update({f"atlas_build {k}": v
+                for k, v in atlas_build_phase(torch, np, card).items()})
 
     # ---- a small reference: the same call on the card and on the CPU -----
     from netrep_tpu_torch.data import make_example_pair, pair_frames
@@ -3643,6 +3960,8 @@ if __name__ == "__main__":
              "--inputs": inputs_only, "--genome-scale": genome_only,
              "--sparse": lambda: pr9_only(sparse_phase),
              "--data-only": lambda: pr9_only(data_only_phase),
+             "--atlas-build": lambda: pr9_only(
+                 lambda *a: atlas_build_phase(*a, headline=True)),
              "--bf16": bf16_only, "--screened": screened_only}
     args = sys.argv[1:]
     if len(args) > 1 or (args and args[0] not in modes):

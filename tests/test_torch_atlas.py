@@ -386,8 +386,12 @@ def test_argument_and_input_errors_equal_jax(pair, case):
 
 def test_atlas_exports_only_what_is_ported():
     assert set(tatlas.__all__) == {
+        "AtlasBuild", "TiledNetwork", "build_sparse_network",
+        "derived_net_np", "supertile_maxima", "tile_norm_maxima",
         "data_only_gather_and_stats", "dense_reference_stats",
         "make_disc_props_data_only", "normalize_beta_static"}
+    # the JAX package's exports are all ported
+    assert set(netrep_tpu.atlas.__all__) <= set(tatlas.__all__)
     assert tatlas.normalize_beta_static([2.0, "signed"]) == (2.0, "signed")
     assert tatlas.normalize_beta_static(3) == (3.0, "unsigned")
 

@@ -897,3 +897,55 @@ def test_bf16_ring_kernel_bit_equal_to_plain(cuda):
         for g, w in zip(got, want):
             assert g.data_ptr() != w.data_ptr()
             assert _bf16_words_equal(g, w)
+
+
+# --- the atlas tile network builder (no kernel of the port) ---------------
+
+def _grouped_support(genes, samples, groups, seed):
+    """``tests/test_atlas_screen.py``'s grouped-support data."""
+    rng = np.random.default_rng(seed)
+    x = 0.01 * rng.standard_normal((samples, genes))
+    gsz, ssz = genes // groups, samples // groups
+    for g in range(groups):
+        c0, c1 = g * gsz, (g + 1) * gsz if g < groups - 1 else genes
+        r0, r1 = g * ssz, (g + 1) * ssz if g < groups - 1 else samples
+        blk = rng.standard_normal((r1 - r0, c1 - c0))
+        fac = rng.standard_normal(r1 - r0)
+        blk += 1.5 * fac[:, None] * (rng.random(c1 - c0) < 0.5)
+        x[r0:r1, c0:c1] += blk - blk.mean(axis=0)
+    return x
+
+
+@pytest.mark.parametrize("rule", ({"top_k": 6}, {"tau": 0.3}),
+                         ids=("topk", "tau"))
+def test_atlas_build_screened_equals_unscreened_on_card(cuda, rule):
+    """Every tile goes through one product shape on the card too, so the
+    screened pass equals the unscreened one bit for bit."""
+    from netrep_tpu_torch.atlas import TiledNetwork, build_sparse_network
+
+    tn = TiledNetwork.from_data(_grouped_support(512, 40, 8, 11), 2.0)
+    tops.reset_launches()
+    un = build_sparse_network(tn, tile_edge=64, degree=False, **rule)
+    sc = build_sparse_network(tn, tile_edge=64, screen=True, **rule)
+    assert sc.tiles_skipped > 0 and un.selected_edges == sc.selected_edges
+    for g in ("adjacency", "correlation"):
+        assert np.array_equal(getattr(un, g).nbr, getattr(sc, g).nbr)
+        assert np.array_equal(getattr(un, g).wgt, getattr(sc, g).wgt)
+    assert not any(fn.launches for fn in tops.kernels())
+
+
+@pytest.mark.parametrize("rule", ({"top_k": 6}, {"tau": 0.3}),
+                         ids=("topk", "tau"))
+def test_atlas_build_card_equals_cpu(cuda, rule):
+    """The card's build against the port's CPU build: the same edges, r
+    and weights within 1e-6, degrees within 1e-5."""
+    from netrep_tpu_torch.atlas import TiledNetwork, build_sparse_network
+
+    tn = TiledNetwork.from_data(_grouped_support(512, 40, 8, 11), 2.0)
+    card = build_sparse_network(tn, tile_edge=64, **rule)
+    cpu = build_sparse_network(tn, tile_edge=64, device="cpu", **rule)
+    for g in ("adjacency", "correlation"):
+        assert np.array_equal(getattr(card, g).nbr, getattr(cpu, g).nbr)
+        np.testing.assert_allclose(getattr(card, g).wgt, getattr(cpu, g).wgt,
+                                   rtol=0, atol=1e-6)
+    np.testing.assert_allclose(card.degree, cpu.degree, rtol=0, atol=1e-5)
