@@ -102,6 +102,16 @@ launch count set to 0 just before a path and read just after:
   cost per chunk (alternated against neither), and ``profile=``'s
   device busy and idle share of the null with its top five operations;
   the CUDA runtime's own error texts classified by the taxonomy;
+- ``grid`` (after ``surface``): ``grid_preservation`` on the three
+  cohorts, each a grid row (the planted modules) and a column — six cells
+  in three column packs (``grid_phase``): fixed and adaptive grids under
+  fused statistics and ``stat_mode='xla'``, every cell equal to its solo
+  call in p-values, counts and ``n_perm_used``, the launches exact (one
+  per chunk and union bucket still active, or two gathers a chunk), the
+  pack's null values beside the solo nulls; the grid resumed from its
+  manifest (no permutation), one cohort changed (its row and column
+  recomputed, warm-started, equal to the solo calls given the priors),
+  and a grid interrupted in its second pack and resumed;
 
 and checks each against the others: equal p-values where the same
 statistics run, nulls within 1e-4 where the arithmetic differs, and every
@@ -160,7 +170,11 @@ runs they equal, the GPD tail, ``data_only``), and
 
     python3 chip_smoke.py --faults
 
-only ``fault_ladder``, its unfaulted references run first. Each mode runs
+only ``fault_ladder``, its unfaulted references run first, and
+
+    python3 chip_smoke.py --grid
+
+only ``grid``. Each mode runs
 through the ``netrep_tpu_torch`` beside the script: copied into another checkout,
 it measures that checkout's version on the same inputs.
 """
@@ -3482,6 +3496,372 @@ def screened_phase(np, pv, drive, composed, composed_adaptive, fused_run,
 
 
 
+#: the grid phase: the seed of the changed cohort's new noise
+GRID_CHANGE_SEED = SEED + 1
+
+
+def expect_launches(phase, got, want):
+    """Fails unless every kernel count in ``want`` is met exactly."""
+    for name, n in want.items():
+        if got[name] != n:
+            raise RuntimeError(f"{phase}: {got[name]} launches of {name}, "
+                               f"expected {n}")
+
+
+def grid_phase(torch, np, tops, kw, labels, card, dev, n_perm=N_PERM,
+               ceiling=ADAPTIVE_PERM) -> dict:
+    """The all-pairs grid (``grid_preservation``) on the three cohorts of
+    ``kw`` (``disc``, ``test``, ``test2`` as host float32 arrays), every
+    one a grid row with the planted modules and a column: six cells, three
+    column packs of two.
+
+    1. A fixed grid of ``n_perm`` permutations and an adaptive grid at a
+       ``ceiling``, under the default config (fused statistics) and under
+       ``stat_mode='xla'`` (the gather kernel); every cell held to its solo
+       ``module_preservation`` call with the same config and seed (equal
+       p-values, counts and ``n_perm_used``; observed statistics: bit for
+       bit or the largest deviation), each grid's launches to one per
+       chunk and union bucket still active (fused) or two per chunk
+       (gather), and its wall time beside the six solo calls'. Then the
+       pack's null values beside the solo nulls, bit for bit or the
+       largest deviation (a ``GridPackedEngine`` of one column and the
+       solo engines, ``n_perm`` permutations).
+    2. The adaptive fused grid again into its ``grid_dir``: every cell
+       reused, no permutation, no launch.
+    3. Cohort ``test2`` changed (new noise from GRID_CHANGE_SEED):
+       exactly its row and column recompute, warm-started, each cell equal
+       to the solo call given the stored cell's tallies as
+       ``adaptive_priors``.
+    4. The adaptive fused grid into a fresh directory, interrupted by a
+       ``KeyboardInterrupt`` in its second pack, then the same call: the
+       first run returns the first pack's cells and keeps the second's
+       checkpoint, the second equals the uninterrupted grid.
+
+    Per run: wall seconds, ``perms_evaluated``, packs, dedup hits and
+    misses, launches against the expected count, chunks per pack, the
+    most device memory held at a chunk boundary and the peak. Returns
+    each run's launches by key."""
+    import os
+    import shutil
+    import tempfile
+
+    from netrep_tpu_torch.models.grid import grid_preservation
+    from netrep_tpu_torch.models.preservation import module_preservation
+    from netrep_tpu_torch.ops import pvalues as pv
+    from netrep_tpu_torch.ops.sequential import StopRule
+    from netrep_tpu_torch.parallel.engine import ModuleSpec, PermutationEngine
+    from netrep_tpu_torch.serve import packer
+    from netrep_tpu_torch.utils.config import EngineConfig
+    from netrep_tpu_torch.utils.telemetry import read_events
+
+    names = ("disc", "test", "test2")
+    fields = ("network", "data", "correlation")
+    inputs = {f: {n: kw[f][n] for n in names} for f in fields}
+    assign = {n: list(labels) for n in names}
+    fused_cfg = EngineConfig()
+    gather_cfg = EngineConfig(stat_mode="xla")
+    chunk = fused_cfg.chunk_size
+    mods = sorted(set(labels) - {"0"}, key=int)
+    sizes = np.array([int((np.asarray(labels) == k).sum()) for k in mods])
+    caps = np.array([fused_cfg.rounded_cap(int(s)) for s in sizes])
+    out: dict = {}
+    real_update = packer.PackMonitor.update
+    chunks_log: list = []
+    held: list = []
+
+    def logged_update(self, vals, take):
+        # a measurement hook only: the chunk's pack and the memory held
+        chunks_log.append(self)
+        if dev.type == "cuda":
+            held.append(torch.cuda.memory_allocated())
+        return real_update(self, vals, take)
+
+    def per_pack(log):
+        seen = []
+        for m in log:
+            if not seen or seen[-1][0] is not m:
+                seen.append([m, 0])
+            seen[-1][1] += 1
+        return [n for _m, n in seen]
+
+    def run(label, cfg, adaptive, grid_dir=None, data=None, stop_at=None):
+        events = os.path.join(root, f"{label}.jsonl")
+        call = dict(data or inputs, module_assignments=assign,
+                    n_perm=ceiling if adaptive else n_perm, seed=SEED,
+                    config=cfg, adaptive=adaptive, grid_dir=grid_dir,
+                    device=dev, telemetry=events)
+        tops.reset_launches()
+        chunks_log.clear()
+        held.clear()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        update = logged_update
+        if stop_at is not None:
+            def update(self, vals, take):
+                if len(chunks_log) + 1 == stop_at:
+                    raise KeyboardInterrupt
+                return logged_update(self, vals, take)
+        packer.PackMonitor.update = update
+        try:
+            t0 = time.perf_counter()
+            g = grid_preservation(**call)
+            wall = time.perf_counter() - t0
+        finally:
+            packer.PackMonitor.update = real_update
+        launches = {fn.__name__: fn.launches for fn in tops.kernels()}
+        peak = (torch.cuda.max_memory_allocated() / 2**30
+                if dev.type == "cuda" else None)
+        rec = {"phase": "grid", "run": label,
+               "stat_mode": cfg.resolved_stat_mode(),
+               "adaptive": adaptive, "wall_s": wall,
+               "perms_evaluated": g.stats["perms_evaluated"],
+               "packs": g.stats["packs"],
+               "cells": {k: g.stats[k] for k in (
+                   "cells_total", "cells_computed", "cells_reused",
+                   "cells_warmstarted")},
+               "dedup": g.stats["dedup"], "launches": launches,
+               "input_s": g.profile["input_s"],
+               "pack_s": g.profile["packs"],
+               "null_s": [e["data"]["s"] for e in read_events(events)
+                          if e["ev"] == "null_run_end"],
+               "dispatch_s": sum(e["data"]["s"] for e in read_events(events)
+                                 if e["ev"] == "dispatch"),
+               "chunks_per_pack": per_pack(chunks_log),
+               "null_held_gib": max(held, default=0) / 2**30,
+               "peak_gib": peak, "card": card}
+        chunks_log.clear()
+        return g, launches, rec
+
+    def expected(g, cfg, computed=None):
+        """Launches the union buckets of the ``computed`` cells (default:
+        all) should make: per pack, one fused launch per chunk and bucket
+        holding an active module, or two gather launches (correlation,
+        network) per chunk."""
+        fused = gather = 0
+        for t in names:
+            cells = [g.cell(d, t) for d in names if d != t
+                     and t in g.results.get(d, {})
+                     and (computed is None or (d, t) in computed)]
+            if not cells:
+                continue
+            used = np.concatenate([
+                np.full(len(c.module_labels), c.completed)
+                if c.n_perm_used is None else np.asarray(c.n_perm_used)
+                for c in cells])
+            cc = np.concatenate([
+                [cfg.rounded_cap(int(s)) for s in c.n_vars_present]
+                for c in cells])
+            n_chunks = -(-int(used.max()) // chunk)
+            if cfg.stat_mode == "xla":
+                gather += 2 * n_chunks
+            else:
+                fused += adaptive_launches(np, used, cc, chunk)
+        return {"fused_stats_values": fused,
+                "gather_submatrix_fused_many": gather,
+                "fused_stats_counts": 0}
+
+    def solo(d, t, cfg, adaptive, data=None, priors=None):
+        src = data or inputs
+        call = {f: {n: src[f][n] for n in (d, t)} for f in fields}
+        extra = {}
+        if priors is not None:
+            extra["adaptive_priors"] = priors
+        tops.reset_launches()
+        t0 = time.perf_counter()
+        res = module_preservation(
+            **call, module_assignments=assign[d], discovery=d, test=t,
+            n_perm=ceiling if adaptive else n_perm, seed=SEED, config=cfg,
+            adaptive=adaptive, device=dev, **extra)
+        wall = time.perf_counter() - t0
+        return res, wall, {fn.__name__: fn.launches for fn in tops.kernels()}
+
+    def same_as_solo(what, cell, ref):
+        hi, lo, eff = pv.tail_counts(ref.observed, ref.nulls[:ref.completed])
+        ok = (np.array_equal(cell.p_values, ref.p_values)
+              and np.array_equal(cell.counts_hi, hi)
+              and np.array_equal(cell.counts_lo, lo)
+              and np.array_equal(cell.counts_eff, eff)
+              and (ref.n_perm_used is None
+                   or np.array_equal(cell.n_perm_used, ref.n_perm_used)))
+        if not ok:
+            raise RuntimeError(f"grid cell {what} differs from its solo "
+                               "call in p-values, counts or n_perm_used")
+        dev_obs = float(np.abs(cell.observed - ref.observed).max())
+        if dev_obs > TOL:
+            raise RuntimeError(f"grid cell {what}: observed {dev_obs}")
+        return dev_obs
+
+    def same_cell(what, c, w):
+        if not (np.array_equal(c.p_values, w.p_values)
+                and np.array_equal(c.counts_hi, w.counts_hi)
+                and np.array_equal(c.counts_lo, w.counts_lo)
+                and np.array_equal(c.observed, w.observed)
+                and (w.n_perm_used is None or np.array_equal(
+                    c.n_perm_used, w.n_perm_used))):
+            raise RuntimeError(f"{what} differs")
+
+    def same_cells(what, got, want):
+        for d, t, w in want.cells():
+            same_cell(f"{what}: cell {d}->{t}", got.cell(d, t), w)
+
+    root = tempfile.mkdtemp(prefix="netrep_grid_")
+    try:
+        grids, recs = {}, {}
+        for cfg, mode in ((fused_cfg, "fused"), (gather_cfg, "xla")):
+            for adaptive in (False, True):
+                label = f"{'adaptive' if adaptive else 'fixed'}_{mode}"
+                gdir = (os.path.join(root, "main")
+                        if (mode, adaptive) == ("fused", True) else None)
+                # the six solo calls first, after one uncounted call
+                # that pays the config's first-use costs
+                solo("disc", "test", cfg, adaptive)
+                refs, solo_s, solo_launches = {}, 0.0, {}
+                for d in names:
+                    for t in names:
+                        if d == t:
+                            continue
+                        refs[(d, t)], wall, used = solo(d, t, cfg, adaptive)
+                        solo_s += wall
+                        for k, v in used.items():
+                            solo_launches[k] = solo_launches.get(k, 0) + v
+                g, launches, rec = run(label, cfg, adaptive, gdir)
+                want = expected(g, cfg)
+                expect_launches(f"grid {label}", launches, want)
+                devs = {f"{d}->{t}": same_as_solo(f"{label} {d}->{t}", cell,
+                                                  refs[(d, t)])
+                        for d, t, cell in g.cells()}
+                del refs
+                rec.update(expected_launches=want,
+                           solo_wall_s_sum=solo_s,
+                           solo_launches_sum=solo_launches,
+                           observed_max_abs_vs_solo=max(devs.values()),
+                           observed_bit_equal_vs_solo=all(
+                               v == 0.0 for v in devs.values()),
+                           cells_equal_solo=True)
+                emit(rec)
+                out[("grid", label)] = launches
+                grids[label], recs[label] = g, rec
+
+        # the pack's null values beside the solo engines' (one column)
+        specs = [ModuleSpec(k, np.flatnonzero(np.asarray(labels) == k),
+                            np.flatnonzero(np.asarray(labels) == k))
+                 for k in mods]
+        pool = np.arange(len(labels))
+
+        def src(n):
+            return (inputs["correlation"][n], inputs["network"][n],
+                    inputs["data"][n])
+
+        values = {}
+        for cfg, mode in ((fused_cfg, "fused"), (gather_cfg, "xla")):
+            eng = packer.GridPackedEngine(
+                [src("disc"), src("test2")], *src("test"), [specs, specs],
+                pool, config=cfg, device=dev)
+            nulls, _ = eng.run_null(n_perm, key=[SEED, SEED])
+            eng.release()
+            del eng
+            devs = []
+            for r, d in enumerate(("disc", "test2")):
+                e = PermutationEngine(*src(d), *src("test"), specs, pool,
+                                      config=cfg, device=dev)
+                ref, _ = e.run_null(n_perm, key=SEED)
+                e.release()
+                part = nulls[:, r * len(specs):(r + 1) * len(specs)]
+                devs.append(nulls_err(np, part, ref))
+            values[mode] = {"null_max_abs_vs_solo": max(devs),
+                            "null_bit_equal_vs_solo": max(devs) == 0.0}
+        emit({"phase": "grid_values", "n_perm": n_perm, "column": "test",
+              "cells": ["disc->test", "test2->test"], **values,
+              "card": card})
+
+        # every cell again from the manifest
+        g, launches, rec = run("resumed", fused_cfg, True,
+                               os.path.join(root, "main"))
+        if (g.stats["cells_reused"] != 6 or g.stats["perms_evaluated"]
+                or g.stats["packs"] or any(launches.values())):
+            raise RuntimeError(f"resumed grid recomputed: {g.stats}")
+        same_cells("resumed grid", g, grids["adaptive_fused"])
+        emit(rec)
+
+        # one cohort changed: its row and column recompute, warm-started
+        changed = {f: dict(inputs[f]) for f in fields}
+        x2 = inputs["data"]["test2"]
+        rng = np.random.default_rng(GRID_CHANGE_SEED)
+        x2 = (x2 + 0.5 * rng.standard_normal(x2.shape)).astype(np.float32)
+        changed["data"]["test2"], changed["correlation"]["test2"], \
+            changed["network"]["test2"] = (
+                m.to(torch.float32).cpu().numpy()
+                for m in mats(torch, x2, dev))
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        prev = grids["adaptive_fused"]
+        g, launches, rec = run("changed_cohort", fused_cfg, True,
+                               os.path.join(root, "main"), data=changed)
+        touched = {(d, t) for d, t, _ in g.cells() if "test2" in (d, t)}
+        if (g.stats["cells_computed"], g.stats["cells_reused"],
+                g.stats["cells_warmstarted"]) != (4, 2, 4):
+            raise RuntimeError(f"changed cohort: {g.stats}")
+        devs = {}
+        for d, t, cell in g.cells():
+            if (d, t) not in touched:
+                same_cell(f"untouched cell {d}->{t}", cell, prev.cell(d, t))
+                continue
+            p = prev.cell(d, t)
+            priors = (np.asarray(p.counts_hi, np.int64),
+                      np.asarray(p.counts_lo, np.int64),
+                      np.asarray(p.n_perm_used, np.int64))
+            ref, _w, _u = solo(d, t, fused_cfg, True, data=changed,
+                               priors=priors)
+            devs[f"{d}->{t}"] = same_as_solo(f"warm {d}->{t}", cell, ref)
+        rec.update(recomputed=sorted(f"{d}->{t}" for d, t in touched),
+                   warm_cells_equal_solo_with_priors=True,
+                   observed_max_abs_vs_solo=max(devs.values()),
+                   expected_launches=expected(g, fused_cfg, touched))
+        expect_launches("grid changed_cohort", launches,
+                        rec["expected_launches"])
+        emit(rec)
+        out[("grid", "changed_cohort")] = launches
+
+        # interrupted in its second pack, then resumed
+        first = grids["adaptive_fused"]
+        first_pack = recs["adaptive_fused"]["chunks_per_pack"][0]
+        gdir = os.path.join(root, "interrupted")
+        part, _l, rec = run("interrupted", fused_cfg, True, gdir,
+                            stop_at=first_pack + 1)
+        kept = os.listdir(os.path.join(gdir, "ckpt"))
+        n_part = sum(1 for _ in part.cells())
+        if n_part != 2 or len(kept) != 1:
+            raise RuntimeError(f"interrupted grid: {n_part} cells, "
+                               f"checkpoints {kept}")
+        emit(dict(rec, cells_returned=n_part, checkpoints_kept=len(kept)))
+        g, launches, rec = run("interrupted_resumed", fused_cfg, True, gdir)
+        same_cells("resumed interrupted grid", g, first)
+        if g.stats["cells_reused"] != 2 or os.listdir(
+                os.path.join(gdir, "ckpt")):
+            raise RuntimeError(f"interrupted grid resumed: {g.stats}")
+        emit(dict(rec, equal_uninterrupted=True))
+        out[("grid", "interrupted_resumed")] = launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def grid_only() -> int:
+    """``--grid``: the grid phase alone, on the three cohorts."""
+    setup = mode_setup()
+    if setup is None:
+        return 1
+    torch, np, dev, card = setup
+    from netrep_tpu_torch import ops as tops
+
+    _sizes, labels, cohorts = make_cohorts(np)
+    kw = host_kw(torch, np, dev, cohorts, labels)
+    grid_phase(torch, np, tops, kw, labels, card, dev)
+    print(card_line(), flush=True)
+    return 0
+
+
 def make_drive(torch, np, tops, module_preservation, kw, card):
     """``drive(phase, needs, expect=None, completed=N_PERM, **call)``:
     one ``module_preservation`` call on ``kw`` (read at call time) with
@@ -4283,6 +4663,8 @@ def main() -> int:
         comp, composed_adaptive, fused_run, perm_mesh, many, card).items()})
     # ---- the exported surface: properties, combined runs, round trip ----
     surface(torch, np, kw, labels, card)
+    # ---- the all-pairs grid: the three cohorts, six cells ---------------
+    launches.update(grid_phase(torch, np, tops, kw, labels, card, dev))
     del kw, runs, a, b, comp, der, multi, fused_run, res, seq, f32_ref
     del composed_adaptive
     del dd, dc, dn, td, tc, tn, t2d, t2c, t2n
@@ -4394,6 +4776,12 @@ def main() -> int:
         "fault_ladder composed streaming transient": (
             "faults", "composed_transient"),
         "fault_ladder profile= (fused streaming)": ("faults", "profile"),
+        "grid fixed, fused (3 packs)": ("grid", "fixed_fused"),
+        "grid adaptive, fused": ("grid", "adaptive_fused"),
+        "grid fixed, xla": ("grid", "fixed_xla"),
+        "grid adaptive, xla": ("grid", "adaptive_xla"),
+        "grid changed cohort, warm-started": ("grid", "changed_cohort"),
+        "grid interrupted, resumed": ("grid", "interrupted_resumed"),
     }
     ring_paths = {"checkpoint written on the ring mesh"}
     for row in rows:
@@ -4451,7 +4839,7 @@ if __name__ == "__main__":
              "--atlas-build": lambda: pr9_only(
                  lambda *a: atlas_build_phase(*a, headline=True)),
              "--bf16": bf16_only, "--screened": screened_only,
-             "--faults": faults_only}
+             "--faults": faults_only, "--grid": grid_only}
     args = sys.argv[1:]
     if len(args) > 1 or (args and args[0] not in modes):
         sys.exit(f"usage: {sys.argv[0]} [{' | '.join(modes)}]")

@@ -76,6 +76,14 @@ Every loop takes the fault ladder (``fault_policy``,
 (``profile``); with all three off a loop runs as it did without them and
 pays one ``None`` check per run. The multi-test engine on a mesh is a
 later slice (ROADMAP.md, Queue 1 item 14).
+
+A pack of requests (:mod:`netrep_tpu_torch.serve.packer`) is this engine
+over the union of their modules through four hooks: where each module
+slices the draw (:meth:`PermutationEngine._slice_offsets`), its ``take``
+positions (``_take_positions``), the draw of a chunk's keys (``_draw``)
+and the run's root key (``_root_key``). ``observed_cache=``
+(:class:`ObservedCache`) shares discovery props and observed statistics
+between engines, as the all-pairs grid does.
 """
 
 from __future__ import annotations
@@ -83,6 +91,8 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import hashlib
+import threading
 import time
 from typing import Callable, NamedTuple, Sequence
 
@@ -233,13 +243,17 @@ def _pad_to(a: np.ndarray, cap: int) -> np.ndarray:
     return np.pad(a, [(0, cap - a.shape[0])])
 
 
-def _block_positions(cap: int, slices, n_pool: int, device) -> torch.Tensor:
+def _block_positions(cap: int, slices, n_pool: int, device,
+                     bases=None) -> torch.Tensor:
     """``(K, cap)`` positions into ``perm`` padded with one zero column:
     module k reads ``[off, off + size)``, its padded slots read the zero
-    column ``n_pool``."""
+    column ``n_pool``. ``bases`` (one per module) shift each module's
+    positions: a pack's draw is one permutation per request laid end to
+    end, and module k reads its request's (``bases[k] = g·P``)."""
     pos = np.full((len(slices), cap), n_pool, dtype=np.int64)
     for k, (off, size) in enumerate(slices):
-        pos[k, :size] = np.arange(off, off + size)
+        at = off if bases is None else bases[k] + off
+        pos[k, :size] = np.arange(at, at + size)
     return torch.as_tensor(pos, device=device)
 
 
@@ -259,9 +273,118 @@ def _idx_blocks(perm: torch.Tensor, cap: int, slices) -> torch.Tensor:
     )
 
 
+def _idx_blocks_grouped(perms: torch.Tensor, cap: int, slices,
+                       groups) -> torch.Tensor:
+    """Grouped variant of :func:`_idx_blocks` for packed chunks: ``perms``
+    is ``(..., G, P)``, one drawn permutation per key group (a packed
+    request), and module k slices ``[off, off + size)`` out of its group's
+    permutation ``groups[k]`` — the JAX package's ``_idx_blocks_grouped``.
+    Offsets are request-local, so slices of different groups may overlap.
+    Result ``(..., K, cap)``, padded slots read node 0 (masked
+    downstream)."""
+    G, P = perms.shape[-2:]
+    take = _block_positions(cap, slices, G * P, perms.device,
+                            [int(g) * P for g in groups])
+    return _take_blocks(perms.flatten(-2), take)
+
+
+def props_mode(data_only: bool, row_sharded: bool, net_beta,
+               has_data: bool) -> str:
+    """The :class:`ObservedCache` mode bits of a discovery side: what,
+    beyond its content and the module indices, changes the props it
+    gives (the JAX engine's ``_props_mode``)."""
+    return (f"{'data_only' if data_only else 'dense'}|"
+            f"row:{int(row_sharded)}|beta:{net_beta!r}|"
+            f"data:{int(has_data)}")
+
+
+class ObservedCache:
+    """Digest-keyed dedup cache of the all-pairs grid (the JAX package's
+    ``ObservedCache``).
+
+    Two maps, both content-addressed so a stale hit is impossible:
+
+    - **discovery props** — a bucket's :class:`~netrep_tpu_torch.ops.
+      stats.DiscProps` on the device, keyed by the discovery side's content
+      digest, the mode bits (:func:`props_mode`), the capacity and the
+      bucket's padded index and mask bytes: every cell of one grid row
+      computes its buckets once and later engines share the tensors;
+    - **observed statistics** — the ``(n_modules, 7)`` observed array,
+      keyed by the engine's fingerprint digest and its module specs: an
+      engine rebuilt for the same cell skips the observed pass.
+
+    A hit emits ``grid_dedup_hit`` on the ambient telemetry bus with the
+    map's kind; :meth:`stats` gives the hit and miss counters. Thread-safe.
+    """
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._props: dict = {}
+        self._obs: dict = {}
+        self.hits = 0
+        self.misses = 0
+
+    @staticmethod
+    def _digest(*arrays) -> str:
+        h = hashlib.blake2b(digest_size=8)
+        for a in arrays:
+            a = np.ascontiguousarray(a)
+            h.update(str(a.shape).encode() + str(a.dtype).encode())
+            h.update(a.tobytes())
+        return h.hexdigest()
+
+    def props_key(self, disc_digest: str, mode: str, cap: int,
+                  didx: np.ndarray, mask: np.ndarray) -> tuple:
+        return ("props", disc_digest, mode, int(cap),
+                self._digest(didx, mask))
+
+    def observed_key(self, fingerprint: str, spec_sig: str,
+                     mode: str) -> tuple:
+        return ("observed", fingerprint, spec_sig, mode)
+
+    def _note(self, hit: bool, kind: str) -> None:
+        with self._lock:
+            if hit:
+                self.hits += 1
+            else:
+                self.misses += 1
+        if hit:
+            tel = tm.current()
+            if tel is not None:
+                tel.emit("grid_dedup_hit", kind=kind)
+
+    def get_props(self, key: tuple):
+        with self._lock:
+            v = self._props.get(key)
+        self._note(v is not None, "props")
+        return v
+
+    def put_props(self, key: tuple, props) -> None:
+        with self._lock:
+            self._props[key] = props
+
+    def get_observed(self, key: tuple) -> np.ndarray | None:
+        with self._lock:
+            v = self._obs.get(key)
+        self._note(v is not None, "observed")
+        return None if v is None else v.copy()
+
+    def put_observed(self, key: tuple, observed: np.ndarray) -> None:
+        with self._lock:
+            self._obs[key] = np.asarray(observed, dtype=np.float64).copy()
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {
+                "hits": int(self.hits), "misses": int(self.misses),
+                "props_entries": len(self._props),
+                "observed_entries": len(self._obs),
+            }
+
+
 def build_buckets(disc_corr, disc_net, disc_data, modules, pool,
-                  config: EngineConfig, dev, mesh: Mesh | None = None
-                  ) -> list[dict]:
+                  config: EngineConfig, dev, mesh: Mesh | None = None,
+                  offsets=None, cache=None) -> list[dict]:
     """Bucket the modules by capacity and compute each bucket's
     discovery-side properties (exact ``eigh`` summary): the buckets
     :meth:`PermutationEngine.from_parts` takes. Raises on a module with
@@ -273,7 +396,15 @@ def build_buckets(disc_corr, disc_net, disc_data, modules, pool,
     blocks' shares, as the JAX package's row-sharded engine does. With
     ``disc_corr`` None (data-only) every submatrix derives from the
     discovery data (:func:`~netrep_tpu_torch.atlas.modules.
-    make_disc_props_data_only`)."""
+    make_disc_props_data_only`).
+
+    ``offsets`` (one per module): where each module slices the drawn
+    permutation — a pack's request-local offsets, whose caller checks
+    each request against the pool; default the cumulative sizes, checked
+    here. ``cache`` ``(ObservedCache, digest, mode)`` looks each bucket's
+    props up first and stores those it computes; only the missing buckets
+    read the discovery matrices (none read, none copied to ``dev``, when
+    every bucket hits)."""
     modules = list(modules)
     sizes = [m.size for m in modules]
     if min(sizes, default=1) < 2:
@@ -282,25 +413,65 @@ def build_buckets(disc_corr, disc_net, disc_data, modules, pool,
             f"modules {bad} have fewer than 2 nodes present in the test "
             "dataset; preservation statistics are undefined"
         )
-    if int(np.sum(sizes)) > np.size(pool):
-        raise ValueError(
-            f"module sizes (total {int(np.sum(sizes))}) exceed the null "
-            f"candidate pool ({np.size(pool)}); use null='all' or drop "
-            "modules"
-        )
+    if offsets is None:
+        if int(np.sum(sizes)) > np.size(pool):
+            raise ValueError(
+                f"module sizes (total {int(np.sum(sizes))}) exceed the null "
+                f"candidate pool ({np.size(pool)}); use null='all' or drop "
+                "modules"
+            )
+        offsets = np.concatenate([[0], np.cumsum(sizes)])
     net_beta = config.network_from_correlation
+    data_only = disc_corr is None
+    by_cap: dict[int, list[int]] = {}
+    for k, m in enumerate(modules):
+        by_cap.setdefault(config.rounded_cap(m.size), []).append(k)
+    pads, masks = {}, {}
+    for cap, pos in by_cap.items():
+        pads[cap] = np.stack([_pad_to(modules[k].disc_idx.astype(np.int32),
+                                      cap) for k in pos])
+        masks[cap] = np.zeros((len(pos), cap), np.float32)
+        for r, k in enumerate(pos):
+            masks[cap][r, : modules[k].size] = 1.0
+    props, keys = {}, {}
+    if cache is not None:
+        store, digest, mode = cache
+        for cap in sorted(by_cap):
+            keys[cap] = store.props_key(digest, mode, cap, pads[cap],
+                                        masks[cap])
+            hit = store.get_props(keys[cap])
+            if hit is not None:
+                props[cap] = hit
+    caps = [cap for cap in sorted(by_cap) if cap not in props]
+    if caps:
+        for cap, disc in zip(caps, _bucket_props(
+                disc_corr, disc_net, disc_data, caps, pads, masks, net_beta,
+                dev, mesh)):
+            props[cap] = disc
+            if cache is not None:
+                store.put_props(keys[cap], disc)
+    return [
+        dict(cap=cap, module_pos=by_cap[cap], disc=props[cap],
+             obs_idx=np.stack([_pad_to(modules[k].test_idx, cap)
+                               for k in by_cap[cap]]),
+             slices=[(int(offsets[k]), modules[k].size)
+                     for k in by_cap[cap]])
+        for cap in sorted(by_cap)
+    ]
+
+
+def _bucket_props(disc_corr, disc_net, disc_data, caps, pads, masks,
+                  net_beta, dev, mesh) -> list:
+    """The :class:`~netrep_tpu_torch.ops.stats.DiscProps` of the buckets
+    ``caps`` (padded indices ``pads[cap]``, masks ``masks[cap]``) from one
+    discovery side, its matrices copied to ``dev`` for the call (see
+    :func:`build_buckets`)."""
     data_only = disc_corr is None
     dc = None if data_only else _as_f32(disc_corr, dev)
     dn = None if net_beta is not None else _as_f32(disc_net, dev)
     dd = None if disc_data is None else _as_f32(disc_data, dev)
-    offsets = np.concatenate([[0], np.cumsum(sizes)])
-    by_cap: dict[int, list[int]] = {}
-    for k, m in enumerate(modules):
-        by_cap.setdefault(config.rounded_cap(m.size), []).append(k)
-    caps = sorted(by_cap)
-    didxs = [torch.as_tensor(np.stack(
-        [_pad_to(modules[k].disc_idx.astype(np.int64), cap)
-         for k in by_cap[cap]]), device=dev) for cap in caps]
+    didxs = [torch.as_tensor(pads[cap].astype(np.int64), device=dev)
+             for cap in caps]
     if data_only:
         # the submatrices derive from the transposed data's rows below
         subs = [(None, None)] * len(caps)
@@ -319,27 +490,17 @@ def build_buckets(disc_corr, disc_net, disc_data, modules, pool,
             subs.append((sub_c, tstats.derived_net(sub_c, net_beta)
                          if dn is None else tstats.gather_submatrix(dn, didx)))
 
-    buckets = []
+    out = []
     for cap, didx, (sub_c, sub_n) in zip(caps, didxs, subs):
-        pos = by_cap[cap]
-        mask = np.zeros((len(pos), cap), np.float32)
-        for r, k in enumerate(pos):
-            mask[r, : modules[k].size] = 1.0
-        mask = torch.as_tensor(mask, device=dev)
-        disc = (
+        mask = torch.as_tensor(masks[cap], device=dev)
+        out.append(
             make_disc_props_data_only(dd.T, didx, mask, net_beta)
             if data_only else tstats.make_disc_props(
                 sub_c, sub_n,
                 dd[:, didx].permute(1, 0, 2) if dd is not None else None,
                 mask)
         )
-        buckets.append(dict(
-            cap=cap, module_pos=pos, disc=disc,
-            obs_idx=np.stack([_pad_to(modules[k].test_idx, cap)
-                              for k in pos]),
-            slices=[(int(offsets[k]), modules[k].size) for k in pos],
-        ))
-    return buckets
+    return out
 
 
 @dataclasses.dataclass
@@ -895,10 +1056,15 @@ def run_adaptive_chunks(key, n_perm: int, C: int, chunk: Callable,
     ``KeyboardInterrupt``. ``fault_policy`` and ``telemetry`` as in
     :func:`run_checkpointed_chunks` (the monitor emits ``module_retired``
     on the bus); decisions are unaffected, since tallies fold only from
-    committed chunks and a retried chunk draws the same keys."""
+    committed chunks and a retried chunk draws the same keys. With
+    telemetry on, a monitor that attributes costs (a pack's
+    ``note_chunk_cost``) gets each chunk's dispatch and host-copy seconds
+    after folding it."""
     telemetry, _profile, ft, mem = _run_hooks(telemetry, None,
                                               fault_policy, ck, device)
     monitor.telemetry = telemetry
+    note_cost = (getattr(monitor, "note_chunk_cost", None)
+                 if telemetry is not None else None)
     nulls, completed = np.full(alloc_shape, np.nan), 0
     if ck is not None:
         loaded = ck.load()
@@ -950,14 +1116,17 @@ def run_adaptive_chunks(key, n_perm: int, C: int, chunk: Callable,
                     lambda: chunk(keys), start=completed, take=take,
                     telemetry=telemetry, rescue=rescue))
             if telemetry is not None:
-                telemetry.emit("dispatch", parent=sid_c,
-                               s=time.perf_counter() - t_d0,
+                disp_s = time.perf_counter() - t_d0
+                telemetry.emit("dispatch", parent=sid_c, s=disp_s,
                                start=int(completed), take=int(take))
             t_w0 = time.perf_counter()
             write(nulls, outs, completed, take)
+            write_s = time.perf_counter() - t_w0
             completed += take
             newly = monitor.update(
                 slice_vals(nulls, completed - take, take, pos), take)
+            if note_cost is not None:
+                note_cost(disp_s, write_s)
             if telemetry is not None:
                 now = time.perf_counter()
                 t_marks.append((completed, now))
@@ -1201,8 +1370,8 @@ def check_data_only(config: EngineConfig, has_data: bool) -> None:
 
 
 def build_discovery(disc_corr, disc_net, disc_data, modules, pool,
-                    config: EngineConfig, dev, mesh: Mesh | None = None
-                    ) -> list[dict]:
+                    config: EngineConfig, dev, mesh: Mesh | None = None,
+                    offsets=None, cache=None) -> list[dict]:
     """The discovery half of an engine build: the buckets of
     :func:`build_buckets`, after the checks that come first (data-only,
     :func:`check_data_only`; the ``matrix_sharding`` knob against
@@ -1210,7 +1379,8 @@ def build_discovery(disc_corr, disc_net, disc_data, modules, pool,
     network against the construction). On a row-sharded mesh the
     discovery matrices are gathered through perm shard 0's row blocks.
     Once every pair's buckets exist, no discovery matrix is read again
-    (``from_parts`` takes them)."""
+    (``from_parts`` takes them). ``offsets`` and ``cache`` as in
+    :func:`build_buckets`."""
     data_only = disc_corr is None and disc_net is None
     if data_only:
         check_data_only(config, disc_data is not None)
@@ -1220,7 +1390,8 @@ def build_discovery(disc_corr, disc_net, disc_data, modules, pool,
         check_derived_network(disc_corr, disc_net, net_beta, "discovery")
     return build_buckets(disc_corr, disc_net, disc_data, modules,
                          np.asarray(pool, dtype=np.int32), config, dev,
-                         mesh=mesh.perm_row(0) if row else None)
+                         mesh=mesh.perm_row(0) if row else None,
+                         offsets=offsets, cache=cache)
 
 
 class PermutationEngine:
@@ -1257,12 +1428,21 @@ class PermutationEngine:
     (:mod:`netrep_tpu_torch.atlas.modules`) — through the composed
     statistics; the device holds ``O(n·s)``. Every null loop runs it
     unchanged. Its guards are the JAX engine's (:func:`check_data_only`).
+
+    ``observed_cache``: an :class:`ObservedCache` (the grid's) through
+    which the engine builds its discovery props and its observed
+    statistics, sharing them with every engine over the same discovery
+    side (props) or the same problem (observed).
     """
+
+    #: the shared dedup cache (None: none)
+    _observed_cache: ObservedCache | None = None
 
     def __init__(self, disc_corr, disc_net, disc_data, test_corr, test_net,
                  test_data, modules: Sequence[ModuleSpec], pool,
                  config: EngineConfig = EngineConfig(), device=None,
-                 mesh: Mesh | None = None):
+                 mesh: Mesh | None = None,
+                 observed_cache: ObservedCache | None = None):
         dev = tmesh.resolve_device(mesh, device)
         modules = list(modules)
         has_data = disc_data is not None and test_data is not None
@@ -1270,9 +1450,10 @@ class PermutationEngine:
         data_only = all(m is None for m in (disc_corr, disc_net, test_corr,
                                             test_net))
         pool = np.asarray(pool, dtype=np.int32)
-        buckets = build_discovery(disc_corr, disc_net,
-                                  disc_data if has_data else None, modules,
-                                  pool, config, dev, mesh)
+        self._observed_cache = observed_cache
+        buckets = self._build_buckets(disc_corr, disc_net,
+                                      disc_data if has_data else None,
+                                      modules, pool, config, dev, mesh)
         if net_beta is not None and not data_only:
             check_derived_network(test_corr, test_net, net_beta, "test")
         # the test data is kept TRANSPOSED, (n, n_samples): a module's data
@@ -1288,6 +1469,30 @@ class PermutationEngine:
         # engine does, so the two packages fingerprint a problem alike
         self._digest = ckpt.content_digest(
             [disc_corr, disc_net, disc_data, test_corr, test_net, test_data])
+
+    def _slice_offsets(self, modules) -> np.ndarray | None:
+        """Where each module slices the drawn permutation; None: the
+        cumulative sizes, the reference's disjoint label shuffle, checked
+        against the pool (a pack gives request-local offsets)."""
+        return None
+
+    def _build_buckets(self, disc_corr, disc_net, disc_data, modules, pool,
+                       config, dev, mesh) -> list[dict]:
+        """The engine's discovery buckets (:func:`build_discovery`), their
+        props through the observed cache's props map when the engine has
+        one."""
+        cache = None
+        if self._observed_cache is not None:
+            cache = (self._observed_cache,
+                     ckpt.content_digest([disc_corr, disc_net, disc_data]),
+                     props_mode(disc_corr is None and disc_net is None,
+                                _check_sharding(config, mesh),
+                                config.network_from_correlation,
+                                disc_data is not None))
+        return build_discovery(disc_corr, disc_net, disc_data, modules, pool,
+                               config, dev, mesh,
+                               offsets=self._slice_offsets(modules),
+                               cache=cache)
 
     @classmethod
     def from_parts(cls, test_corr, test_net, test_dataT, pool, buckets,
@@ -1391,8 +1596,8 @@ class PermutationEngine:
                     np.array(b["obs_idx"], dtype=np.int32), device=dev
                 ),
                 slices=[(int(o), int(s)) for o, s in b["slices"]],
-                take=_block_positions(int(b["cap"]), b["slices"], pool.size,
-                                      dev),
+                take=self._take_positions(int(b["cap"]), b["module_pos"],
+                                          b["slices"], dev),
             )
             for b in buckets
         ]
@@ -1400,6 +1605,34 @@ class PermutationEngine:
         #: (:meth:`rebucket`)
         self._buckets_full = list(self.buckets)
         self._shards = None
+
+    def _take_positions(self, cap, module_pos, slices, dev) -> torch.Tensor:
+        """A bucket's ``take`` positions into the drawn permutations
+        (:meth:`_draw`) padded with the zero column."""
+        return _block_positions(cap, slices, self.pool.size, dev)
+
+    def _draw(self, keys: trandom.ThreefryKey) -> torch.Tensor:
+        """The permutations of a chunk's keys, ``(C, P)``: what ``take``
+        indexes."""
+        return trandom.permutation(keys, self._pool_dev)
+
+    def _root_key(self, key) -> trandom.ThreefryKey:
+        """A run's root key from the caller's ``key`` (:func:`root_key`)."""
+        return root_key(key, self.device)
+
+    def _props_mode(self) -> str:
+        return props_mode(self.data_only, self.row_sharded, self.net_beta,
+                          self.has_data)
+
+    def _module_sig(self) -> str:
+        """Content digest of the module specs (labels, index sets): the
+        observed cache's key beside the fingerprint digest."""
+        h = hashlib.blake2b(digest_size=8)
+        for m in self.modules:
+            h.update(str(m.label).encode() + b"|")
+            h.update(np.ascontiguousarray(m.disc_idx, dtype=np.int64))
+            h.update(np.ascontiguousarray(m.test_idx, dtype=np.int64))
+        return h.hexdigest()
 
     # ------------------------------------------------------------------
     # Mesh
@@ -1521,7 +1754,21 @@ class PermutationEngine:
     def observed(self) -> np.ndarray:
         """(n_modules, 7) observed statistics on the actual overlap sets,
         with the exact ``eigh`` summary (row-sharded: gathered from the
-        row blocks, every bucket at once)."""
+        row blocks, every bucket at once). With an observed cache, an
+        engine of the same problem and modules computed them already: its
+        copy (only at full strength, never after :meth:`rebucket`)."""
+        cache, okey = self._observed_cache, None
+        if (cache is not None and self._digest is not None
+                and self.modules is not None
+                and sum(len(b.module_pos) for b in self.buckets)
+                == self.n_modules):
+            okey = cache.observed_key(
+                self._digest, self._module_sig(),
+                f"{self._props_mode()}|g:{self.config.gather_mode}"
+                f"|dt:{self.config.dtype}")
+            hit = cache.get_observed(okey)
+            if hit is not None:
+                return hit
         out = np.full((self.n_modules, N_STATS), np.nan)
         subs = (zip(*self._gather([b.obs_idx for b in self.buckets]))
                 if self.row_sharded else None)
@@ -1540,6 +1787,8 @@ class PermutationEngine:
                     summary_method="eigh", net_beta=self.net_beta,
                 )
             out[b.module_pos] = res.cpu().numpy().astype(np.float64)
+        if okey is not None:
+            cache.put_observed(okey, out)
         return out
 
     # ------------------------------------------------------------------
@@ -1651,8 +1900,7 @@ class PermutationEngine:
     def _chunk(self, keys: trandom.ThreefryKey,
                screened: bool = False) -> list[torch.Tensor]:
         if self.mesh is None:
-            return self._values(trandom.permutation(keys, self._pool_dev),
-                                screened)
+            return self._values(self._draw(keys), screened)
         shards = self._shard_values(keys, screened)
         return [torch.cat([s[i].to(self.device) for s in shards])
                 for i in range(len(self.buckets))]
@@ -1689,8 +1937,7 @@ class PermutationEngine:
             obs = self._obs_buckets(observed)
 
             def count(keys, valid, acc):
-                self._count(trandom.permutation(keys, self._pool_dev), valid,
-                            obs, acc.dev)
+                self._count(self._draw(keys), valid, obs, acc.dev)
                 return acc
 
             return (count, lambda acc: self._pull(acc.dev),
@@ -1973,7 +2220,7 @@ class PermutationEngine:
         ``fault_policy``, ``telemetry`` and ``profile``: the fault ladder,
         the event bus and the dispatch accounting of the loop
         (:func:`run_checkpointed_chunks`)."""
-        key = root_key(key, self.device)
+        key = self._root_key(key)
         state, fp = self._rescue_state(observed)
         chunk = (self._chunk if state is None
                  else self._screened_chunk(observed, state))
@@ -2017,7 +2264,7 @@ class PermutationEngine:
         superchunk boundaries (:func:`run_stream_superchunks`); a
         materialized checkpoint is refused. ``fault_policy``,
         ``telemetry`` and ``profile`` as in :meth:`run_null`."""
-        key = root_key(key, self.device)
+        key = self._root_key(key)
         state, fp = self._rescue_state(observed)
         count, pull, tallies = self._count_parts(observed, state)
         (hi, lo, eff), completed = run_stream_superchunks(
@@ -2076,7 +2323,7 @@ class PermutationEngine:
         modules to retire, which :meth:`rebucket` drops from later chunks
         (:func:`run_adaptive_chunks`). The engine is left at full strength
         on exit."""
-        key = root_key(key, self.device)
+        key = self._root_key(key)
 
         def slice_vals(nulls, done, take, pos):
             return nulls[done: done + take][:, pos, :]
@@ -2115,7 +2362,7 @@ class PermutationEngine:
         :class:`StreamCounts` with per-module ``n_perm_used`` and the
         ``finished`` flag."""
         monitor = self._monitor(observed, alternative, rule)
-        key = root_key(key, self.device)
+        key = self._root_key(key)
         state, fp = self._rescue_state(observed)
         try:
             completed, finished = run_adaptive_stream_chunks(

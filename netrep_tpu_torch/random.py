@@ -159,6 +159,14 @@ def permutation(k: ThreefryKey, x: torch.Tensor) -> torch.Tensor:
 
 def perm_keys(k: ThreefryKey, start: int, count: int) -> ThreefryKey:
     """Per-permutation keys ``fold_in(k, i)`` for ``i`` in ``[start,
-    start + count)`` — the chunk- and device-independent seeding contract."""
-    return fold_in(k, torch.arange(start, start + count, dtype=torch.int64,
-                                   device=k.device))
+    start + count)`` — the chunk- and device-independent seeding contract.
+    The permutation axis leads: shape ``(count,) + k.shape``. A ``(G,)``
+    batch of keys (one per request of a pack) gives the JAX package's
+    grouped keys (``_perm_keys_grouped_jit``): row i holds every group's
+    ``fold_in(key_g, start + i)``, so each request draws the permutations
+    of its own run."""
+    out = fold_in(k, torch.arange(start, start + count, dtype=torch.int64,
+                                  device=k.device))
+    if not k.shape:
+        return out
+    return ThreefryKey(out.words.movedim(len(k.shape), 0).contiguous())

@@ -16,10 +16,11 @@ JSONL written by either package reads through the other's aggregator.
 - ambient activation (:meth:`Telemetry.activate` / :func:`current`) so
   leaf modules (checkpoint, backend) emit without a handle.
 - the offline readers :func:`read_events`, :func:`aggregate_file`,
-  :func:`format_event` and :func:`render_recovery`. The serving and grid
-  readers of the JAX module (``tenant_summary``, ``replica_summary``,
-  ``grid_summary`` and their renderers) come with the serving slice
-  (ROADMAP.md Queue 1 items 15 and 16b).
+  :func:`format_event`, :func:`render_recovery`, and the all-pairs grid's
+  :func:`grid_summary` and :func:`render_grid`. The serving readers of
+  the JAX module (``tenant_summary``, ``replica_summary`` and their
+  renderers) come with the serving slice (ROADMAP.md Queue 1 items 15.3
+  and 16b).
 
 Spans ride ``data`` as additive fields: ``data["span"]`` names the span
 (a run-unique deterministic id ``s<n>``) and ``data["parent"]`` its
@@ -61,7 +62,8 @@ _SUM_FIELDS = frozenset({
 #: schema the offline readers and dashboards key on. The port emits the
 #: recovery, engine and span names; the serving, fleet, grid and forensic
 #: names belong to slices not ported yet and are kept so one registry
-#: reads both packages' files.
+#: reads both packages' files. The grid names are emitted by
+#: :func:`~netrep_tpu_torch.models.grid.grid_preservation`.
 
 #: recovery-path events: every decision of the fault ladder and the stall
 #: watchdog (:func:`render_recovery` draws them as a timeline)
@@ -937,3 +939,74 @@ def render_recovery(path: str) -> str:
         data = " ".join(f"{k}={v}" for k, v in d.items())
         lines.append(f"+{e['t'] - t0:9.2f}s  {e['ev']:<24}{label} {data}")
     return "\n".join(lines)
+
+
+def grid_summary(events: Iterable[dict]) -> dict:
+    """The all-pairs grid's events (:data:`GRID_EVENTS`) folded per
+    DISCOVERY dataset (a grid row shares its discovery side, so dedup and
+    warm starts pay off along it), with grid totals: dedup hits, grids and
+    their summed wall time from the ``grid_end`` spans. Returns
+    ``{"rows": {discovery: {...}}, "grids", "dedup_hits", "wall_s"}``;
+    ``rows`` is empty for a log without grid events. The JAX package's
+    reader, field for field."""
+    rows: dict[str, dict] = {}
+    out = {"rows": rows, "grids": 0, "dedup_hits": 0, "wall_s": 0.0}
+    for e in events:
+        ev = e.get("ev")
+        if ev not in GRID_EVENTS:
+            continue
+        data = e.get("data", {})
+        if ev == "grid_dedup_hit":
+            out["dedup_hits"] += 1
+            continue
+        if ev == "grid_end":
+            out["grids"] += 1
+            if _is_number(data.get("s")):
+                out["wall_s"] += float(data["s"])
+            continue
+        d = data.get("discovery")
+        if d is None:
+            continue
+        row = rows.setdefault(str(d), {
+            "started": 0, "computed": 0, "manifest": 0,
+            "warmstarted": 0, "perms": 0, "prior_perms": 0,
+        })
+        if ev == "grid_cell_start":
+            row["started"] += 1
+        elif ev == "grid_cell_done":
+            if data.get("source") == "manifest":
+                row["manifest"] += 1
+            else:
+                row["computed"] += 1
+            row["perms"] += int(data.get("perms", 0) or 0)
+        elif ev == "grid_warmstart_seeded":
+            row["warmstarted"] += 1
+            row["prior_perms"] += int(data.get("prior_perms", 0) or 0)
+    return out
+
+
+def render_grid(path: str) -> str:
+    """The grid section of a run report: per discovery row, the cells
+    computed and answered from the manifest, warm starts and permutations,
+    and a totals line with the dedup hits and the grid wall time. Empty
+    for a log without grid events."""
+    s = grid_summary(read_events(path))
+    if not s["rows"] and not s["grids"]:
+        return ""
+    out = ["grid:",
+           f"  grids={s['grids']} dedup_hits={s['dedup_hits']} "
+           f"wall_s={s['wall_s']:.3f}"]
+    if s["rows"]:
+        w = max(len(d) for d in s["rows"])
+        out.append(
+            f"  {'':<{w}}  {'cells':>5} {'comp':>5} {'manif':>5} "
+            f"{'warm':>5} {'perms':>9} {'prior':>9}"
+        )
+        for d in sorted(s["rows"]):
+            r = s["rows"][d]
+            out.append(
+                f"  {d:<{w}}  {r['started']:>5} {r['computed']:>5} "
+                f"{r['manifest']:>5} {r['warmstarted']:>5} "
+                f"{r['perms']:>9} {r['prior_perms']:>9}"
+            )
+    return "\n".join(out)

@@ -1075,3 +1075,58 @@ def test_slow_abandoned_dispatch_counts_once_on_the_card(cuda, adaptive):
     assert late_done.is_set() and launched["fused_stats_counts"] > 0
     for f in ("hi", "lo", "eff", "n_perm_used"):
         np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+
+
+def _grid_cohorts(n=240, s=32, names=("a", "b", "c")):
+    rng = np.random.default_rng(11)
+    network, correlation, data = {}, {}, {}
+    shared = rng.standard_normal((s, 1))
+    for name in names:
+        x = rng.standard_normal((s, n))
+        x[:, :40] += shared * 1.5  # one module preserved everywhere
+        c = np.corrcoef(x, rowvar=False)
+        network[name], correlation[name], data[name] = np.abs(c) ** 2, c, x
+    assign = {name: {f"node_{i}": str(1 + i // 40) if i < 160 else "0"
+                     for i in range(n)} for name in names[:2]}
+    return network, correlation, data, assign
+
+
+@pytest.mark.parametrize("stat_mode", ("fused", "xla"))
+@pytest.mark.parametrize("adaptive", (False, True),
+                         ids=("fixed", "adaptive"))
+def test_grid_cells_equal_solo_on_the_card(cuda, stat_mode, adaptive):
+    """Every cell of a small grid on the card equals its solo
+    ``module_preservation`` call: p-values, counts and ``n_perm_used``
+    exactly; the grid's packs go through the fused-statistics kernel
+    (``stat_mode='fused'``) or the gather kernel (``'xla'``)."""
+    from netrep_tpu_torch.models.grid import grid_preservation
+    from netrep_tpu_torch.ops import pvalues as tpv
+    from netrep_tpu_torch.ops.sequential import StopRule
+
+    network, correlation, data, assign = _grid_cohorts()
+    cfg = EngineConfig(chunk_size=32, stat_mode=stat_mode)
+    kw = dict(n_perm=192, null="all", seed=3, config=cfg,
+              adaptive=adaptive,
+              adaptive_rule=StopRule(min_perms=32) if adaptive else None)
+    tops.reset_launches()
+    grid = grid_preservation(network, data=data, correlation=correlation,
+                             module_assignments=assign, **kw)
+    kernel = ("fused_stats_values" if stat_mode == "fused"
+              else "gather_submatrix_fused_many")
+    launched = {fn.__name__: fn.launches for fn in tops.kernels()}
+    assert launched[kernel] > 0
+    assert grid.stats["cells_computed"] == 4 and grid.stats["packs"] == 3
+    for d, t, cell in grid.cells():
+        solo = module_preservation(
+            network, data=data, correlation=correlation,
+            module_assignments=assign[d], discovery=d, test=t,
+            simplify=False, **kw)[d][t]
+        np.testing.assert_array_equal(cell.p_values, solo.p_values)
+        hi, lo, eff = tpv.tail_counts(solo.observed,
+                                      solo.nulls[:solo.completed])
+        np.testing.assert_array_equal(cell.counts_hi, hi)
+        np.testing.assert_array_equal(cell.counts_lo, lo)
+        np.testing.assert_array_equal(cell.counts_eff, eff)
+        if adaptive:
+            np.testing.assert_array_equal(cell.n_perm_used, solo.n_perm_used)
+        assert np.abs(cell.observed - solo.observed).max() <= TOL

@@ -61,6 +61,7 @@ import netrep_tpu_torch.models.properties, netrep_tpu_torch.plot
 import netrep_tpu_torch.ops.sequential, netrep_tpu_torch.utils.checkpoint
 import netrep_tpu_torch.models.sparse_api, netrep_tpu_torch.models.atlas_api
 import netrep_tpu_torch.parallel.sparse, netrep_tpu_torch.atlas
+import netrep_tpu_torch.models.grid, netrep_tpu_torch.serve.packer
 bad = [m for m in set(sys.modules) - before
        if m in ("jax", "jaxlib", "netrep_tpu") or m.startswith(("jax.", "jaxlib.", "netrep_tpu."))]
 print(",".join(sorted(bad)))
@@ -88,7 +89,9 @@ def test_no_card_means_no_run(monkeypatch):
 @pytest.mark.parametrize("entry", ["build_datasets", "key", "key_from_data",
                                    "multitest", "vmap_tests", "sparse",
                                    "sparse_properties", "sparse_engine",
-                                   "data_only", "data_only_datasets"])
+                                   "data_only", "data_only_datasets",
+                                   "grid", "packed_engine",
+                                   "grid_packed_engine"])
 def test_device_defaults_to_the_card(monkeypatch, entry):
     # every function that places tensors takes device=None as "cuda", so a
     # caller that names no device never lands on the CPU unawares
@@ -99,7 +102,9 @@ def test_device_defaults_to_the_card(monkeypatch, entry):
     from netrep_tpu_torch.models.dataset import (
         build_data_only_datasets, build_datasets,
     )
+    from netrep_tpu_torch.models.grid import grid_preservation
     from netrep_tpu_torch.models.preservation import module_preservation
+    from netrep_tpu_torch.serve.packer import GridPackedEngine, PackedEngine
     from netrep_tpu_torch.models.sparse_api import (
         sparse_module_preservation, sparse_network_properties,
     )
@@ -133,6 +138,14 @@ def test_device_defaults_to_the_card(monkeypatch, entry):
         "data_only": lambda: atlas_module_preservation(
             {"a": data, "b": data}, module_assignments=["1"] * 4, n_perm=8),
         "data_only_datasets": lambda: build_data_only_datasets(data),
+        "grid": lambda: grid_preservation(
+            {"a": eye, "b": eye}, correlation={"a": eye, "b": eye},
+            module_assignments={"a": ["1"] * 4}, n_perm=8),
+        "packed_engine": lambda: PackedEngine(eye, eye, None, eye, eye, None,
+                                              [spec, spec], np.arange(4)),
+        "grid_packed_engine": lambda: GridPackedEngine(
+            [(eye, eye, None)] * 2, eye, eye, None, [spec, spec],
+            np.arange(4)),
     }[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()
@@ -179,7 +192,7 @@ def test_precision_pinned():
 
 def test_package_top_is_a_namespace():
     assert not os.path.exists(os.path.join(PKG, "__init__.py"))
-    for sub in ("models", "ops", "parallel", "utils"):
+    for sub in ("models", "ops", "parallel", "serve", "utils"):
         assert os.path.exists(os.path.join(PKG, sub, "__init__.py")), sub
 
 
