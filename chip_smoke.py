@@ -112,6 +112,19 @@ launch count set to 0 just before a path and read just after:
   manifest (no permutation), one cohort changed (its row and column
   recomputed, warm-started, equal to the solo calls given the priors),
   and a grid interrupted in its second pack and resumed;
+- ``serve`` (after ``grid``): the single server
+  (``netrep_tpu_torch.serve``) on the same cohorts (``serve_phase``):
+  six requests submitted at once into server A (fused statistics; two
+  tenants of weights 2 and 1; a pack of four with module subsets, a
+  ``'two.sided'`` and an adaptive request at a 10,000 ceiling, two
+  multi-test requests) and four into server B (``stat_mode='xla'``,
+  ``cross_pair_packing``: a cross-pair pack and a pack of two), each held
+  to its solo call (p-values, counts, ``n_perm_used``; the pack's null
+  rows bit-equal under fused statistics), each pack's launches exact, a
+  second round of pool hits only; then a ``crash`` plan mid-pack on a
+  journaled 4,000-gene fixture and a recovering boot bit-identical to an
+  uncrashed server, and the daemon over a unix socket (a subprocess on
+  ``serve_daemon``) answering as the server in process;
 
 and checks each against the others: equal p-values where the same
 statistics run, nulls within 1e-4 where the arithmetic differs, and every
@@ -174,7 +187,11 @@ only ``fault_ladder``, its unfaulted references run first, and
 
     python3 chip_smoke.py --grid
 
-only ``grid``. Each mode runs
+only ``grid``, and
+
+    python3 chip_smoke.py --serve
+
+only ``serve``. Each mode runs
 through the ``netrep_tpu_torch`` beside the script: copied into another checkout,
 it measures that checkout's version on the same inputs.
 """
@@ -3862,6 +3879,504 @@ def grid_only() -> int:
     return 0
 
 
+#: the serve phase: the crash/recover and daemon drills' fixture (genes,
+#: modules, samples; ``make_mixed_pair`` by parameters), their depth, the
+#: crash point and checkpoint cadence, and the batching window
+SERVE_FIXTURE = dict(genes=4000, modules=10, n_samples=32, seed=11)
+SERVE_DRILL_PERM, SERVE_CRASH_AT, SERVE_CKPT_EVERY = 2048, 640, 256
+SERVE_WINDOW_S = 1.0
+
+
+def serve_phase(torch, np, tops, kw, labels, card, dev) -> dict:
+    """The single server (``netrep_tpu_torch.serve``) on the three cohorts
+    of ``kw`` (host float32), in three drills:
+
+    1. **In process, at full width.** Server A (fused statistics, pairwise
+       packing; tenants ``acme`` weight 2 and ``beta`` weight 1, the
+       cohorts registered in memory) takes six requests submitted at once
+       under a batching window: a pack of four on (disc, test) — two
+       module subsets of 25, the whole set ``'two.sided'``, an adaptive
+       request at a 10,000 ceiling, across both tenants — and two
+       multi-test requests ``test=[test, test2]`` (all modules, a
+       subset). Server B (``stat_mode='xla'``,
+       ``cross_pair_packing=True``, packs of two) takes a cross-pair pack
+       (disc→test2 and test→test2) and a pack of two on (disc, test). Each served result is held to its solo
+       ``module_preservation`` call on the card (equal p-values, counts
+       and ``n_perm_used``; the pack's null rows, read by a measurement
+       hook on ``run_null_monitored``, bit-equal under fused statistics
+       and within TOL composed), each pack's launches to one fused launch
+       per chunk and active union bucket (times the cohorts of a
+       multi-test pack) or two gathers a chunk. Each server runs its
+       requests twice: the second round builds nothing (pool hits only).
+       Per round: wall, latency p50/max (first request apart), packs,
+       pool hits/misses, GiB held by the pool, by the registered datasets
+       and at peak, requests/s.
+    2. **Crash and recover** on a journaled server with a fixture
+       registered by parameters (SERVE_FIXTURE): a ``crash`` plan at
+       SERVE_CRASH_AT kills the worker mid-pack; a fresh server with
+       ``recover=True`` completes every request bit-identical to an
+       uncrashed server, resumed from the pack's checkpoint (no more than
+       one checkpoint interval recomputed).
+    3. **The daemon over a socket**: a subprocess on
+       ``serve_daemon(daemon_args(...))``; ``ping``, ``register_fixture``,
+       two ``analyze`` bit-equal to the same requests in process,
+       ``metrics``, ``stats``, ``shutdown`` with its ``drained`` line and
+       exit code 0.
+
+    Returns each round's launches by key."""
+    import os
+    import shutil
+    import tempfile
+
+    from netrep_tpu_torch.models.preservation import module_preservation
+    from netrep_tpu_torch.ops import pvalues as pv
+    from netrep_tpu_torch.parallel.engine import PermutationEngine
+    from netrep_tpu_torch.parallel.multitest import MultiTestEngine
+    from netrep_tpu_torch.serve import (
+        InProcessClient, PreservationServer, ServeConfig, SocketClient,
+        packer,
+    )
+    from netrep_tpu_torch.utils.config import EngineConfig, FaultPolicy
+    from netrep_tpu_torch.utils.telemetry import read_events
+
+    labels = list(labels)
+    mods = sorted(set(labels) - {"0"}, key=int)
+    half = len(mods) // 2
+    fused_cfg = EngineConfig(chunk_size=128)
+    xla_cfg = EngineConfig(chunk_size=128, stat_mode="xla")
+    chunk = fused_cfg.chunk_size
+    fields = ("network", "correlation", "data")
+    out: dict = {}
+
+    # measurement hook: each pack's null, monitor and launches
+    log: list = []
+    real = {PermutationEngine: PermutationEngine.run_null_monitored,
+            MultiTestEngine: MultiTestEngine.run_null_monitored}
+
+    def hooked(cls):
+        def run(self, n_perm, key, monitor, *a, **k):
+            if not isinstance(monitor, packer.PackMonitor):
+                return real[cls](self, n_perm, key, monitor, *a, **k)
+            before = {fn.__name__: fn.launches for fn in tops.kernels()}
+            res = real[cls](self, n_perm, key, monitor, *a, **k)
+            log.append(dict(
+                multi=cls is MultiTestEngine, nulls=res[0],
+                plans=monitor.plans,
+                launches={fn.__name__: fn.launches - before[fn.__name__]
+                          for fn in tops.kernels()}))
+            return res
+        return run
+
+    def solo(d, t, cfg, **call):
+        tests = t if isinstance(t, list) else [t]
+        res = module_preservation(
+            **{f: {n: kw[f][n] for n in [d] + tests} for f in fields},
+            module_assignments=labels, discovery=d, test=t, config=cfg,
+            simplify=False, device=dev, **call)
+        return res[d]
+
+    def held_to_solo(what, res, ref, nulls, plan, cfg):
+        """p-values, counts, n_perm_used equal; the pack's null rows of
+        this request against the solo null; returns the largest row
+        deviation."""
+        hi, lo, eff = pv.tail_counts(ref.observed, ref.nulls[:ref.completed])
+        # an adaptive member's ``completed`` is its pack's depth (capped at
+        # its n_perm), its solo run's the deepest module's (ROADMAP.md
+        # Queue 3); the p-values read n_perm_used
+        diff = {f: int(np.sum(np.asarray(res[k]) != np.asarray(v)))
+                for f, k, v in (("p", "p_values", ref.p_values),
+                                ("hi", "counts_hi", hi),
+                                ("lo", "counts_lo", lo),
+                                ("eff", "counts_eff", eff))}
+        if ref.n_perm_used is None:
+            diff["completed"] = int(res["completed"] != ref.completed)
+        else:
+            diff["n_used"] = int(np.sum(np.asarray(res["n_perm_used"])
+                                        != ref.n_perm_used))
+        if any(diff.values()):
+            raise RuntimeError(
+                f"serve {what}: differs from its solo call: {diff}, "
+                f"observed max dev "
+                f"{float(np.abs(res['observed'] - ref.observed).max())}")
+        used = (np.full(len(ref.module_labels), ref.completed)
+                if ref.n_perm_used is None else ref.n_perm_used)
+        err = 0.0
+        for k, u in enumerate(used):
+            a = nulls[:u, plan.base + k]
+            b = ref.nulls[:u, k]
+            err = max(err, nulls_err(np, a, b))
+        if err > (0.0 if cfg.stat_mode != "xla" else TOL):
+            raise RuntimeError(f"serve {what}: null rows differ from the "
+                               f"solo null by {err}")
+        obs_err = float(np.abs(np.asarray(res["observed"])
+                               - ref.observed).max())
+        if obs_err > TOL:
+            raise RuntimeError(f"serve {what}: observed {obs_err}")
+        return err, obs_err
+
+    def expected(entry, results, cfg):
+        """Launches of one pack: per chunk, one fused launch per union
+        bucket holding an active module (times the cohorts of a
+        multi-test pack), or two gathers while any module is active."""
+        used, caps = [], []
+        for p in entry["plans"]:
+            r = results[p.seed]
+            u = r["n_perm_used"] if not entry["multi"] else None
+            used += (list(u) if u is not None else [r["completed"]] * p.k)
+            caps += [cfg.rounded_cap(int(s)) for s in p.sizes]
+        used = np.asarray(used)
+        if cfg.stat_mode == "xla":
+            return {"gather_submatrix_fused_many":
+                    2 * -(-int(used.max()) // chunk),
+                    "fused_stats_values": 0, "fused_stats_counts": 0}
+        cohorts = len(results[entry["plans"][0].seed]["tests"]) \
+            if entry["multi"] else 1
+        return {"fused_stats_values":
+                cohorts * adaptive_launches(np, used, caps, chunk),
+                "gather_submatrix_fused_many": 0, "fused_stats_counts": 0}
+
+    def serve_rounds(name, cfg, tenants, registrations, requests, refs,
+                     max_pack=4, **server_kw):
+        """Register, then run ``requests`` (label, tenant, d, t, call)
+        twice, submitted at once in this order; each round's results held
+        to ``refs``. The packable requests come first and fill whole
+        packs, so one batching window covers their submission (a submit
+        builds its plan on the host: ``submit_s``)."""
+        root = tempfile.mkdtemp(prefix="netrep_serve_")
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        srv = PreservationServer(ServeConfig(
+            engine=cfg, max_pack=max_pack, pool_size=8, slo_s=600.0,
+            pack_window_s=SERVE_WINDOW_S,
+            telemetry=os.path.join(root, "tel.jsonl"), **server_kw))
+        client = InProcessClient(srv)
+        try:
+            t0 = time.perf_counter()
+            for tenant, weight in tenants:
+                client.register_tenant(tenant, weight)
+            for tenant, d, assigned in registrations:
+                client.register_dataset(
+                    tenant, d, network=kw["network"][d],
+                    correlation=kw["correlation"][d], data=kw["data"][d],
+                    assignments=labels if assigned else None)
+            register_s = time.perf_counter() - t0
+            rounds = []
+            for rnd in (1, 2):
+                log.clear()
+                tops.reset_launches()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                st0 = srv.stats()
+                t0 = time.perf_counter()
+                handles = [(lab, client.submit(tenant, d, t, **call))
+                           for lab, tenant, d, t, call in requests]
+                submit_s = time.perf_counter() - t0
+                results = {lab: client.result(h, timeout=1200)
+                           for lab, h in handles}
+                wall = time.perf_counter() - t0
+                st = srv.stats()
+                launches = {fn.__name__: fn.launches for fn in tops.kernels()}
+                packs = {}
+                for lab, r in results.items():
+                    packs.setdefault(r["pack_id"], []).append(lab)
+                by_seeds = {frozenset(p.seed for p in e["plans"]): e
+                            for e in log}
+                pack_rec, errs = [], {}
+                for pid, labs in sorted(packs.items()):
+                    seeds = {results[lab]["seed"]: results[lab]
+                             for lab in labs}
+                    entry = by_seeds[frozenset(seeds)]
+                    want = expected(entry, seeds, cfg)
+                    expect_launches(f"serve {name} round {rnd} {pid}",
+                                    entry["launches"], want)
+                    pack_rec.append({"pack": pid, "requests": labs,
+                                     "launches": entry["launches"],
+                                     "expected": want})
+                    for lab in labs:
+                        res, ref = results[lab], refs[lab]
+                        if entry["multi"]:
+                            errs[lab] = max(
+                                held_to_solo(
+                                    f"{name} {lab} {t['test']}",
+                                    dict(t, completed=res["completed"]),
+                                    ref[t["test"]], entry["nulls"][ti],
+                                    entry["plans"][0], cfg)
+                                for ti, t in enumerate(res["tests"]))
+                        else:
+                            plan = next(p for p in entry["plans"]
+                                        if p.seed == res["seed"])
+                            errs[lab] = held_to_solo(
+                                f"{name} {lab}", res, ref, entry["nulls"],
+                                plan, cfg)
+                lat = sorted(r["latency_s"] for r in results.values())
+                hits = [r["pool_hit"] for r in results.values()]
+                if rnd == 2 and (not all(hits) or st["pool"]["misses"]
+                                 != st0["pool"]["misses"]):
+                    raise RuntimeError(f"serve {name} round 2 built an "
+                                       f"engine: {st['pool']}")
+                rec = {
+                    "phase": "serve", "server": name, "round": rnd,
+                    "stat_mode": cfg.resolved_stat_mode(),
+                    "requests": len(results), "wall_s": wall,
+                    "submit_s": submit_s,
+                    "latency_p50_s": float(np.median(lat)),
+                    "latency_max_s": lat[-1],
+                    "latency_first_s": min(lat), "requests_per_s":
+                        len(results) / wall,
+                    "packs": st["packs"] - st0["packs"], "pack_detail":
+                        pack_rec,
+                    "pool_hits": st["pool"]["hits"] - st0["pool"]["hits"],
+                    "pool_misses": (st["pool"]["misses"]
+                                    - st0["pool"]["misses"]),
+                    "pool_held_gib": st["pool"]["held_gib"],
+                    "datasets_gib": st["datasets_gib"],
+                    "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                    "register_s": register_s if rnd == 1 else None,
+                    "launches": launches,
+                    "null_max_abs_vs_solo": max(e[0] for e in
+                                                errs.values()),
+                    "null_bit_equal_vs_solo": all(
+                        e[0] == 0.0 for e in errs.values()),
+                    "observed_max_abs_vs_solo": max(e[1] for e in
+                                                    errs.values()),
+                    "equal_solo": True, "card": card}
+                emit(rec)
+                out[("serve", f"{name}_round{rnd}")] = launches
+                rounds.append(rec)
+        finally:
+            srv.close()
+            shutil.rmtree(root, ignore_errors=True)
+            torch.cuda.empty_cache()
+        # close() released the pool: the card holds what it held before
+        torch.cuda.synchronize()
+        left = (torch.cuda.memory_allocated() - before) / 2**30
+        emit({"phase": "serve_release", "server": name,
+              "pool_held_gib_before_close": rounds[-1]["pool_held_gib"],
+              "allocated_gib_after_close_vs_before": left, "card": card})
+        if left > 0.25:
+            raise RuntimeError(f"serve {name}: {left:.3f} GiB still "
+                               "allocated after close()")
+        return rounds
+
+    PermutationEngine.run_null_monitored = hooked(PermutationEngine)
+    MultiTestEngine.run_null_monitored = hooked(MultiTestEngine)
+    try:
+        a_requests = [
+            ("subset_lo", "acme", "disc", "test",
+             dict(modules=mods[:half], n_perm=N_PERM, seed=101)),
+            ("all_two_sided", "acme", "disc", "test",
+             dict(n_perm=N_PERM, seed=102, alternative="two.sided")),
+            ("subset_hi", "beta", "disc", "test",
+             dict(modules=mods[half:], n_perm=N_PERM, seed=103)),
+            ("adaptive", "acme", "disc", "test",
+             dict(n_perm=ADAPTIVE_PERM, seed=104, adaptive=True)),
+            ("multi_test", "acme", "disc", ["test", "test2"],
+             dict(n_perm=N_PERM, seed=105)),
+            ("multi_test_lo", "acme", "disc", ["test", "test2"],
+             dict(modules=mods[:half], n_perm=N_PERM, seed=106)),
+        ]
+        refs = {}
+        t0 = time.perf_counter()
+        for lab, _ten, d, t, call in a_requests:
+            ref = solo(d, t, fused_cfg, **call)
+            refs[lab] = ref if isinstance(t, list) else ref[t]
+        solo_a = time.perf_counter() - t0
+        rounds_a = serve_rounds(
+            "A", fused_cfg, [("acme", 2), ("beta", 1)],
+            [("acme", "disc", True), ("acme", "test", False),
+             ("acme", "test2", False), ("beta", "disc", True),
+             ("beta", "test", False)], a_requests, refs)
+        b_requests = [
+            ("xpair_disc", "acme", "disc", "test2",
+             dict(n_perm=N_PERM, seed=201)),
+            ("xpair_test", "acme", "test", "test2",
+             dict(n_perm=N_PERM, seed=202)),
+            ("xla_1", "acme", "disc", "test", dict(n_perm=N_PERM, seed=203)),
+            ("xla_2", "acme", "disc", "test",
+             dict(modules=mods[:half], n_perm=N_PERM, seed=204)),
+        ]
+        t0 = time.perf_counter()
+        for lab, _ten, d, t, call in b_requests:
+            refs[lab] = solo(d, t, xla_cfg, **call)[t]
+        solo_b = time.perf_counter() - t0
+        rounds_b = serve_rounds(
+            "B", xla_cfg, [("acme", 1)],
+            [("acme", "disc", True), ("acme", "test", True),
+             ("acme", "test2", False)], b_requests, refs,
+            max_pack=2, cross_pair_packing=True)
+    finally:
+        for cls, fn in real.items():
+            cls.run_null_monitored = fn
+    emit({"phase": "serve_vs_solo", "solo_s_server_A": solo_a,
+          "solo_s_server_B": solo_b,
+          "served_wall_s": {f"{r['server']}{r['round']}": r["wall_s"]
+                            for r in rounds_a + rounds_b},
+          "card": card})
+    del refs
+
+    # ---- crash and recover on a journaled fixture ----------------------
+    root = tempfile.mkdtemp(prefix="netrep_serve_drill_")
+    try:
+        cfg = EngineConfig(chunk_size=chunk)
+        jpath = os.path.join(root, "journal.jsonl")
+        drill = [("k1", dict(n_perm=SERVE_DRILL_PERM, seed=1)),
+                 ("k2", dict(n_perm=SERVE_DRILL_PERM, seed=2)),
+                 ("k3", dict(n_perm=SERVE_DRILL_PERM, seed=3,
+                             adaptive=True))]
+
+        def drill_server(tag, start=True, **k):
+            return PreservationServer(ServeConfig(
+                engine=cfg, checkpoint_every=SERVE_CKPT_EVERY,
+                telemetry=os.path.join(root, f"{tag}.jsonl"), **k),
+                start=start)
+
+        t0 = time.perf_counter()
+        srv = drill_server("crash", start=False, journal=jpath,
+                           fault_policy=FaultPolicy(
+                               plan=f"crash@{SERVE_CRASH_AT}",
+                               backoff_base_s=0.0, backoff_jitter=0.0))
+        fx = srv.register_fixture("acme", "fx", **SERVE_FIXTURE)
+        hs = [srv.submit("acme", fx["discovery"], fx["test"],
+                         idempotency_key=k, **c) for k, c in drill]
+        srv.start()
+        srv._worker.join(timeout=600)
+        if srv._worker.is_alive() or any(h.done.is_set() for h in hs):
+            raise RuntimeError("serve crash drill: the crash plan did not "
+                               "stop the worker mid-pack")
+        srv.tel.close()
+        srv.journal.close()
+        crash_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rec_srv = drill_server("recover", journal=jpath, recover=True)
+        try:
+            got = {k: rec_srv.analyze("acme", fx["discovery"], fx["test"],
+                                      idempotency_key=k, timeout=1200, **c)
+                   for k, c in drill}
+        finally:
+            rec_srv.close()
+        recover_s = time.perf_counter() - t0
+        ref_srv = drill_server("reference", start=False)
+        ref_srv.register_fixture("acme", "fx", **SERVE_FIXTURE)
+        hs = {k: ref_srv.submit("acme", fx["discovery"], fx["test"], **c)
+              for k, c in drill}
+        ref_srv.start()
+        try:
+            want = {k: ref_srv.wait(h, timeout=1200) for k, h in hs.items()}
+        finally:
+            ref_srv.close()
+        for k, _c in drill:
+            g, w = got[k], want[k]
+            if not all(np.array_equal(g[f], w[f]) for f in (
+                    "observed", "p_values", "counts_hi", "counts_lo",
+                    "counts_eff")) or g["completed"] != w["completed"] or (
+                    w["n_perm_used"] is not None and not np.array_equal(
+                        g["n_perm_used"], w["n_perm_used"])):
+                raise RuntimeError(f"serve recovery: {k} differs from the "
+                                   "uncrashed server")
+        ev = list(read_events(os.path.join(root, "recover.jsonl")))
+        resumed = [e["data"]["completed"] for e in ev
+                   if e["ev"] == "checkpoint_resumed"]
+        # the crash fires at the dispatch of the chunk holding its point
+        crashed = SERVE_CRASH_AT // chunk * chunk
+        if not resumed or not 0 <= crashed - resumed[0] <= SERVE_CKPT_EVERY:
+            raise RuntimeError(f"serve recovery resumed at {resumed}")
+        emit({"phase": "serve_recovery", "fixture": SERVE_FIXTURE,
+              "n_perm": SERVE_DRILL_PERM, "crash_at": SERVE_CRASH_AT,
+              "checkpoint_every": SERVE_CKPT_EVERY,
+              "crashed_at_dispatch": crashed, "resumed_at": resumed[0],
+              "recomputed_perms": crashed - resumed[0],
+              "requeued": [e["data"]["requeued"] for e in ev
+                           if e["ev"] == "journal_replayed"][0],
+              "bit_equal_uncrashed": True, "crash_s": crash_s,
+              "recover_s": recover_s, "card": card})
+
+        # ---- the daemon over a unix socket ---------------------------
+        # the socket's path is relative to both processes' directory (a
+        # unix socket's path is bounded, a temporary directory's is not)
+        sock, here = "serve.sock", os.getcwd()
+        os.chdir(root)
+        code = (
+            "import sys\n"
+            f"sys.path.insert(0, {os.path.dirname(os.path.abspath(__file__))!r})\n"
+            "from netrep_tpu_torch.serve.server import daemon_args, "
+            "serve_daemon\n"
+            f"sys.exit(serve_daemon(daemon_args(socket={sock!r}, "
+            f"chunk={chunk}, journal={os.path.join(root, 'd.jsonl')!r})))\n")
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-c", code],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        try:
+            ready = json.loads(proc.stdout.readline() or "{}")
+            if ready.get("serve") != "ready":
+                raise RuntimeError(f"serve daemon did not start: "
+                                   f"{proc.stderr.read()[-2000:]}")
+            start_s = time.perf_counter() - t0
+            client = SocketClient(sock, timeout=1200)
+            pong = client.ping()
+            dfx = client.register_fixture("acme", "fx", **SERVE_FIXTURE)
+            t0 = time.perf_counter()
+            wire = [client.analyze("acme", dfx["discovery"], dfx["test"],
+                                   **c) for _k, c in drill[1:]]
+            wire_s = time.perf_counter() - t0
+            metrics = client.metrics()
+            dstats = client.stats()
+            bye = client.shutdown()
+            client.close()
+            dout, derr = proc.communicate(timeout=600)
+        finally:
+            os.chdir(here)
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        drained = json.loads(dout.strip().splitlines()[-1])
+        if (proc.returncode != 0 or drained.get("serve") != "drained"
+                or drained["requests_done"] != 2 or not pong["pong"]
+                or bye != {"ok": True, "draining": True}
+                or 'outcome="done"} 2' not in metrics):
+            raise RuntimeError(f"serve daemon drill failed: rc "
+                               f"{proc.returncode}, {drained}, "
+                               f"{derr[-2000:]}")
+        inproc = drill_server("inproc")
+        try:
+            inproc.register_fixture("acme", "fx", **SERVE_FIXTURE)
+            local = [inproc.analyze("acme", dfx["discovery"], dfx["test"],
+                                    timeout=1200, **c) for _k, c in drill[1:]]
+        finally:
+            inproc.close()
+        for g, w in zip(wire, local):
+            if not all(np.array_equal(g[f], w[f]) for f in (
+                    "observed", "p_values", "counts_hi", "counts_lo",
+                    "counts_eff")):
+                raise RuntimeError("serve daemon: a wire result differs "
+                                   "from the same request in process")
+        emit({"phase": "serve_daemon", "fixture": SERVE_FIXTURE,
+              "ready_s": start_s, "analyze_s": wire_s,
+              "wire_equal_in_process": True, "drained": drained,
+              "daemon_packs": dstats["packs"],
+              "daemon_pool": dstats["pool"], "exit_code": proc.returncode,
+              "card": card})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return out
+
+
+def serve_only() -> int:
+    """``--serve``: the serve phase alone, on the three cohorts."""
+    setup = mode_setup()
+    if setup is None:
+        return 1
+    torch, np, dev, card = setup
+    from netrep_tpu_torch import ops as tops
+
+    _sizes, labels, cohorts = make_cohorts(np)
+    kw = host_kw(torch, np, dev, cohorts, labels)
+    serve_phase(torch, np, tops, kw, labels, card, dev)
+    print(card_line(), flush=True)
+    return 0
+
+
 def make_drive(torch, np, tops, module_preservation, kw, card):
     """``drive(phase, needs, expect=None, completed=N_PERM, **call)``:
     one ``module_preservation`` call on ``kw`` (read at call time) with
@@ -4665,6 +5180,8 @@ def main() -> int:
     surface(torch, np, kw, labels, card)
     # ---- the all-pairs grid: the three cohorts, six cells ---------------
     launches.update(grid_phase(torch, np, tops, kw, labels, card, dev))
+    # ---- the single server: packs, warm pool, recovery, the daemon ------
+    launches.update(serve_phase(torch, np, tops, kw, labels, card, dev))
     del kw, runs, a, b, comp, der, multi, fused_run, res, seq, f32_ref
     del composed_adaptive
     del dd, dc, dn, td, tc, tn, t2d, t2c, t2n
@@ -4782,6 +5299,12 @@ def main() -> int:
         "grid adaptive, xla": ("grid", "adaptive_xla"),
         "grid changed cohort, warm-started": ("grid", "changed_cohort"),
         "grid interrupted, resumed": ("grid", "interrupted_resumed"),
+        "serve A round 1 (fused; a pack of 4, two multi-test packs)": (
+            "serve", "A_round1"),
+        "serve A round 2 (pool hits)": ("serve", "A_round2"),
+        "serve B round 1 (xla; a cross-pair pack, a pack of 2)": (
+            "serve", "B_round1"),
+        "serve B round 2 (pool hits)": ("serve", "B_round2"),
     }
     ring_paths = {"checkpoint written on the ring mesh"}
     for row in rows:
@@ -4839,7 +5362,8 @@ if __name__ == "__main__":
              "--atlas-build": lambda: pr9_only(
                  lambda *a: atlas_build_phase(*a, headline=True)),
              "--bf16": bf16_only, "--screened": screened_only,
-             "--faults": faults_only, "--grid": grid_only}
+             "--faults": faults_only, "--grid": grid_only,
+             "--serve": serve_only}
     args = sys.argv[1:]
     if len(args) > 1 or (args and args[0] not in modes):
         sys.exit(f"usage: {sys.argv[0]} [{' | '.join(modes)}]")

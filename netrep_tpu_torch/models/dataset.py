@@ -620,7 +620,8 @@ def module_overlap_names(disc_names: Sequence[str],
     )
     if modules is not None:
         modules = [str(m) for m in modules]
-        unknown = [m for m in modules if m not in set(assignments.values())]
+        present = set(assignments.values())
+        unknown = [m for m in modules if m not in present]
         if unknown:
             raise ValueError(
                 f"requested module(s) {unknown} do not exist in the "
@@ -630,19 +631,18 @@ def module_overlap_names(disc_names: Sequence[str],
     else:
         labels = all_labels
 
+    # each label's discovery positions in one pass over the nodes (in node
+    # order, as a scan per label gives them)
+    by_label: dict[str, list[int]] = {}
+    if labels:
+        for i, nm in enumerate(disc_names):
+            by_label.setdefault(assignments[nm], []).append(i)
     specs, counts = [], {}
     for lab in labels:
-        disc_idx, test_idx = [], []
-        total = 0
-        for i, nm in enumerate(disc_names):
-            if assignments[nm] != lab:
-                continue
-            total += 1
-            j = tpos.get(nm)
-            if j is not None:
-                disc_idx.append(i)
-                test_idx.append(j)
-        counts[lab] = (len(disc_idx), total)
-        specs.append((lab, np.asarray(disc_idx, np.int32),
-                      np.asarray(test_idx, np.int32)))
+        members = by_label.get(lab, [])
+        both = [(i, tpos[disc_names[i]]) for i in members
+                if disc_names[i] in tpos]
+        counts[lab] = (len(both), len(members))
+        specs.append((lab, np.asarray([i for i, _ in both], np.int32),
+                      np.asarray([j for _, j in both], np.int32)))
     return labels, specs, counts

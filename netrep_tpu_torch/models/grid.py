@@ -45,7 +45,7 @@ the props and the matrices of the packs still to run.
 A manifest names its config by a hash of ``repr(EngineConfig)``, and the
 two packages' configs print differently, so a manifest does not cross
 packages; the cell files do. ``fleet=`` (routing cells to a serving fleet)
-belongs to ROADMAP.md Queue 1 item 15.3.
+belongs to ROADMAP.md Queue 1 item 15.4.
 """
 
 from __future__ import annotations
@@ -248,12 +248,12 @@ def grid_preservation(
     - ``device`` — None means ``"cuda"`` (raises without a card); pass
       ``"cpu"`` to run the kernels' plain versions on the CPU.
     - ``fleet`` / ``fleet_tenant`` — not ported yet: ``fleet=`` raises
-      ``NotImplementedError`` naming ROADMAP.md Queue 1 item 15.3.
+      ``NotImplementedError`` naming ROADMAP.md Queue 1 item 15.4.
     """
     if fleet is not None:
         raise NotImplementedError(
             "fleet= (grid cells routed to a serving fleet) is not ported "
-            "yet: ROADMAP.md Queue 1 item 15.3 (the rest of serve/); run "
+            "yet: ROADMAP.md Queue 1 item 15.4 (the serving fleet); run "
             "the grid in-process without fleet="
         )
     if null not in ("overlap", "all"):

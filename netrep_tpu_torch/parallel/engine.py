@@ -1773,23 +1773,27 @@ class PermutationEngine:
         subs = (zip(*self._gather([b.obs_idx for b in self.buckets]))
                 if self.row_sharded else None)
         for b in self.buckets:
-            if self.data_only:
-                res = data_only_gather_and_stats(
-                    b.disc, b.obs_idx, self._test_dataT, self.net_beta,
-                    n_iter=self.config.power_iters, summary_method="eigh")
-            elif self.row_sharded:
-                res = self._stats(b, b.obs_idx, *next(subs),
-                                  summary_method="eigh")
-            else:
-                res = tstats.gather_and_stats(
-                    b.disc, b.obs_idx, self._test_corr, self._test_net,
-                    self._test_dataT, n_iter=self.config.power_iters,
-                    summary_method="eigh", net_beta=self.net_beta,
-                )
+            res = self._observed_bucket(b, subs)
             out[b.module_pos] = res.cpu().numpy().astype(np.float64)
         if okey is not None:
             cache.put_observed(okey, out)
         return out
+
+    def _observed_bucket(self, b: _Bucket, subs) -> torch.Tensor:
+        """One bucket's ``(K, 7)`` observed statistics (``subs``: the
+        row-sharded engine's gathered submatrices, one pair a bucket)."""
+        if self.data_only:
+            return data_only_gather_and_stats(
+                b.disc, b.obs_idx, self._test_dataT, self.net_beta,
+                n_iter=self.config.power_iters, summary_method="eigh")
+        if self.row_sharded:
+            return self._stats(b, b.obs_idx, *next(subs),
+                               summary_method="eigh")
+        return tstats.gather_and_stats(
+            b.disc, b.obs_idx, self._test_corr, self._test_net,
+            self._test_dataT, n_iter=self.config.power_iters,
+            summary_method="eigh", net_beta=self.net_beta,
+        )
 
     # ------------------------------------------------------------------
     # Null chunks

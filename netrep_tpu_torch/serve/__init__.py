@@ -1,14 +1,57 @@
-"""The serving tier of the port. Only the cross-request packer is here so
-far (:mod:`netrep_tpu_torch.serve.packer`, the engine behind
-:func:`~netrep_tpu_torch.models.grid.grid_preservation`); the scheduler,
-server and fleet are ROADMAP.md Queue 1 items 15.3 and 16b."""
+"""The serving tier of the port: the single server.
 
+Tenants register datasets once, then submit many preservation analyses;
+the scheduler (:mod:`~netrep_tpu_torch.serve.scheduler`) packs concurrent
+requests into shared union-bucket dispatches
+(:mod:`~netrep_tpu_torch.serve.packer`, also the engine behind
+:func:`~netrep_tpu_torch.models.grid.grid_preservation`) on warm pooled
+engines (:mod:`~netrep_tpu_torch.serve.pool`), with admission control,
+weighted round-robin fairness, deadlines, brownout, idempotency keys, a
+write-ahead journal (:mod:`~netrep_tpu_torch.serve.journal`), fault
+isolation and a telemetry/Prometheus ops surface. Served results give
+each request's own ``module_preservation()`` numbers.
+
+Surface::
+
+    from netrep_tpu_torch.serve import (
+        InProcessClient, PreservationServer, ServeConfig,
+    )
+
+The daemon (:mod:`~netrep_tpu_torch.serve.server`) speaks one JSON op a
+line over a unix socket (:class:`SocketClient`); until the port has a CLI
+it starts through ``serve_daemon(daemon_args(socket=PATH))``. The serving
+fleet (``fleet.py``, ``lifecycle.py``) is ROADMAP.md Queue 1 item 15.4;
+the CLI, the ``dump`` op and the AOT store are item 16b.
+"""
+
+from .client import InProcessClient, ServeRejected, SocketClient, retry_delay
+from .journal import JournalShipper, RequestJournal
 from .packer import (
     GridPackedEngine, PackedEngine, PackMonitor, RequestPlan, assign_bases,
     run_pack,
 )
+from .pool import ProgramPool
+from .scheduler import (
+    PreservationServer, QueueFull, Request, ServeConfig, ServeError,
+)
 
 __all__ = [
-    "GridPackedEngine", "PackedEngine", "PackMonitor", "RequestPlan",
-    "assign_bases", "run_pack",
+    "PreservationServer",
+    "ServeConfig",
+    "ServeError",
+    "QueueFull",
+    "ServeRejected",
+    "Request",
+    "RequestJournal",
+    "JournalShipper",
+    "InProcessClient",
+    "SocketClient",
+    "ProgramPool",
+    "GridPackedEngine",
+    "PackedEngine",
+    "PackMonitor",
+    "RequestPlan",
+    "assign_bases",
+    "run_pack",
+    "retry_delay",
 ]

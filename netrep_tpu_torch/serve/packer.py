@@ -60,8 +60,8 @@ from ..ops import pvalues as pv
 from ..ops import stats as tstats
 from ..ops.sequential import StopMonitor, StopRule
 from ..parallel.engine import (
-    ModuleSpec, PermutationEngine, _block_positions, build_buckets,
-    check_derived_network, props_mode,
+    ModuleSpec, PermutationEngine, _as_f32, _block_positions, build_buckets,
+    build_discovery, check_derived_network, props_mode,
 )
 from ..utils import checkpoint as ckpt
 from ..utils.config import EngineConfig
@@ -187,6 +187,56 @@ class PackedEngine(PermutationEngine):
     def _slice_offsets(self, modules) -> np.ndarray:
         return self._packed_offsets
 
+    def _build_buckets(self, disc_corr, disc_net, disc_data, modules, pool,
+                       config, dev, mesh) -> list[dict]:
+        """The union buckets, each request's segment built from the shared
+        discovery side exactly as its solo engine builds its buckets, so a
+        module's props are its solo run's bit for bit (a bucket's props
+        come from batched decompositions, whose rounding follows the
+        batch). The discovery matrices go to ``dev`` once for all the
+        segments; none is kept."""
+        if self.n_groups == 1:
+            return super()._build_buckets(disc_corr, disc_net, disc_data,
+                                          modules, pool, config, dev, mesh)
+        net_beta = config.network_from_correlation
+        cache = None
+        if self._observed_cache is not None:
+            cache = (self._observed_cache,
+                     ckpt.content_digest([disc_corr, disc_net, disc_data]),
+                     props_mode(disc_corr is None and disc_net is None,
+                                False, net_beta, disc_data is not None))
+        # a derived network is only checked against the correlation (on
+        # a sample, where it lies), never copied
+        on_dev = [a if a is None or (i == 1 and net_beta is not None)
+                  else _as_f32(a, dev)
+                  for i, a in enumerate((disc_corr, disc_net, disc_data))]
+        parts = []
+        for g in range(self.n_groups):
+            pos = self.request_positions(g)
+            parts.append((pos, build_discovery(
+                *on_dev, [modules[p] for p in pos], pool, config, dev,
+                offsets=self._packed_offsets[pos], cache=cache)))
+        return merge_segments(parts)
+
+    def _observed_bucket(self, b, subs) -> torch.Tensor:
+        """A union bucket's observed statistics, each request's rows
+        computed as one batch of their own: the solo engine's bucket, so
+        the observed values (which every tally and stop decision compares
+        against) are its solo run's bit for bit."""
+        groups = self._module_group[np.asarray(b.module_pos, dtype=np.int64)]
+        cuts = np.flatnonzero(np.diff(groups)) + 1
+        if not cuts.size:
+            return super()._observed_bucket(b, subs)
+        parts = []
+        for lo, hi in zip([0, *cuts], [*cuts, len(groups)]):
+            seg = dataclasses.replace(
+                b, module_pos=b.module_pos[lo:hi],
+                disc=tstats.DiscProps(*(x[lo:hi] for x in b.disc)),
+                obs_idx=b.obs_idx[lo:hi], slices=b.slices[lo:hi],
+                take=b.take[lo:hi])
+            parts.append(super()._observed_bucket(seg, subs))
+        return torch.cat(parts)
+
     def _take_positions(self, cap, module_pos, slices, dev) -> torch.Tensor:
         P = self.pool.size
         return _block_positions(
@@ -225,6 +275,30 @@ class PackedEngine(PermutationEngine):
     def request_positions(self, g: int) -> np.ndarray:
         """The pack positions of request ``g``'s modules."""
         return np.flatnonzero(self._module_group == g)
+
+
+def merge_segments(parts) -> list[dict]:
+    """Union buckets from per-request segments ``(positions, buckets)``:
+    each capacity's segments concatenated in request order (rows of
+    ``disc``, ``obs_idx``, ``slices``), module positions mapped to the
+    pack's."""
+    merged: dict[int, list] = {}
+    for pos, bks in parts:
+        for b in bks:
+            merged.setdefault(b["cap"], []).append(
+                dict(b, module_pos=[int(pos[k]) for k in b["module_pos"]]))
+    out = []
+    for cap in sorted(merged):
+        segs = merged[cap]
+        disc = segs[0]["disc"] if len(segs) == 1 else tstats.DiscProps(
+            *(torch.cat(xs) for xs in zip(*(s["disc"] for s in segs))))
+        out.append(dict(
+            cap=cap, disc=disc,
+            module_pos=[p for s in segs for p in s["module_pos"]],
+            obs_idx=np.concatenate([s["obs_idx"] for s in segs]),
+            slices=[sl for s in segs for sl in s["slices"]],
+        ))
+    return out
 
 
 class GridPackedEngine(PackedEngine):
@@ -318,24 +392,7 @@ class GridPackedEngine(PackedEngine):
                 [modules[p] for p in pos], pool, config, dev,
                 offsets=self._packed_offsets[pos], cache=cache)
             parts.append((pos, bks))
-        merged: dict[int, list] = {}
-        for pos, bks in parts:
-            for b in bks:
-                merged.setdefault(b["cap"], []).append(
-                    dict(b, module_pos=[int(pos[k]) for k in
-                                        b["module_pos"]]))
-        out = []
-        for cap in sorted(merged):
-            segs = merged[cap]
-            disc = segs[0]["disc"] if len(segs) == 1 else tstats.DiscProps(
-                *(torch.cat(xs) for xs in zip(*(s["disc"] for s in segs))))
-            out.append(dict(
-                cap=cap, disc=disc,
-                module_pos=[p for s in segs for p in s["module_pos"]],
-                obs_idx=np.concatenate([s["obs_idx"] for s in segs]),
-                slices=[sl for s in segs for sl in s["slices"]],
-            ))
-        return out
+        return merge_segments(parts)
 
 
 class PackMonitor:

@@ -16,11 +16,11 @@ JSONL written by either package reads through the other's aggregator.
 - ambient activation (:meth:`Telemetry.activate` / :func:`current`) so
   leaf modules (checkpoint, backend) emit without a handle.
 - the offline readers :func:`read_events`, :func:`aggregate_file`,
-  :func:`format_event`, :func:`render_recovery`, and the all-pairs grid's
-  :func:`grid_summary` and :func:`render_grid`. The serving readers of
-  the JAX module (``tenant_summary``, ``replica_summary`` and their
-  renderers) come with the serving slice (ROADMAP.md Queue 1 items 15.3
-  and 16b).
+  :func:`format_event`, :func:`render_recovery`, the all-pairs grid's
+  :func:`grid_summary` and :func:`render_grid`, and the single server's
+  :func:`tenant_summary` and :func:`render_tenants`. The fleet's readers
+  of the JAX module (``replica_summary``, ``render_replicas``) come with
+  the serving fleet (ROADMAP.md Queue 1 item 15.4).
 
 Spans ride ``data`` as additive fields: ``data["span"]`` names the span
 (a run-unique deterministic id ``s<n>``) and ``data["parent"]`` its
@@ -60,10 +60,11 @@ _SUM_FIELDS = frozenset({
 
 #: The event-name registries, the JAX package's names one for one: the
 #: schema the offline readers and dashboards key on. The port emits the
-#: recovery, engine and span names; the serving, fleet, grid and forensic
-#: names belong to slices not ported yet and are kept so one registry
-#: reads both packages' files. The grid names are emitted by
-#: :func:`~netrep_tpu_torch.models.grid.grid_preservation`.
+#: recovery, engine and span names, the grid names (from
+#: :func:`~netrep_tpu_torch.models.grid.grid_preservation`) and the
+#: serving names (from :mod:`netrep_tpu_torch.serve.scheduler`); the
+#: fleet and forensic names belong to slices not ported yet and are kept
+#: so one registry reads both packages' files.
 
 #: recovery-path events: every decision of the fault ladder and the stall
 #: watchdog (:func:`render_recovery` draws them as a timeline)
@@ -895,6 +896,86 @@ def aggregate_events(events: Iterable[dict]) -> MetricsRegistry:
 def aggregate_file(path: str) -> MetricsRegistry:
     """Aggregate a telemetry JSONL into a registry (offline report)."""
     return aggregate_events(read_events(path))
+
+
+def tenant_summary(events: Iterable[dict]) -> dict[str, dict]:
+    """Per-tenant aggregation of the serving events (:data:`SERVE_EVENTS`):
+    request counts per outcome, latency stats from ``request_done.s``,
+    permutations served and the attributed cost of ``request_cost`` — the
+    offline twin of the server's live per-tenant counters, derived from
+    the same event stream so the two views cannot disagree."""
+    out: dict[str, dict] = {}
+    for e in events:
+        ev = e.get("ev")
+        if ev not in SERVE_EVENTS:
+            continue
+        data = e.get("data", {})
+        tenant = data.get("tenant")
+        if tenant is None:
+            continue
+        row = out.setdefault(str(tenant), {
+            "received": 0, "packed": 0, "done": 0, "failed": 0,
+            "rejected": 0, "expired": 0, "deduped": 0, "perms": 0,
+            "latency": [0, 0.0, float("inf"), 0.0],  # n, total, min, max
+            "device_s": 0.0, "cost_bytes": 0,
+        })
+        if ev == "request_cost":
+            if _is_number(data.get("device_s")):
+                row["device_s"] += float(data["device_s"])
+            if _is_number(data.get("bytes_to_host")):
+                row["cost_bytes"] += int(data["bytes_to_host"])
+        elif ev == "request_received":
+            row["received"] += 1
+        elif ev == "request_packed":
+            row["packed"] += 1
+        elif ev == "request_rejected":
+            row["rejected"] += 1
+        elif ev == "request_expired":
+            row["expired"] += 1
+        elif ev == "request_deduped":
+            row["deduped"] += 1
+        elif ev == "request_done":
+            if data.get("ok", True):
+                row["done"] += 1
+            else:
+                row["failed"] += 1
+            row["perms"] += int(data.get("perms", 0) or 0)
+            s = data.get("s")
+            if _is_number(s):
+                lat = row["latency"]
+                lat[0] += 1
+                lat[1] += float(s)
+                lat[2] = min(lat[2], float(s))
+                lat[3] = max(lat[3], float(s))
+    return out
+
+
+def render_tenants(path: str) -> str:
+    """Per-tenant serving section of a telemetry report: one row per
+    tenant with outcome counts and latency stats. Empty string for logs
+    without serving events."""
+    rows = tenant_summary(read_events(path))
+    if not rows:
+        return ""
+    out = ["tenants:"]
+    w = max(len(t) for t in rows)
+    out.append(
+        f"  {'':<{w}}  {'recv':>5} {'done':>5} {'fail':>5} {'rej':>5} "
+        f"{'exp':>5} {'dedup':>5} {'perms':>8} {'mean_s':>8} {'max_s':>8} "
+        f"{'dev_s':>8}"
+    )
+    for t in sorted(rows):
+        r = rows[t]
+        n, tot, _lo, hi = r["latency"]
+        mean = tot / n if n else float("nan")
+        hi = hi if n else float("nan")
+        out.append(
+            f"  {t:<{w}}  {r['received']:>5} {r['done']:>5} "
+            f"{r['failed']:>5} {r['rejected']:>5} {r['expired']:>5} "
+            f"{r['deduped']:>5} {r['perms']:>8} "
+            f"{mean:>8.3f} {hi:>8.3f} {r['device_s']:>8.3f}"
+        )
+    return "\n".join(out)
 
 
 def format_event(e: dict, t0: float | None = None) -> str:

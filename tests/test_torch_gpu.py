@@ -1130,3 +1130,106 @@ def test_grid_cells_equal_solo_on_the_card(cuda, stat_mode, adaptive):
         if adaptive:
             np.testing.assert_array_equal(cell.n_perm_used, solo.n_perm_used)
         assert np.abs(cell.observed - solo.observed).max() <= TOL
+
+
+def _serve_fixture():
+    from netrep_tpu_torch.data import make_mixed_pair
+
+    mixed = make_mixed_pair(400, 4, n_samples=24, seed=7)
+    (dd, dc, dn), (td, tc, tn) = mixed["discovery"], mixed["test"]
+    assign = {f"node_{i}": "0" for i in range(dn.shape[0])}
+    for lab, idx in mixed["specs"]:
+        for i in idx:
+            assign[f"node_{i}"] = str(lab)
+    return dict(network={"d": dn, "t": tn}, correlation={"d": dc, "t": tc},
+                data={"d": dd, "t": td}, assign=assign)
+
+
+@pytest.mark.parametrize("stat_mode", ("fused", "xla"))
+def test_served_requests_equal_solo_on_the_card(cuda, stat_mode):
+    """The single server on the card (its default device): a pack of two
+    and a lone adaptive request each equal their solo call in p-values,
+    counts and ``n_perm_used``; the pack launches its stat mode's kernel;
+    the datasets wait on the host in pinned memory."""
+    from netrep_tpu_torch.ops import pvalues as tpv
+    from netrep_tpu_torch.serve import PreservationServer, ServeConfig
+
+    fx = _serve_fixture()
+    cfg = EngineConfig(chunk_size=32, stat_mode=stat_mode)
+    srv = PreservationServer(ServeConfig(engine=cfg), start=False)
+    for name in ("d", "t"):
+        srv.register_dataset(
+            "a", name, network=fx["network"][name],
+            correlation=fx["correlation"][name], data=fx["data"][name],
+            assignments=fx["assign"] if name == "d" else None)
+    ds = srv._dataset("a", "d").ds
+    assert ds.correlation.device.type == "cpu" and ds.correlation.is_pinned()
+    reqs = (dict(n_perm=192, seed=3), dict(n_perm=96, seed=4),
+            dict(n_perm=256, seed=5, adaptive=True))
+    hs = [srv.submit("a", "d", "t", **kw) for kw in reqs]
+    tops.reset_launches()
+    srv.start()
+    try:
+        got = [srv.wait(h, timeout=600) for h in hs]
+    finally:
+        srv.close()
+    kernel = ("fused_stats_values" if stat_mode == "fused"
+              else "gather_submatrix_fused_many")
+    assert {fn.__name__: fn.launches for fn in tops.kernels()}[kernel] > 0
+    assert sorted(r["pack_size"] for r in got) == [1, 2, 2]
+    for kw, res in zip(reqs, got):
+        solo = module_preservation(
+            fx["network"], data=fx["data"], correlation=fx["correlation"],
+            module_assignments=fx["assign"], discovery="d", test="t",
+            config=cfg, simplify=False, **kw)["d"]["t"]
+        np.testing.assert_array_equal(res["p_values"], solo.p_values)
+        hi, lo, eff = tpv.tail_counts(solo.observed,
+                                      solo.nulls[:solo.completed])
+        np.testing.assert_array_equal(res["counts_hi"], hi)
+        np.testing.assert_array_equal(res["counts_lo"], lo)
+        np.testing.assert_array_equal(res["counts_eff"], eff)
+        if kw.get("adaptive"):
+            np.testing.assert_array_equal(res["n_perm_used"],
+                                          solo.n_perm_used)
+        assert np.abs(res["observed"] - solo.observed).max() <= TOL
+
+
+def test_pool_eviction_frees_the_card(cuda):
+    """The warm pool's engines hold card memory that ``discard``,
+    eviction and ``close()`` give back, and ``held_gib`` reports it; the
+    registered datasets wait on the host."""
+    from netrep_tpu_torch.serve import PreservationServer, ServeConfig
+
+    fx = _serve_fixture()
+    srv = PreservationServer(ServeConfig(engine=EngineConfig(chunk_size=32),
+                                         pool_size=1))
+    for name in ("d", "t"):
+        srv.register_dataset(
+            "a", name, network=fx["network"][name],
+            correlation=fx["correlation"][name], data=fx["data"][name],
+            assignments=fx["assign"] if name == "d" else None)
+    d = srv._dataset("a", "t").ds
+    assert all(t.device.type == "cpu" and t.is_pinned()
+               for t in (d.correlation, d.network, d.data))
+
+    def allocated():
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+    srv.analyze("a", "d", "t", n_perm=64, seed=1, timeout=600)
+    assert srv.stats()["pool"]["held_gib"] > 0
+    # another module set evicts the first engine: one engine stays
+    srv.analyze("a", "d", "t", n_perm=64, seed=1, modules=["1"],
+                timeout=600)
+    st = srv.stats()["pool"]
+    assert st["evictions"] == 1 and st["size"] == 1
+    held = st["held_gib"] * 2**30
+    before = allocated()
+    srv.pool.discard(next(iter(srv.pool._lru)))
+    empty = allocated()
+    assert before - empty >= 0.9 * held > 0
+    assert srv.stats()["pool"]["held_gib"] == 0.0
+    srv.analyze("a", "d", "t", n_perm=64, seed=2, timeout=600)
+    assert allocated() > empty
+    srv.close()
+    assert allocated() == empty

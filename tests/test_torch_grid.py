@@ -14,7 +14,7 @@ given the same ``adaptive_priors``). Cell files cross packages both ways;
 manifests do not (their config hash is ``repr(EngineConfig)``). The
 telemetry readers ``grid_summary``/``render_grid`` equal the JAX
 package's on the same event file, and every refusal's text is the JAX
-package's; ``fleet=`` names ROADMAP.md Queue 1 item 15.3.
+package's; ``fleet=`` names ROADMAP.md Queue 1 item 15.4.
 
 The fixture is ``tests/test_grid.py``'s (three cohorts of 30 nodes, two
 with module assignments: four cells in three column packs)."""
@@ -359,7 +359,7 @@ def test_refusals_match_jax(case):
 def test_fleet_is_a_later_item():
     network, correlation, data, assign = _cohorts()
     with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue 1 item 15.3 "):
+                       match="ROADMAP.md Queue 1 item 15.4 "):
         grid_preservation(network, correlation=correlation,
                           module_assignments=assign, fleet=object(),
                           device="cpu")

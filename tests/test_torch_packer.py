@@ -235,8 +235,42 @@ def test_pack_equals_solo_calls(cohorts, stat_mode):
         assert g["completed"] == solo.completed
         if adaptive:
             assert np.array_equal(g["n_perm_used"], solo.n_perm_used)
-        # each (permutation, module) cell is computed alone
-        assert np.abs(g["observed"] - solo.observed).max() <= 1e-6
+        # each request's rows of a union bucket are observed as one batch
+        # of their own, the solo engine's bucket
+        assert np.array_equal(g["observed"], solo.observed)
+
+
+@pytest.mark.parametrize("config", [dict(), dict(network_from_correlation=2.0)],
+                         ids=["stored", "derived"])
+def test_pack_props_are_the_solo_engines(cohorts, config):
+    """A shared-discovery pack builds each request's segment of a union
+    bucket as that request's solo engine builds its bucket: every
+    module's discovery props equal its solo engine's bit for bit (the
+    kernels then compute each cell from the solo operands)."""
+    network, correlation, data, built = cohorts
+    if config:
+        network = {n: np.abs(correlation[n]) ** 2 for n in correlation}
+    tp, _ = _plans(built, "a", "c")
+    cfg = EngineConfig(chunk_size=CHUNK, **config)
+    te = tpk.PackedEngine(*_mats(network, correlation, data, "a"),
+                          *_mats(network, correlation, data, "c"),
+                          [p.specs for p in tp], tp[0].pool, config=cfg,
+                          device="cpu")
+    for g, p in enumerate(tp):
+        solo = teng.PermutationEngine(
+            *_mats(network, correlation, data, "a"),
+            *_mats(network, correlation, data, "c"), p.specs, p.pool,
+            config=cfg, device="cpu")
+        rows = {}
+        for b in solo.buckets:
+            for r, k in enumerate(b.module_pos):
+                rows[int(k)] = [x[r] for x in b.disc]
+        for b in te.buckets:
+            for r, pos in enumerate(b.module_pos):
+                k = int(pos) - p.base
+                if 0 <= k < p.k:
+                    for got, want in zip((x[r] for x in b.disc), rows[k]):
+                        assert torch.equal(got, want), (g, k)
 
 
 def test_grid_pack_matches_jax(cohorts):

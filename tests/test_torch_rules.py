@@ -62,6 +62,7 @@ import netrep_tpu_torch.ops.sequential, netrep_tpu_torch.utils.checkpoint
 import netrep_tpu_torch.models.sparse_api, netrep_tpu_torch.models.atlas_api
 import netrep_tpu_torch.parallel.sparse, netrep_tpu_torch.atlas
 import netrep_tpu_torch.models.grid, netrep_tpu_torch.serve.packer
+import netrep_tpu_torch.serve.server, netrep_tpu_torch.serve.top
 bad = [m for m in set(sys.modules) - before
        if m in ("jax", "jaxlib", "netrep_tpu") or m.startswith(("jax.", "jaxlib.", "netrep_tpu."))]
 print(",".join(sorted(bad)))
@@ -91,7 +92,7 @@ def test_no_card_means_no_run(monkeypatch):
                                    "sparse_properties", "sparse_engine",
                                    "data_only", "data_only_datasets",
                                    "grid", "packed_engine",
-                                   "grid_packed_engine"])
+                                   "grid_packed_engine", "serve"])
 def test_device_defaults_to_the_card(monkeypatch, entry):
     # every function that places tensors takes device=None as "cuda", so a
     # caller that names no device never lands on the CPU unawares
@@ -104,6 +105,7 @@ def test_device_defaults_to_the_card(monkeypatch, entry):
     )
     from netrep_tpu_torch.models.grid import grid_preservation
     from netrep_tpu_torch.models.preservation import module_preservation
+    from netrep_tpu_torch.serve import PreservationServer
     from netrep_tpu_torch.serve.packer import GridPackedEngine, PackedEngine
     from netrep_tpu_torch.models.sparse_api import (
         sparse_module_preservation, sparse_network_properties,
@@ -146,6 +148,7 @@ def test_device_defaults_to_the_card(monkeypatch, entry):
         "grid_packed_engine": lambda: GridPackedEngine(
             [(eye, eye, None)] * 2, eye, eye, None, [spec, spec],
             np.arange(4)),
+        "serve": lambda: PreservationServer(start=False),
     }[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()
