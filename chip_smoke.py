@@ -125,6 +125,16 @@ launch count set to 0 just before a path and read just after:
   journaled 4,000-gene fixture and a recovering boot bit-identical to an
   uncrashed server, and the daemon over a unix socket (a subprocess on
   ``serve_daemon``) answering as the server in process;
+- ``fleet`` (after ``serve``): the serving fleet in process
+  (``fleet_phase``): ``grid_preservation(fleet=)`` on the three cohorts
+  across two replicas (each cell equal to the in-process grid's, a
+  second round of pool hits on the same replicas), then a journaled
+  fleet on a 20,000-gene fixture: a crash plan mid-pack on the pair's
+  home and failover to the peer (each request equal to its solo call,
+  fused null rows bit-equal, the resumed pack's launches exact, zero
+  permutations recomputed, the dead replica's pool given back), the
+  autoscaler spawning a third replica, an eviction handoff held the same
+  way, and scale to zero; the card after ``close()``;
 
 and checks each against the others: equal p-values where the same
 statistics run, nulls within 1e-4 where the arithmetic differs, and every
@@ -191,7 +201,11 @@ only ``grid``, and
 
     python3 chip_smoke.py --serve
 
-only ``serve``. Each mode runs
+only ``serve``, and
+
+    python3 chip_smoke.py --fleet
+
+only ``fleet``. Each mode runs
 through the ``netrep_tpu_torch`` beside the script: copied into another checkout,
 it measures that checkout's version on the same inputs.
 """
@@ -4362,6 +4376,483 @@ def serve_phase(torch, np, tops, kw, labels, card, dev) -> dict:
     return out
 
 
+#: the fleet phase's journaled drills: a 20,000-gene fixture registered by
+#: parameters (a journaled inline registration of a 20,000-gene cohort
+#: would write gigabytes of JSON a matrix), the crash point (chunk 5 of
+#: 8) and the checkpoint cadence (two chunks)
+FLEET_FIXTURE = dict(genes=GENES, modules=MODULES, n_samples=SAMPLES,
+                     seed=SEED)
+FLEET_CRASH_AT, FLEET_CKPT_EVERY = 640, 256
+
+
+def fleet_phase(torch, np, tops, kw, labels, card, dev) -> dict:
+    """The serving fleet (``netrep_tpu_torch.serve.fleet``) on one card: two
+    fleets of two in-process replicas, chunk 128, ``N_PERM``
+    permutations a request.
+
+    1. **Fleet A** (journaling off) on the three cohorts of ``kw``:
+       ``grid_preservation(fleet=)`` registers them on both replicas and
+       routes each of the six cells to its replica by the hash ring;
+       every cell equals the in-process grid's (p-values, counts,
+       ``completed``; observed within TOL), each cell's launches one per
+       chunk and union bucket. Routing: each pair's replica served it, and
+       a second round of the six requests is pool hits only, equal to the
+       first.
+    2. **Fleet B** (journaled) on a 20,000-gene fixture registered by
+       parameters. A first request leaves a warm engine on the pair's
+       home. **Failover**: a crash plan at FLEET_CRASH_AT kills the home's
+       worker in the next pack (two requests, a checkpoint every two
+       chunks); ``kill_replica`` ships its journal to the peer and gives
+       back the dead replica's pool (the warm engine); the peer resumes
+       the pack at the crashed boundary: each request equals its solo
+       call (p-values, counts; the pack's fused null rows bit-equal), the
+       peer's launches (chunks after the boundary) × union buckets, no
+       permutation recomputed. **Autoscaling**: ``Autoscaler.tick`` on an
+       injected clock restores the floor of two with a third replica
+       (which adopts the registrations from the survivor's shipped
+       journal), then holds its cooldown. **Eviction**: two more requests
+       on the pair's home, the same crash, then ``evict_notice``: the
+       handoff, held the same way, and no failover event. **Scale
+       down**: the floor lowered to zero, past the idle period the
+       autoscaler retires the last replica (scale to zero).
+
+    Emits each drill's wall seconds, ``failover_done.s`` and the handoff's
+    seconds, permutations recomputed, launches per replica, pinned GiB per
+    replica, and the card's GiB after failover and after ``close()``.
+    Returns launches by key."""
+    import os
+    import shutil
+    import tempfile
+    import threading
+
+    from netrep_tpu_torch.models.grid import grid_preservation
+    from netrep_tpu_torch.models.preservation import module_preservation
+    from netrep_tpu_torch.ops import pvalues as pv
+    from netrep_tpu_torch.parallel.engine import PermutationEngine
+    from netrep_tpu_torch.serve import (
+        AutoscaleConfig, Autoscaler, FleetConfig, ServeConfig,
+        build_inprocess_fleet, inprocess_spawner, packer,
+    )
+    from netrep_tpu_torch.utils.config import EngineConfig, FaultPolicy
+    from netrep_tpu_torch.utils.telemetry import read_events
+
+    cfg = EngineConfig(chunk_size=128)
+    chunk = cfg.chunk_size
+    names = ("disc", "test", "test2")
+    cells = [(d, t) for d in names for t in names if d != t]
+    out: dict = {}
+    root = tempfile.mkdtemp(prefix="netrep_fleet_")
+    fleets: list = []
+
+    # measurement hook: each pack's replica, null, plans and launches
+    log: list = []
+    real = PermutationEngine.run_null_monitored
+
+    def launch_counts():
+        return {fn.__name__: fn.launches for fn in tops.kernels()}
+
+    def who():
+        t = threading.current_thread()
+        for f in fleets:
+            for rid, rep in list(f._replicas.items()):
+                if rep.server._worker is t:
+                    return rid
+        return t.name
+
+    def hooked(self, n_perm, key, monitor, *a, **k):
+        if not isinstance(monitor, packer.PackMonitor):
+            return real(self, n_perm, key, monitor, *a, **k)
+        before = launch_counts()
+        entry = dict(rid=who(), plans=monitor.plans, crashed=True)
+        try:
+            res = real(self, n_perm, key, monitor, *a, **k)
+            entry.update(crashed=False, nulls=res[0])
+            return res
+        finally:
+            after = launch_counts()
+            entry["launches"] = {n: after[n] - before[n] for n in after}
+            log.append(entry)
+
+    def per_replica(entries):
+        tally: dict = {}
+        for e in entries:
+            row = tally.setdefault(e["rid"], {n: 0 for n in e["launches"]})
+            for n, v in e["launches"].items():
+                row[n] += v
+        return tally
+
+    def buckets(plans):
+        return len({cfg.rounded_cap(int(s)) for p in plans for s in p.sizes})
+
+    def allocated():
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated() / 2**30
+
+    def pinned(fleet):
+        return {rid: rep.stats()["datasets_gib"]
+                for rid, rep in sorted(fleet.live_replicas().items())}
+
+    def same_counts(what, got, want):
+        diff = {f: int(np.sum(np.asarray(got[f]) != np.asarray(want[f])))
+                for f in ("p_values", "counts_hi", "counts_lo",
+                          "counts_eff")}
+        if any(diff.values()) or got["completed"] != want["completed"]:
+            raise RuntimeError(f"fleet {what}: differs: {diff}")
+        return float(np.abs(np.asarray(got["observed"])
+                            - np.asarray(want["observed"])).max())
+
+    PermutationEngine.run_null_monitored = hooked
+    try:
+        # ---- fleet A: the grid and routing on the three cohorts ---------
+        base = allocated()
+
+        def config_a(rid, _journal, _ckpt):
+            return ServeConfig(engine=cfg, fleet_label=rid, slo_s=600.0,
+                               telemetry=os.path.join(root, f"a_{rid}.jsonl"))
+
+        fleet = build_inprocess_fleet(
+            2, os.path.join(root, "a"), make_config=config_a,
+            fleet_config=FleetConfig(
+                heartbeat_s=3600.0,
+                telemetry=os.path.join(root, "coord_a.jsonl")))
+        fleets.append(fleet)
+        grid_kw = dict(network=kw["network"], data=kw["data"],
+                       correlation=kw["correlation"],
+                       module_assignments={n: list(labels) for n in names},
+                       n_perm=N_PERM, seed=SEED, config=cfg, device=dev)
+        try:
+            log.clear()
+            tops.reset_launches()
+            t0 = time.perf_counter()
+            g = grid_preservation(fleet=fleet, **grid_kw)
+            grid_s = time.perf_counter() - t0
+            grid_log = list(log)
+            pinned_a = pinned(fleet)
+            t0 = time.perf_counter()
+            local = grid_preservation(**grid_kw)
+            local_s = time.perf_counter() - t0
+            obs_err = 0.0
+            for d, t in cells:
+                a, b = g.cell(d, t), local.cell(d, t)
+                obs_err = max(obs_err, same_counts(
+                    f"grid cell {d}->{t}", vars(a), vars(b)))
+            if obs_err > TOL:
+                raise RuntimeError(f"fleet grid: observed {obs_err}")
+            routes = {f"{d}->{t}": fleet.route("grid", d, t).rid
+                      for d, t in cells}
+            for e in grid_log:
+                want = {"fused_stats_values":
+                        -(-N_PERM // chunk) * buckets(e["plans"])}
+                expect_launches("fleet grid cell", e["launches"], want)
+            if len(grid_log) != len(cells):
+                raise RuntimeError(f"fleet grid ran {len(grid_log)} packs")
+            out[("fleet", "grid")] = {
+                n: sum(e["launches"][n] for e in grid_log)
+                for n in grid_log[0]["launches"]}
+            served = {rid: row["done"] for rid, row in
+                      fleet.stats()["replicas"].items()}
+            if any(n != list(routes.values()).count(rid)
+                   for rid, n in served.items()):
+                raise RuntimeError(f"fleet routes {routes} vs {served}")
+            # round 2: the same six requests, pool hits on the same replicas
+            log.clear()
+            tops.reset_launches()
+            t0 = time.perf_counter()
+            again = {}
+            for d, t in cells:
+                again[(d, t)] = fleet.analyze(
+                    "grid", d, t, n_perm=N_PERM, seed=SEED, timeout=1200)
+            round2_s = time.perf_counter() - t0
+            for (d, t), res in again.items():
+                same_counts(f"round 2 {d}->{t}", res, vars(g.cell(d, t)))
+                if not res["pool_hit"]:
+                    raise RuntimeError(f"fleet round 2 {d}->{t} built an "
+                                       "engine")
+            if [e["rid"] for e in log] != [routes[f"{d}->{t}"]
+                                           for d, t in cells]:
+                raise RuntimeError("fleet round 2 left its pairs' replicas")
+            out[("fleet", "round2")] = launch_counts()
+            stats_a = fleet.stats()
+            emit({"phase": "fleet", "drill": "grid_and_routing",
+                  "replicas": 2, "journal": False, "grid_wall_s": grid_s,
+                  "in_process_grid_wall_s": local_s,
+                  "grid_equal_in_process": True,
+                  "observed_max_abs_vs_in_process": obs_err,
+                  "routes": routes, "round2_wall_s": round2_s,
+                  "round2_pool_hits": len(again),
+                  "launches_grid_per_replica": per_replica(grid_log),
+                  "launches_round2_per_replica": per_replica(log),
+                  "pool_held_gib": {rid: rep.stats()["pool"]["held_gib"]
+                                    for rid, rep in
+                                    fleet.live_replicas().items()},
+                  "pinned_gib_per_replica": pinned_a,
+                  "packs": {rid: row["packs"] for rid, row in
+                            stats_a["replicas"].items()},
+                  "card": card})
+        finally:
+            fleet.close()
+        left_a = allocated() - base
+        emit({"phase": "fleet_release", "fleet": "A",
+              "allocated_gib_after_close_vs_before": left_a, "card": card})
+        if left_a > 0.1:
+            raise RuntimeError(f"fleet A: {left_a:.3f} GiB still allocated "
+                               "after close()")
+        del g, local, again
+        torch.cuda.empty_cache()
+
+        # ---- fleet B: autoscale, failover, eviction on a fixture --------
+        base = allocated()
+        fdir = os.path.join(root, "b")
+
+        def config_b(rid, journal, ckpt):
+            return ServeConfig(
+                engine=cfg, journal=journal, checkpoint_dir=ckpt,
+                checkpoint_every=FLEET_CKPT_EVERY, fleet_label=rid,
+                max_pack=2, pack_window_s=1.0, slo_s=600.0,
+                telemetry=os.path.join(root, f"b_{rid}.jsonl"))
+
+        coord_tel = os.path.join(root, "coord_b.jsonl")
+        fleet = build_inprocess_fleet(
+            2, fdir, make_config=config_b, start_servers=False,
+            fleet_config=FleetConfig(heartbeat_s=3600.0,
+                                     telemetry=coord_tel))
+        fleets.append(fleet)
+        crash = FaultPolicy(plan=f"crash@{FLEET_CRASH_AT}",
+                            backoff_base_s=0.0, backoff_jitter=0.0)
+        crashed_at = FLEET_CRASH_AT // chunk * chunk
+        try:
+            t0 = time.perf_counter()
+            fx = fleet.register_fixture("acme", "fx", **FLEET_FIXTURE)
+            register_s = time.perf_counter() - t0
+            d_name, t_name = fx["discovery"], fx["test"]
+            any_rep = next(iter(fleet.live_replicas().values()))
+            dsets = {n: any_rep.server._dataset("acme", n)
+                     for n in (d_name, t_name)}
+            solo_kw = dict(
+                network={n: x.ds.network for n, x in dsets.items()},
+                correlation={n: x.ds.correlation for n, x in dsets.items()},
+                data={n: x.ds.data for n, x in dsets.items()},
+                module_assignments=dsets[d_name].assignments,
+                discovery=d_name, test=t_name, config=cfg, simplify=False,
+                device=dev, n_perm=N_PERM)
+
+            def drill_refs(seeds):
+                return {s: module_preservation(seed=s, **solo_kw)[
+                    d_name][t_name] for s in seeds}
+
+            def resumed_pack(what, rid, refs, results, events_path):
+                """The peer's resumed pack against the solo calls."""
+                entries = [e for e in log if e["rid"] == rid
+                           and not e["crashed"]]
+                if len(entries) != 1:
+                    raise RuntimeError(f"fleet {what}: {len(entries)} packs "
+                                       f"on the peer")
+                e = entries[0]
+                # the checkpoint resumes since the peer's adoption
+                events = list(read_events(events_path))
+                last = max(i for i, x in enumerate(events)
+                           if x["ev"] == "journal_replayed")
+                resumed = [x["data"]["completed"] for x in events[last:]
+                           if x["ev"] == "checkpoint_resumed"]
+                if resumed != [crashed_at]:
+                    raise RuntimeError(f"fleet {what}: resumed at {resumed},"
+                                       f" crashed at {crashed_at}")
+                want = {"fused_stats_values":
+                        -(-(N_PERM - crashed_at) // chunk)
+                        * buckets(e["plans"])}
+                expect_launches(f"fleet {what} peer", e["launches"], want)
+                err = obs = 0.0
+                for p in e["plans"]:
+                    ref, res = refs[p.seed], results[p.seed]
+                    hi, lo, eff = pv.tail_counts(ref.observed, ref.nulls)
+                    obs = max(obs, same_counts(
+                        f"{what} seed {p.seed}", res, dict(
+                            p_values=ref.p_values, counts_hi=hi,
+                            counts_lo=lo, counts_eff=eff,
+                            completed=ref.completed,
+                            observed=ref.observed)))
+                    err = max(err, nulls_err(
+                        np, e["nulls"][:N_PERM, p.base:p.base + p.k],
+                        ref.nulls[:N_PERM]))
+                if err > 0.0 or obs > TOL:
+                    raise RuntimeError(f"fleet {what}: null rows {err}, "
+                                       f"observed {obs} from solo")
+                return e, resumed[0], want
+
+            pinned_b = pinned(fleet)
+            # the pair's home holds a warm engine (a pack of one) before
+            # the drill; the peer's worker starts once the card is read
+            # after the failover
+            home = fleet.route("acme", d_name, t_name)
+            home.server.start()
+            fleet.analyze("acme", d_name, t_name, n_perm=N_PERM, seed=300,
+                          timeout=1200)
+            home.arm_fault_plan(crash)
+            fo_seeds = (301, 302)
+            # failover: the home dies mid-pack, the peer resumes the pack
+            log.clear()
+            tops.reset_launches()
+            t0 = time.perf_counter()
+            for s in fo_seeds:
+                home.server.submit("acme", d_name, t_name, n_perm=N_PERM,
+                                   seed=s, idempotency_key=f"fo{s}")
+            home.server._worker.join(timeout=1200)
+            if home.server._worker.is_alive():
+                raise RuntimeError("fleet failover: the crash plan did not "
+                                   "stop the worker")
+            held_dead = home.stats()["pool"]["held_gib"]
+            if held_dead <= 0 and dev.type == "cuda":
+                raise RuntimeError("fleet failover: the home held no warm "
+                                   "engine")
+            before_kill = allocated()
+            fleet.kill_replica(home.rid)
+            after_failover = allocated()
+            peer_rid = [x["data"]["peer"] for x in read_events(coord_tel)
+                        if x["ev"] == "failover_done"][0]
+            fleet.live_replicas()[peer_rid].server.start()
+            got = {s: fleet.analyze("acme", d_name, t_name, n_perm=N_PERM,
+                                    seed=s, idempotency_key=f"fo{s}",
+                                    timeout=1200) for s in fo_seeds}
+            failover_wall = time.perf_counter() - t0
+            refs = drill_refs(fo_seeds)
+            entry, resumed_at, want = resumed_pack(
+                "failover", peer_rid, refs, got,
+                os.path.join(root, f"b_{peer_rid}.jsonl"))
+            fo_done = [x["data"] for x in read_events(coord_tel)
+                       if x["ev"] == "failover_done"][0]
+            if fo_done["requeued"] != len(fo_seeds):
+                raise RuntimeError(f"fleet failover: {fo_done}")
+            out[("fleet", "failover_peer")] = entry["launches"]
+            emit({"phase": "fleet", "drill": "failover",
+                  "fixture": FLEET_FIXTURE, "n_perm": N_PERM,
+                  "crash_at": FLEET_CRASH_AT,
+                  "checkpoint_every": FLEET_CKPT_EVERY,
+                  "register_fixture_s_two_replicas": register_s,
+                  "dead": home.rid, "peer": peer_rid,
+                  "failover_done_s": fo_done["s"],
+                  "requeued": fo_done["requeued"],
+                  "crashed_at_dispatch": crashed_at,
+                  "resumed_at": resumed_at,
+                  "recomputed_perms": crashed_at - resumed_at,
+                  "peer_launches": entry["launches"],
+                  "peer_launches_expected": want,
+                  "launches_per_replica": per_replica(log),
+                  "equal_solo": True, "null_bit_equal_vs_solo": True,
+                  "dead_pool_held_gib": held_dead,
+                  "allocated_gib_before_kill": before_kill - base,
+                  "allocated_gib_after_failover": after_failover - base,
+                  "drill_wall_s": failover_wall, "card": card})
+            if before_kill - after_failover < 0.9 * held_dead:
+                raise RuntimeError("fleet failover: the dead replica's pool "
+                                   "stayed on the card")
+            # the autoscaler restores the floor: a third replica, which
+            # adopts the registrations from the survivor's shipped journal
+            clk = {"t": 0.0}
+            scaler = Autoscaler(
+                fleet, inprocess_spawner(fdir, make_config=config_b),
+                AutoscaleConfig(min_replicas=2, max_replicas=3,
+                                scale_down_idle_s=10.0, cooldown_s=2.0),
+                clock=lambda: clk["t"], start=False)
+            t0 = time.perf_counter()
+            ticks = [scaler.tick(now=0.0)]
+            spawn_s = time.perf_counter() - t0
+            clk["t"] = 1.0
+            ticks.append(scaler.tick(now=1.0))
+            if ticks != ["up", None] or len(fleet.live_replicas()) != 2:
+                raise RuntimeError(f"fleet autoscale up: {ticks}")
+            spawned = [x["data"] for x in read_events(coord_tel)
+                       if x["ev"] == "autoscale_up"]
+            pinned_b.update(pinned(fleet))
+            # eviction: the pair's new home crashes mid-pack, then leaves
+            home = fleet.route("acme", d_name, t_name)
+            home.arm_fault_plan(crash)
+            ev_seeds = (303, 304)
+            log.clear()
+            tops.reset_launches()
+            t0 = time.perf_counter()
+            for s in ev_seeds:
+                home.server.submit("acme", d_name, t_name, n_perm=N_PERM,
+                                   seed=s, idempotency_key=f"ev{s}")
+            home.server._worker.join(timeout=1200)
+            if home.server._worker.is_alive():
+                raise RuntimeError("fleet eviction: the crash plan did not "
+                                   "stop the worker")
+            receipt = fleet.evict_notice(home.rid, grace_s=30.0)
+            got = {s: fleet.analyze("acme", d_name, t_name, n_perm=N_PERM,
+                                    seed=s, idempotency_key=f"ev{s}",
+                                    timeout=1200) for s in ev_seeds}
+            evict_wall = time.perf_counter() - t0
+            refs = drill_refs(ev_seeds)
+            entry, resumed_at, want = resumed_pack(
+                "eviction", receipt["peer"], refs, got,
+                os.path.join(root, f"b_{receipt['peer']}.jsonl"))
+            names_b = {x["ev"] for x in read_events(coord_tel)}
+            if (receipt["requeued"] != len(ev_seeds)
+                    or "evict_handoff_done" not in names_b
+                    or sum(x["ev"] == "failover_done"
+                           for x in read_events(coord_tel)) != 1):
+                raise RuntimeError(f"fleet eviction: {receipt}")
+            out[("fleet", "evict_peer")] = entry["launches"]
+            emit({"phase": "fleet", "drill": "eviction",
+                  "autoscale_up": {"ticks": ticks, "spawn_s": spawn_s,
+                                   "spawned": spawned},
+                  "pinned_gib_per_replica": pinned_b,
+                  "evicted": home.rid, "peer": receipt["peer"],
+                  "handoff_s": receipt["s"],
+                  "requeued": receipt["requeued"],
+                  "crashed_at_dispatch": crashed_at,
+                  "resumed_at": resumed_at,
+                  "recomputed_perms": crashed_at - resumed_at,
+                  "peer_launches": entry["launches"],
+                  "peer_launches_expected": want,
+                  "launches_per_replica": per_replica(log),
+                  "equal_solo": True, "null_bit_equal_vs_solo": True,
+                  "drill_wall_s": evict_wall, "card": card})
+            # scale down: the floor lowered to zero, past the idle period
+            scaler.config = dataclasses.replace(scaler.config,
+                                                min_replicas=0)
+            downs = []
+            for now in (20.0, 21.0, 23.0):
+                clk["t"] = now
+                downs.append(scaler.tick(now=now))
+            if downs != ["down", None, None] or fleet.live_replicas():
+                raise RuntimeError(f"fleet scale down: {downs}")
+            emit({"phase": "fleet", "drill": "scale_down",
+                  "ticks": downs, "last_journal": bool(fleet.last_journal),
+                  "states": {rid: row["state"] for rid, row in
+                             fleet.stats()["replicas"].items()},
+                  "card": card})
+        finally:
+            fleet.close()
+        left_b = allocated() - base
+        emit({"phase": "fleet_release", "fleet": "B",
+              "allocated_gib_after_failover": after_failover - base,
+              "allocated_gib_after_close_vs_before": left_b, "card": card})
+        if left_b > 0.1:
+            raise RuntimeError(f"fleet B: {left_b:.3f} GiB still allocated "
+                               "after close()")
+    finally:
+        PermutationEngine.run_null_monitored = real
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return out
+
+
+def fleet_only() -> int:
+    """``--fleet``: the fleet phase alone, on the three cohorts."""
+    setup = mode_setup()
+    if setup is None:
+        return 1
+    torch, np, dev, card = setup
+    from netrep_tpu_torch import ops as tops
+
+    _sizes, labels, cohorts = make_cohorts(np)
+    kw = host_kw(torch, np, dev, cohorts, labels)
+    fleet_phase(torch, np, tops, kw, labels, card, dev)
+    print(card_line(), flush=True)
+    return 0
+
+
 def serve_only() -> int:
     """``--serve``: the serve phase alone, on the three cohorts."""
     setup = mode_setup()
@@ -5182,6 +5673,8 @@ def main() -> int:
     launches.update(grid_phase(torch, np, tops, kw, labels, card, dev))
     # ---- the single server: packs, warm pool, recovery, the daemon ------
     launches.update(serve_phase(torch, np, tops, kw, labels, card, dev))
+    # ---- the fleet: grid and routing, failover, autoscaling, eviction ---
+    launches.update(fleet_phase(torch, np, tops, kw, labels, card, dev))
     del kw, runs, a, b, comp, der, multi, fused_run, res, seq, f32_ref
     del composed_adaptive
     del dd, dc, dn, td, tc, tn, t2d, t2c, t2n
@@ -5305,6 +5798,11 @@ def main() -> int:
         "serve B round 1 (xla; a cross-pair pack, a pack of 2)": (
             "serve", "B_round1"),
         "serve B round 2 (pool hits)": ("serve", "B_round2"),
+        "fleet grid (six cells on two replicas)": ("fleet", "grid"),
+        "fleet round 2 (pool hits)": ("fleet", "round2"),
+        "fleet failover, the peer's resumed pack": ("fleet",
+                                                    "failover_peer"),
+        "fleet eviction, the peer's resumed pack": ("fleet", "evict_peer"),
     }
     ring_paths = {"checkpoint written on the ring mesh"}
     for row in rows:
@@ -5363,7 +5861,7 @@ if __name__ == "__main__":
                  lambda *a: atlas_build_phase(*a, headline=True)),
              "--bf16": bf16_only, "--screened": screened_only,
              "--faults": faults_only, "--grid": grid_only,
-             "--serve": serve_only}
+             "--serve": serve_only, "--fleet": fleet_only}
     args = sys.argv[1:]
     if len(args) > 1 or (args and args[0] not in modes):
         sys.exit(f"usage: {sys.argv[0]} [{' | '.join(modes)}]")

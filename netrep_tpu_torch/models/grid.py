@@ -44,8 +44,14 @@ the props and the matrices of the packs still to run.
 
 A manifest names its config by a hash of ``repr(EngineConfig)``, and the
 two packages' configs print differently, so a manifest does not cross
-packages; the cell files do. ``fleet=`` (routing cells to a serving fleet)
-belongs to ROADMAP.md Queue 1 item 15.4.
+packages; the cell files do.
+
+``fleet=`` routes each cell through a serving fleet
+(:class:`~netrep_tpu_torch.serve.fleet.FleetCoordinator`) instead of
+running it here: every grid dataset registers once (broadcast to the
+replicas), and each cell runs on the replica the hash ring places its
+(discovery, test) digests on, under the serve path's own equality with
+the solo call.
 """
 
 from __future__ import annotations
@@ -247,15 +253,15 @@ def grid_preservation(
       (:func:`~netrep_tpu_torch.utils.telemetry.grid_summary`).
     - ``device`` — None means ``"cuda"`` (raises without a card); pass
       ``"cpu"`` to run the kernels' plain versions on the CPU.
-    - ``fleet`` / ``fleet_tenant`` — not ported yet: ``fleet=`` raises
-      ``NotImplementedError`` naming ROADMAP.md Queue 1 item 15.4.
+    - ``fleet`` — a :class:`~netrep_tpu_torch.serve.fleet.
+      FleetCoordinator` (e.g. :func:`~netrep_tpu_torch.serve.fleet.
+      build_inprocess_fleet`): cells route to replicas by the
+      content-digest hash ring instead of running here, each as one
+      request of tenant ``fleet_tenant``. The replicas' ``ServeConfig``
+      must carry the same ``EngineConfig`` (and ``null``) for the cells to
+      equal the local grid's. Manifest reuse still applies; warm-start
+      priors and the cross-cell observed cache are local features.
     """
-    if fleet is not None:
-        raise NotImplementedError(
-            "fleet= (grid cells routed to a serving fleet) is not ported "
-            "yet: ROADMAP.md Queue 1 item 15.4 (the serving fleet); run "
-            "the grid in-process without fleet="
-        )
     if null not in ("overlap", "all"):
         raise ValueError(f"null must be 'overlap' or 'all', got {null!r}")
     if alternative not in ("greater", "less", "two.sided"):
@@ -335,7 +341,8 @@ def grid_preservation(
             stack.enter_context(tel.activate())
             grid_sid = tel.begin_span(
                 "grid_start", datasets=len(names), rows=len(rows),
-                cells=len(cells), adaptive=bool(adaptive), fleet=False,
+                cells=len(cells), adaptive=bool(adaptive),
+                fleet=fleet is not None,
                 resumable=grid_dir is not None)
         t0 = time.perf_counter()
         cache = ObservedCache()
@@ -346,7 +353,8 @@ def grid_preservation(
             built, names, rows, cells, assign, modules, background_label,
             null, alternative, n_perm, seed, config, adaptive, adaptive_rule,
             grid_dir, manifest, prior_cells, digests, tel, cache, stats,
-            verbose, checkpoint_every, dev, profile["packs"])
+            verbose, checkpoint_every, dev, profile["packs"], fleet,
+            fleet_tenant, sources)
         if manifest_path is not None:
             _write_manifest(manifest_path, manifest)
         stats["dedup"] = cache.stats()
@@ -365,9 +373,11 @@ def grid_preservation(
 def _run_grid(built, names, rows, cells, assign, modules, background_label,
               null, alternative, n_perm, seed, config, adaptive,
               adaptive_rule, grid_dir, manifest, prior_cells, digests, tel,
-              cache, stats, verbose, checkpoint_every, dev, pack_times):
+              cache, stats, verbose, checkpoint_every, dev, pack_times,
+              fleet, fleet_tenant, sources):
     """The grid's body: every cell's plan, the cells the manifest still
-    holds, then the rest column-packed, each result saved as it lands."""
+    holds, then the rest column-packed (or fleet-routed), each result
+    saved as it lands."""
     from ..serve.packer import (
         GridPackedEngine, RequestPlan, assign_bases, run_pack,
     )
@@ -450,6 +460,13 @@ def _run_grid(built, names, rows, cells, assign, modules, background_label,
             tel.emit("grid_cell_done", discovery=str(d), test=str(t),
                      source="computed", perms=int(perms),
                      warmstarted=(d, t) in priors)
+
+    if fleet is not None:
+        if todo:
+            _run_fleet(fleet, fleet_tenant, sources, assign, todo, plans,
+                       alternative, seed, adaptive, adaptive_rule, tel,
+                       finish_cell, verbose)
+        return results
 
     # -- column packs: (test, pool signature, data presence) --------------
     groups: dict[tuple, list[tuple[str, str]]] = {}
@@ -549,3 +566,35 @@ def _run_grid(built, names, rows, cells, assign, modules, background_label,
         for (d, _t), res in zip(members, pack_res):
             finish_cell(d, t, _result_from_pack(res, d, t))
     return results
+
+
+def _run_fleet(fleet, tenant, sources, assign, todo, plans, alternative,
+               seed, adaptive, adaptive_rule, tel, finish_cell, verbose):
+    """Fleet-spread execution: register every grid dataset once (the
+    coordinator broadcasts and records the content digests it routes on),
+    then route each cell to the replica the hash ring places it on. The
+    registrations are the user's inputs as the grid digested them, so a
+    replica's digest is the grid's (and the JAX package's); cells sharing
+    a replica and a test dataset may pack there."""
+    needed = sorted({d for d, _ in todo} | {t for _, t in todo})
+    for n in needed:
+        fleet.register_dataset(
+            tenant, n, network=sources[n]["network"],
+            correlation=sources[n]["correlation"],
+            data=sources[n]["data"], assignments=assign.get(n),
+        )
+    for d, t in todo:
+        if tel is not None:
+            tel.emit("grid_cell_start", discovery=str(d), test=str(t),
+                     pack_size=1, fleet=True,
+                     n_modules=len(plans[(d, t)]["labels"]))
+        if verbose:
+            rep = fleet.route(tenant, d, t)
+            logger.info("grid cell %r→%r routed to replica %s", d, t,
+                        getattr(rep, "rid", "?"))
+        res = fleet.analyze(
+            tenant, d, t, n_perm=plans[(d, t)]["n_perm"], seed=int(seed),
+            alternative=alternative, adaptive=bool(adaptive),
+            rule=adaptive_rule,
+        )
+        finish_cell(d, t, _result_from_pack(res, d, t))

@@ -1,4 +1,4 @@
-"""The serving tier of the port: the single server.
+"""The serving tier of the port: the single server and the fleet.
 
 Tenants register datasets once, then submit many preservation analyses;
 the scheduler (:mod:`~netrep_tpu_torch.serve.scheduler`) packs concurrent
@@ -19,13 +19,31 @@ Surface::
 
 The daemon (:mod:`~netrep_tpu_torch.serve.server`) speaks one JSON op a
 line over a unix socket (:class:`SocketClient`); until the port has a CLI
-it starts through ``serve_daemon(daemon_args(socket=PATH))``. The serving
-fleet (``fleet.py``, ``lifecycle.py``) is ROADMAP.md Queue 1 item 15.4;
-the CLI, the ``dump`` op and the AOT store are item 16b.
+it starts through ``serve_daemon(daemon_args(socket=PATH))``.
+
+The fleet (:mod:`~netrep_tpu_torch.serve.fleet`): in-process replicas
+behind a :class:`FleetCoordinator` — consistent-hash routing on dataset
+digests (:class:`HashRing`), journal shipping, replica-kill failover,
+fleet-wide admission, planned departures (retire, eviction handoff) under
+the replica lifecycle machine (:mod:`~netrep_tpu_torch.serve.lifecycle`)
+and an :class:`Autoscaler`::
+
+    from netrep_tpu_torch.serve import build_inprocess_fleet
+
+    fleet = build_inprocess_fleet(2, "fleet_dir")   # on the card
+
+The CLI, the daemon fleet, the ``dump`` op and the AOT store are
+ROADMAP.md Queue 1 item 16b.
 """
 
 from .client import InProcessClient, ServeRejected, SocketClient, retry_delay
+from .fleet import (
+    AutoscaleConfig, Autoscaler, FleetConfig, FleetCoordinator, HashRing,
+    InProcessReplica, ReplicaLost, build_inprocess_fleet, dispatch_fleet_op,
+    inprocess_spawner,
+)
 from .journal import JournalShipper, RequestJournal
+from .lifecycle import IllegalTransition, ReplicaLifecycle
 from .packer import (
     GridPackedEngine, PackedEngine, PackMonitor, RequestPlan, assign_bases,
     run_pack,
@@ -54,4 +72,16 @@ __all__ = [
     "assign_bases",
     "run_pack",
     "retry_delay",
+    "ReplicaLost",
+    "FleetConfig",
+    "FleetCoordinator",
+    "HashRing",
+    "InProcessReplica",
+    "build_inprocess_fleet",
+    "inprocess_spawner",
+    "dispatch_fleet_op",
+    "Autoscaler",
+    "AutoscaleConfig",
+    "ReplicaLifecycle",
+    "IllegalTransition",
 ]

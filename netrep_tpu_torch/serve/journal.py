@@ -212,8 +212,8 @@ class JournalShipper:
 
     A missing source file (replica not booted yet) is simply "nothing to
     ship". The thread is owned by its caller (the fleet coordinator,
-    ROADMAP.md Queue 1 item 15.4); ``flush()`` is the synchronous one-pass
-    entry a failover path (and tests) call directly."""
+    :mod:`~netrep_tpu_torch.serve.fleet`); ``flush()`` is the synchronous
+    one-pass entry a failover path (and tests) call directly."""
 
     def __init__(self, src_path: str, dest_path: str, *,
                  interval_s: float = 0.2, replica: str | None = None,

@@ -59,15 +59,25 @@ What the port does its own way:
 - ``clock`` (a keyword of :class:`PreservationServer`): the clock request
   deadlines are set and checked on, shared with the pack monitor — an
   injectable clock makes deadline behaviour deterministic.
+- **A replay skips what it holds**: a journaled registration already
+  registered here under the same identity (an inline payload's digest, a
+  fixture's parameters) is not checked again — in a fleet every replica
+  holds every registration, so a peer adopting a journal re-queues its
+  requests without re-reading the datasets.
 - ``preload``: after a recovering boot re-registered datasets, one
   background thread builds the pooled engine of up to ``preload_max``
   registered pairs, loads the kernels their statistics launch, and runs
   the observed pass, so the first request finds a warm engine.
 
+Inside a serving fleet (:mod:`~netrep_tpu_torch.serve.fleet`) a server
+carries its replica id as ``ServeConfig.fleet_label``: its first
+completed pack records a cold-start entry to the perf ledger
+(:mod:`~netrep_tpu_torch.utils.perfledger`), and the rate estimate falls
+back on the ledger's serve history before anything is measured.
+
 Not carried over (ROADMAP.md Queue 1 item 16b): the AOT program store and
-its export scope, the perf-ledger rate fallback and the fleet cold-start
-record, the roofline note in ``stats()``, and the ``slo_burn`` anomaly
-detector. The fleet (``fleet_label``) is item 15.4.
+its export scope (which ``fleet_label`` turns on in the JAX package), the
+roofline note in ``stats()``, and the ``slo_burn`` anomaly detector.
 """
 
 from __future__ import annotations
@@ -194,6 +204,12 @@ class ServeConfig:
     #: (:class:`~netrep_tpu_torch.serve.packer.GridPackedEngine`). Only
     #: single-test dense requests; off by default
     cross_pair_packing: bool = False
+    #: replica identity inside a serving fleet (e.g. ``"r0"``). When set,
+    #: the replica's FIRST completed pack records its cold-start compile
+    #: span to the perf ledger under a fleet-labeled fingerprint
+    #: (``serve-fleet-coldstart|<label>|<backend>``). None = stand-alone
+    #: server, nothing recorded.
+    fleet_label: str | None = None
 
 
 @dataclasses.dataclass
@@ -344,12 +360,18 @@ class PreservationServer:
         self._replaying = False
         self._adopting = False
         self._fixture_depth = 0
+        #: (tenant, prefix) -> the parameters of each fixture registered
+        self._fixtures: dict[tuple[str, str], dict] = {}
         self._last_drain_requeued = 0
         #: wall clock of the last accepted or finished request
         self._last_active_m = self._started_m
         self._brownout = False
         self._served_perms = 0.0     # measured steady-state rate inputs
         self._busy_s = 0.0
+        #: the perf ledger's serve/run rate, read once (None = nothing)
+        self._ledger_rate: float | None = None
+        self._ledger_rate_read = False
+        self._coldstart_done = False
         self.journal: jnl.RequestJournal | None = None
         self._ckpt_dir = self.config.checkpoint_dir
         if self.config.journal:
@@ -545,6 +567,8 @@ class PreservationServer:
             for name, weight in state["tenants"].items():
                 self.register_tenant(name, weight)
             for rec in state["datasets"]:
+                if self._holds(rec):
+                    continue
                 pl = rec.get("payload") or {}
                 if rec.get("form") == "fixture":
                     self.register_fixture(
@@ -627,6 +651,24 @@ class PreservationServer:
                 adopted=not quiet, **summary,
             )
         return summary
+
+    def _holds(self, rec: dict) -> bool:
+        """Whether a journaled registration is registered here already
+        under the same identity (the digest of an inline payload, the
+        parameters of a fixture) — as a fleet's broadcast registers every
+        dataset on every replica — so a replay skips checking the same
+        data again."""
+        pl = rec.get("payload") or {}
+        tenant = str(rec.get("tenant"))
+        with self._work:
+            if rec.get("form") == "fixture":
+                return self._fixtures.get(
+                    (tenant, str(pl.get("prefix", "fx")))) == pl
+            ten = self._tenants.get(tenant)
+            held = (None if ten is None
+                    else ten.datasets.get(str(rec.get("name"))))
+        return (held is not None and rec.get("digest") is not None
+                and held.digest == rec["digest"])
 
     @staticmethod
     def _terminal_request(key: str, rec: dict, acc: dict) -> Request:
@@ -763,12 +805,12 @@ class PreservationServer:
             for i in idx:
                 assign[f"node_{i}"] = str(lab)
         d_name, t_name = f"{prefix}_d", f"{prefix}_t"
+        params = dict(prefix=prefix, genes=int(genes), modules=int(modules),
+                      n_samples=int(n_samples), seed=int(seed))
         if self.journal is not None and not self._replaying:
             self.journal.append(
                 "dataset", tenant=tenant, name=prefix, form="fixture",
-                payload=dict(prefix=prefix, genes=int(genes),
-                             modules=int(modules), n_samples=int(n_samples),
-                             seed=int(seed)),
+                payload=params,
             )
         self._fixture_depth += 1
         try:
@@ -779,6 +821,8 @@ class PreservationServer:
                                   correlation=tc, data=td)
         finally:
             self._fixture_depth -= 1
+        with self._work:
+            self._fixtures[(tenant, prefix)] = params
         return {"discovery": d_name, "test": t_name,
                 "labels": [str(lab) for lab, _ in mixed["specs"]]}
 
@@ -855,12 +899,19 @@ class PreservationServer:
     def _rate_pps(self) -> float | None:
         """Steady-state serving throughput estimate (perms/s): the
         configured assumption, else the server's own measured rate, else
-        None (brownout then stays off: no guessing)."""
+        the perf ledger's serve/run history (the median of its last eight
+        entries, read once) — None when nothing is known (brownout then
+        stays off: no guessing)."""
         if self.config.brownout_rate_pps:
             return float(self.config.brownout_rate_pps)
         if self._busy_s > 0 and self._served_perms > 0:
             return self._served_perms / self._busy_s
-        return None
+        if not self._ledger_rate_read:
+            self._ledger_rate_read = True
+            from ..utils import perfledger
+
+            self._ledger_rate = perfledger.serve_rate()
+        return self._ledger_rate
 
     def _drain_estimate_locked(self, extra_perms: int = 0) -> float | None:
         rate = self._rate_pps()
@@ -1465,6 +1516,38 @@ class PreservationServer:
             if tel_cm is not None:
                 tel_cm.__exit__(None, None, None)
 
+    def _maybe_record_coldstart(self, results, wall_s: float,
+                                perms_done: int) -> None:
+        """Fleet cold-start baseline: a fleet replica's FIRST completed
+        pack records its compile span to the perf ledger under a
+        fleet-labeled fingerprint. Written only when ``NETREP_PERF_LEDGER``
+        names a ledger, like every ledger writer; stand-alone servers (no
+        ``fleet_label``) record nothing."""
+        if not self.config.fleet_label or self._coldstart_done:
+            return
+        self._coldstart_done = True
+        from ..utils import perfledger
+
+        if not os.environ.get(perfledger.LEDGER_ENV):
+            return
+        compile_s = None
+        for res in results:
+            cost = res.get("cost")
+            if cost and cost.get("pack_totals"):
+                compile_s = float(
+                    cost["pack_totals"].get("compile_s_amortized", 0.0)
+                )
+                break
+        backend = self.device.type
+        label = self.config.fleet_label
+        perfledger.append_entry(perfledger.make_entry(
+            f"serve-fleet-coldstart|{label}|{backend}",
+            perms_done / wall_s if wall_s > 0 else 0.0,
+            "serve", backend=backend, mode="fleet-coldstart",
+            compile_s=compile_s, n_perm=perms_done,
+            metric=f"serve-fleet coldstart {label}",
+        ))
+
     def _pool_key(self, kind: str, digests: tuple, plans) -> tuple:
         return (kind, digests, self._engine_cfg_id,
                 tuple(p.signature() for p in plans))
@@ -1573,6 +1656,7 @@ class PreservationServer:
         perms_done = sum(int(res.get("completed", 0)) for res in results
                          if not res.get("expired"))
         self._account_pack_locked(wall_s, perms_done)
+        self._maybe_record_coldstart(results, wall_s, perms_done)
         for r, res in zip(batch, results):
             if res.get("expired"):
                 self._expire(r, res["deadline_miss_s"],
@@ -1689,9 +1773,8 @@ class PreservationServer:
 
     def stats(self) -> dict:
         """Queue, pool and tenant counters: the JAX package's keys (less
-        the roofline ``utilisation`` and ``fleet_label``), with the pool's
-        ``held_gib`` and the host GiB of the registered datasets
-        (``datasets_gib``)."""
+        the roofline ``utilisation``), with the pool's ``held_gib`` and the
+        host GiB of the registered datasets (``datasets_gib``)."""
         now = time.monotonic()
         uptime = now - self._started_m
         with self._work:
@@ -1725,6 +1808,7 @@ class PreservationServer:
                     0.0 if (self._inflight or self._any_pending_locked())
                     else max(0.0, now - self._last_active_m)
                 ),
+                "fleet_label": self.config.fleet_label,
                 "journal": self.config.journal,
                 "pool": self.pool.stats(),
                 "datasets_gib": sum(

@@ -1,13 +1,16 @@
-"""Live ops dashboard of the single server.
+"""Live ops dashboard of a server or a serving fleet.
 
-The port of ``netrep_tpu/serve/top.py`` without the fleet's replica table
-(ROADMAP.md Queue 1 item 15.4). A refresh-loop view over the daemon's
-``stats`` op: per-tenant queue depth, p50/p99 latency from the
+The port of ``netrep_tpu/serve/top.py``. A refresh-loop view over the
+daemon's ``stats`` op: per-tenant queue depth, p50/p99 latency from the
 pinned-bucket histograms, attributed device-seconds (total and per
 wall-second), SLO burn rate, and the server-level brownout/inflight/pack
-state. Everything is derived from ``PreservationServer.stats()`` alone, so
-:func:`snapshot` runs against an in-process server without a socket; the
-frame equals the JAX package's on the same stats.
+state; for a fleet coordinator's stats, one row per replica (liveness,
+lifecycle state and generation, backlog, rate, packs). Everything is
+derived from a ``stats()`` dict alone, so :func:`snapshot` runs against an
+in-process server or fleet without a socket; the frame equals the JAX
+package's on the same stats. The replica table keeps the JAX package's
+``util`` column, which reads ``-`` here: the roofline gauge is ROADMAP.md
+Queue 1 item 16b.
 """
 
 from __future__ import annotations
@@ -56,7 +59,7 @@ def snapshot(stats: dict) -> dict:
             "bytes_to_host": int(cost.get("bytes_to_host", 0)),
             "burn_rate": float(t.get("burn_rate", 0.0)),
         })
-    return {
+    snap = {
         "tenants": rows,
         "brownout": bool(stats.get("brownout", False)),
         "accepting": bool(stats.get("accepting", True)),
@@ -66,6 +69,28 @@ def snapshot(stats: dict) -> dict:
         "slo_s": stats.get("slo_s"),
         "slo_budget": stats.get("slo_budget"),
     }
+    # a fleet coordinator's stats: one row per replica, rendered as its
+    # own table section
+    if stats.get("replicas"):
+        snap["fleet"] = True
+        snap["replicas"] = [
+            {
+                "replica": rid,
+                "alive": bool(r.get("alive", False)),
+                "state": r.get("state"),
+                "gen": int(r.get("gen", 0) or 0),
+                "idle_s": r.get("idle_s"),
+                "queue_depth": int(r.get("queue_depth", 0) or 0),
+                "backlog_perms": int(r.get("backlog_perms", 0) or 0),
+                "rate_pps": r.get("rate_pps"),
+                "utilisation": r.get("utilisation"),
+                "packs": int(r.get("packs", 0) or 0),
+                "done": int(r.get("done", 0) or 0),
+                "brownout": bool(r.get("brownout", False)),
+            }
+            for rid, r in sorted(stats["replicas"].items())
+        ]
+    return snap
 
 
 def render_tenant_table(rows: list[dict]) -> str:
@@ -91,6 +116,48 @@ def render_tenant_table(rows: list[dict]) -> str:
     return "\n".join(out)
 
 
+#: per-replica table columns of a fleet's dashboard
+_REPLICA_COLUMNS = (
+    ("replica", 10, "replica", "s"),
+    ("up", 4, "up", "s"),
+    # the lifecycle state (spawning/ready/draining/dead) and generation
+    ("state", 9, "state", "s"),
+    ("gen", 4, "gen", "d"),
+    ("q", 4, "queue_depth", "d"),
+    ("backlog", 8, "backlog_perms", "d"),
+    ("rate/s", 9, "rate_pps", ".1f"),
+    # the roofline gauge: `-` until it is ported (ROADMAP.md item 16b)
+    ("util", 5, "utilisation", ".2f"),
+    ("packs", 6, "packs", "d"),
+    ("done", 6, "done", "d"),
+)
+
+
+def render_replica_table(rows: list[dict]) -> str:
+    """The fleet's per-replica section: one row per replica over the
+    :data:`_REPLICA_COLUMNS` schema (``up`` collapses alive/brownout into
+    ``yes``/``brn``/``DEAD``)."""
+    out = []
+    out.append("  ".join(
+        f"{h:>{w}}" if fmt != "s" else f"{h:<{w}}"
+        for h, w, _k, fmt in _REPLICA_COLUMNS
+    ))
+    for r in rows:
+        state = ("DEAD" if not r.get("alive")
+                 else "brn" if r.get("brownout") else "yes")
+        cells = []
+        for _h, w, k, fmt in _REPLICA_COLUMNS:
+            v = state if k == "up" else r.get(k)
+            if fmt == "s":
+                cells.append(f"{str(v if v is not None else '-'):<{w}}")
+            elif v is None:
+                cells.append(f"{'-':>{w}}")
+            else:
+                cells.append(f"{v:>{w}{fmt}}")
+        out.append("  ".join(cells))
+    return "\n".join(out)
+
+
 def render(snap: dict) -> str:
     """One dashboard frame."""
     state = []
@@ -98,7 +165,7 @@ def render(snap: dict) -> str:
     if not snap["accepting"]:
         state.append("draining")
     head = (
-        f"netrep serve · "
+        f"netrep serve{' fleet' if snap.get('fleet') else ''} · "
         f"up {snap['uptime_s']:.0f}s · "
         f"inflight {snap['inflight']} · packs {snap['packs']} · "
         f"state {'/'.join(state)}"
@@ -107,9 +174,11 @@ def render(snap: dict) -> str:
         head += (f" · slo {snap['slo_s']:g}s "
                  f"(budget {snap.get('slo_budget', 0):g})")
     parts = [head]
+    if snap.get("replicas"):
+        parts.append(render_replica_table(snap["replicas"]))
     if snap["tenants"]:
         parts.append(render_tenant_table(snap["tenants"]))
-    else:
+    elif not snap.get("replicas"):
         parts.append("(no tenants registered)")
     return "\n".join(parts)
 

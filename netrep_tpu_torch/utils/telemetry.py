@@ -18,9 +18,8 @@ JSONL written by either package reads through the other's aggregator.
 - the offline readers :func:`read_events`, :func:`aggregate_file`,
   :func:`format_event`, :func:`render_recovery`, the all-pairs grid's
   :func:`grid_summary` and :func:`render_grid`, and the single server's
-  :func:`tenant_summary` and :func:`render_tenants`. The fleet's readers
-  of the JAX module (``replica_summary``, ``render_replicas``) come with
-  the serving fleet (ROADMAP.md Queue 1 item 15.4).
+  :func:`tenant_summary` and :func:`render_tenants`, and the serving
+  fleet's :func:`replica_summary` and :func:`render_replicas`.
 
 Spans ride ``data`` as additive fields: ``data["span"]`` names the span
 (a run-unique deterministic id ``s<n>``) and ``data["parent"]`` its
@@ -1020,6 +1019,75 @@ def render_recovery(path: str) -> str:
         data = " ".join(f"{k}={v}" for k, v in d.items())
         lines.append(f"+{e['t'] - t0:9.2f}s  {e['ev']:<24}{label} {data}")
     return "\n".join(lines)
+
+
+def replica_summary(events: Iterable[dict]) -> dict[str, dict]:
+    """Per-replica aggregation of the fleet events (:data:`FLEET_EVENTS`)
+    — the offline twin of the fleet coordinator's live per-replica rows,
+    keyed on the ``replica`` label every fleet event carries: joins,
+    losses, shipped records/bytes, failovers (count + total measured
+    seconds from ``failover_done.s``), noticed evictions (count + total
+    handoff seconds from ``evict_handoff_done.s``), and the replica's LAST
+    lifecycle state/generation from the ``replica_state`` stream."""
+    out: dict[str, dict] = {}
+    for e in events:
+        ev = e.get("ev")
+        if ev not in FLEET_EVENTS:
+            continue
+        data = e.get("data", {})
+        rid = data.get("replica")
+        if rid is None:
+            continue
+        row = out.setdefault(str(rid), {
+            "joined": 0, "lost": 0, "shipped_records": 0,
+            "shipped_bytes": 0, "failovers": 0, "failover_s": 0.0,
+            "evictions": 0, "handoff_s": 0.0, "state": None, "gen": 0,
+        })
+        if ev == "replica_joined":
+            row["joined"] += 1
+        elif ev == "replica_lost":
+            row["lost"] += 1
+        elif ev == "journal_shipped":
+            row["shipped_records"] += int(data.get("records", 0) or 0)
+            row["shipped_bytes"] += int(data.get("bytes", 0) or 0)
+        elif ev == "failover_done":
+            row["failovers"] += 1
+            if _is_number(data.get("s")):
+                row["failover_s"] += float(data["s"])
+        elif ev == "evict_notice":
+            row["evictions"] += 1
+        elif ev == "evict_handoff_done":
+            if _is_number(data.get("s")):
+                row["handoff_s"] += float(data["s"])
+        elif ev == "replica_state":
+            row["state"] = data.get("to")
+            row["gen"] = int(data.get("gen", 0) or 0)
+    return out
+
+
+def render_replicas(path: str) -> str:
+    """Per-replica fleet section of a run report, for logs written by a
+    fleet coordinator; empty for logs without fleet events."""
+    rows = replica_summary(read_events(path))
+    if not rows:
+        return ""
+    out = ["replicas:"]
+    w = max(len(r) for r in rows)
+    out.append(
+        f"  {'':<{w}}  {'state':>8} {'gen':>3} {'join':>5} {'lost':>5} "
+        f"{'ship_rec':>9} {'ship_B':>9} {'failover':>9} {'fo_s':>8} "
+        f"{'evict':>5} {'ho_s':>8}"
+    )
+    for rid in sorted(rows):
+        r = rows[rid]
+        out.append(
+            f"  {rid:<{w}}  {(r['state'] or '-'):>8} {r['gen']:>3} "
+            f"{r['joined']:>5} {r['lost']:>5} "
+            f"{r['shipped_records']:>9} {r['shipped_bytes']:>9} "
+            f"{r['failovers']:>9} {r['failover_s']:>8.3f} "
+            f"{r['evictions']:>5} {r['handoff_s']:>8.3f}"
+        )
+    return "\n".join(out)
 
 
 def grid_summary(events: Iterable[dict]) -> dict:

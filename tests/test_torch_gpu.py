@@ -19,6 +19,9 @@ held to the CPU run of the same call at the same 1e-4, with counts,
 p-values and retirements equal.
 """
 
+import collections
+import os
+
 import numpy as np
 import pytest
 
@@ -1233,3 +1236,139 @@ def test_pool_eviction_frees_the_card(cuda):
     assert allocated() > empty
     srv.close()
     assert allocated() == empty
+
+
+def _card_fleet(root, fx, **cfg_kw):
+    """A two-replica in-process fleet on the card (the servers' default
+    device), journaled into ``root``, both datasets registered, workers
+    not started."""
+    from netrep_tpu_torch.serve import (
+        FleetConfig, ServeConfig, build_inprocess_fleet,
+    )
+
+    def make_config(rid, jpath, ckpt):
+        return ServeConfig(engine=EngineConfig(chunk_size=32), journal=jpath,
+                           checkpoint_dir=ckpt, checkpoint_every=64,
+                           fleet_label=rid,
+                           telemetry=os.path.join(root, f"{rid}.jsonl"),
+                           **cfg_kw)
+
+    fleet = build_inprocess_fleet(
+        2, root, make_config=make_config,
+        fleet_config=FleetConfig(heartbeat_s=3600.0), start_servers=False)
+    for name in ("d", "t"):
+        fleet.register_dataset(
+            "a", name, network=fx["network"][name],
+            correlation=fx["correlation"][name], data=fx["data"][name],
+            assignments=fx["assign"] if name == "d" else None)
+    return fleet
+
+
+def test_fleet_failover_equals_solo_on_the_card(cuda, tmp_path):
+    """A crash plan kills the home replica's worker mid-pack on the card;
+    ``kill_replica`` fails its journal over to the peer, which resumes the
+    pack at the crashed boundary: every request equals its solo call in
+    p-values, counts and ``completed``, and the peer's pack launches the
+    fused kernel once per union bucket for each chunk after the boundary
+    only."""
+    import json
+
+    from netrep_tpu_torch.ops import pvalues as tpv
+    from netrep_tpu_torch.utils.config import FaultPolicy
+
+    fx = _serve_fixture()
+    cfg = EngineConfig(chunk_size=32)
+    fleet = _card_fleet(str(tmp_path), fx)
+    reqs = {"k1": dict(n_perm=256, seed=3), "k2": dict(n_perm=256, seed=4)}
+    try:
+        home = fleet.route("a", "d", "t")
+        peer = [r for rid, r in fleet.live_replicas().items()
+                if rid != home.rid][0]
+        home.arm_fault_plan(FaultPolicy(plan="crash@160", backoff_base_s=0.0,
+                                        backoff_jitter=0.0))
+        for k, kw in reqs.items():
+            home.server.submit("a", "d", "t", idempotency_key=k, **kw)
+        home.server.start()
+        home.server._worker.join(timeout=600)
+        assert not home.server._worker.is_alive(), "crash never fired"
+        fleet.kill_replica(home.rid)
+        tops.reset_launches()
+        peer.server.start()
+        got = {k: fleet.analyze("a", "d", "t", idempotency_key=k,
+                                timeout=600, **kw) for k, kw in reqs.items()}
+        launched = tfused.fused_stats_values.launches
+    finally:
+        fleet.close()
+    events = [json.loads(line) for line in
+              open(tmp_path / f"{peer.rid}.jsonl", encoding="utf-8")]
+    assert [e["data"]["completed"] for e in events
+            if e["ev"] == "checkpoint_resumed"] == [160]
+    sizes = collections.Counter(v for v in fx["assign"].values() if v != "0")
+    buckets = len({cfg.rounded_cap(s) for s in sizes.values()})
+    assert launched == (256 - 160) // 32 * buckets
+    for k, kw in reqs.items():
+        solo = module_preservation(
+            fx["network"], data=fx["data"], correlation=fx["correlation"],
+            module_assignments=fx["assign"], discovery="d", test="t",
+            config=cfg, simplify=False, **kw)["d"]["t"]
+        res = got[k]
+        np.testing.assert_array_equal(res["p_values"], solo.p_values)
+        hi, lo, eff = tpv.tail_counts(solo.observed,
+                                      solo.nulls[:solo.completed])
+        np.testing.assert_array_equal(res["counts_hi"], hi)
+        np.testing.assert_array_equal(res["counts_lo"], lo)
+        np.testing.assert_array_equal(res["counts_eff"], eff)
+        assert res["completed"] == solo.completed == 256
+        assert np.abs(res["observed"] - solo.observed).max() <= TOL
+
+
+def test_fleet_close_gives_the_card_back(cuda, tmp_path):
+    """A dead replica's warm pool leaves the card at failover (its worker
+    gone, without draining), and ``close()`` returns the card to within
+    0.1 GiB of what it held before the fleet; registered datasets wait in
+    pinned host memory on every replica."""
+    from netrep_tpu_torch.utils.config import FaultPolicy
+
+    fx = _serve_fixture()
+
+    def allocated():
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+    before = allocated()
+    fleet = _card_fleet(str(tmp_path), fx)
+    try:
+        for rep in fleet.live_replicas().values():
+            d = rep.server._dataset("a", "t").ds
+            assert d.correlation.device.type == "cpu"
+            assert d.correlation.is_pinned()
+            assert rep.stats()["datasets_gib"] > 0
+        # the peer's worker waits until the card is read after failover
+        home = fleet.route("a", "d", "t")
+        peer = [r for rid, r in fleet.live_replicas().items()
+                if rid != home.rid][0]
+        home.server.start()
+        fleet.analyze("a", "d", "t", n_perm=64, seed=1, timeout=600)
+        held = home.stats()["pool"]["held_gib"] * 2**30
+        assert held > 0
+        # a second request crashes the home's worker mid-pack: the crashed
+        # pack's engine is discarded, the first one stays pooled
+        home.arm_fault_plan(FaultPolicy(plan="crash@32", backoff_base_s=0.0,
+                                        backoff_jitter=0.0))
+        home.server.submit("a", "d", "t", n_perm=64, seed=2, modules=["1"],
+                           idempotency_key="c")
+        home.server._worker.join(timeout=600)
+        assert not home.server._worker.is_alive(), "crash never fired"
+        assert home.server.pool.stats()["size"] == 1
+        busy = allocated()
+        fleet.kill_replica(home.rid)
+        assert home.server.pool.stats()["size"] == 0
+        assert busy - allocated() >= 0.9 * held
+        peer.server.start()
+        res = fleet.analyze("a", "d", "t", n_perm=64, seed=2, modules=["1"],
+                            idempotency_key="c", timeout=600)
+        assert res["completed"] == 64
+        assert allocated() > before
+    finally:
+        fleet.close()
+    assert allocated() - before <= 0.1 * 2**30

@@ -14,7 +14,10 @@ given the same ``adaptive_priors``). Cell files cross packages both ways;
 manifests do not (their config hash is ``repr(EngineConfig)``). The
 telemetry readers ``grid_summary``/``render_grid`` equal the JAX
 package's on the same event file, and every refusal's text is the JAX
-package's; ``fleet=`` names ROADMAP.md Queue 1 item 15.4.
+package's. With ``fleet=`` (each cell routed to a replica of an
+in-process serving fleet) every cell equals the in-process grid's, its
+solo call's and the JAX ``grid_preservation(fleet=)``'s, routed to the
+same replica ids.
 
 The fixture is ``tests/test_grid.py``'s (three cohorts of 30 nodes, two
 with module assignments: four cells in three column packs)."""
@@ -356,10 +359,92 @@ def test_refusals_match_jax(case):
             == _refusal(call(jgrid, JConfig)))
 
 
-def test_fleet_is_a_later_item():
-    network, correlation, data, assign = _cohorts()
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue 1 item 15.4 "):
-        grid_preservation(network, correlation=correlation,
-                          module_assignments=assign, fleet=object(),
-                          device="cpu")
+def _fleet(pkg, root):
+    """A two-replica in-process fleet of either package whose servers run
+    the grid's engine config and null."""
+    if pkg == "port":
+        from netrep_tpu_torch.serve import ServeConfig, build_inprocess_fleet
+
+        def make_config(rid, jpath, ckpt):
+            return ServeConfig(journal=jpath, checkpoint_dir=ckpt,
+                               fleet_label=rid, engine=EngineConfig(**CFG),
+                               null="all", device="cpu")
+    else:
+        from netrep_tpu.serve import ServeConfig, build_inprocess_fleet
+
+        def make_config(rid, jpath, ckpt):
+            return ServeConfig(journal=jpath, checkpoint_dir=ckpt,
+                               fleet_label=rid, null="all",
+                               engine=JConfig(**CFG, autotune=False))
+    return build_inprocess_fleet(2, root, make_config=make_config)
+
+
+def assert_fleet_cell(got, want, what, tol):
+    """A fleet-served cell against another grid's: equal p-values, counts
+    and permutation counts; ``completed`` equal where the cells' packs
+    match (fixed cells always); observed within ``tol``."""
+    for f in ("p_values", "counts_hi", "counts_lo", "counts_eff"):
+        assert np.array_equal(getattr(got, f), getattr(want, f)), (what, f)
+    if want.n_perm_used is None:
+        assert got.n_perm_used is None and got.completed == want.completed
+    else:
+        assert np.array_equal(got.n_perm_used, want.n_perm_used), what
+    for f in ("total_space", "p_type", "n_perm"):
+        assert getattr(got, f) == getattr(want, f), (what, f)
+    assert list(got.module_labels) == list(want.module_labels), what
+    assert np.abs(np.asarray(got.observed)
+                  - np.asarray(want.observed)).max() <= tol, what
+
+
+@pytest.mark.parametrize("adaptive", (False, True),
+                         ids=("fixed", "adaptive"))
+def test_fleet_grid_equals_in_process_grid(tmp_path, adaptive):
+    """``fleet=`` routes every cell to a replica of the port's in-process
+    fleet: each cell equals the in-process grid's and its solo call's, the
+    grid's counters count four computed cells, and the telemetry marks
+    the grid and its cells as fleet-routed."""
+    inputs = _cohorts()
+    fleet = _fleet("port", str(tmp_path / "fleet"))
+    try:
+        got = _port(inputs, adaptive, fleet=fleet,
+                    telemetry=str(tmp_path / "tel.jsonl"))
+        st = fleet.stats()
+    finally:
+        fleet.close()
+    want = _port(inputs, adaptive)
+    for d, t in PAIRS:
+        assert_fleet_cell(got.cell(d, t), want.cell(d, t), (d, t), 1e-6)
+        assert_solo(got.cell(d, t), _solo(inputs, d, t, adaptive), (d, t))
+    assert got.stats["cells_computed"] == 4
+    assert got.stats["perms_evaluated"] == want.stats["perms_evaluated"]
+    assert sum(r["done"] for r in st["replicas"].values()) == 4
+    events = [e for e in ttm.read_events(str(tmp_path / "tel.jsonl"))]
+    start = [e["data"] for e in events if e["ev"] == "grid_start"]
+    assert start[0]["fleet"] is True
+    cells = [e["data"] for e in events if e["ev"] == "grid_cell_start"]
+    assert len(cells) == 4 and all(c["fleet"] for c in cells)
+
+
+@pytest.mark.parametrize("adaptive", (False, True),
+                         ids=("fixed", "adaptive"))
+def test_fleet_grid_equals_jax_fleet_grid(tmp_path, adaptive):
+    """The port's ``grid_preservation(fleet=)`` against the JAX package's
+    on the same inputs: equal p-values, counts and permutation counts in
+    every cell, observed within the Queue 3 bound; every cell routed to
+    the same replica id (the registrations' digests are equal)."""
+    inputs = _cohorts()
+    fleets = {pkg: _fleet(pkg, str(tmp_path / pkg))
+              for pkg in ("port", "jax")}
+    try:
+        got = _port(inputs, adaptive, fleet=fleets["port"])
+        want = _jax(inputs, adaptive, fleet=fleets["jax"])
+        routes = {pkg: {(d, t): f.route("grid", d, t).rid
+                        for d, t in PAIRS} for pkg, f in fleets.items()}
+    finally:
+        for f in fleets.values():
+            f.close()
+    assert routes["port"] == routes["jax"]
+    assert len(set(routes["port"].values())) == 2
+    for d, t in PAIRS:
+        assert_fleet_cell(got.cell(d, t), want.cell(d, t), (d, t), 1e-4)
+        assert got.cell(d, t).completed == want.cell(d, t).completed

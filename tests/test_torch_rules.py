@@ -63,6 +63,8 @@ import netrep_tpu_torch.models.sparse_api, netrep_tpu_torch.models.atlas_api
 import netrep_tpu_torch.parallel.sparse, netrep_tpu_torch.atlas
 import netrep_tpu_torch.models.grid, netrep_tpu_torch.serve.packer
 import netrep_tpu_torch.serve.server, netrep_tpu_torch.serve.top
+import netrep_tpu_torch.serve.fleet, netrep_tpu_torch.serve.lifecycle
+import netrep_tpu_torch.utils.perfledger
 bad = [m for m in set(sys.modules) - before
        if m in ("jax", "jaxlib", "netrep_tpu") or m.startswith(("jax.", "jaxlib.", "netrep_tpu."))]
 print(",".join(sorted(bad)))
@@ -92,8 +94,8 @@ def test_no_card_means_no_run(monkeypatch):
                                    "sparse_properties", "sparse_engine",
                                    "data_only", "data_only_datasets",
                                    "grid", "packed_engine",
-                                   "grid_packed_engine", "serve"])
-def test_device_defaults_to_the_card(monkeypatch, entry):
+                                   "grid_packed_engine", "serve", "fleet"])
+def test_device_defaults_to_the_card(monkeypatch, tmp_path, entry):
     # every function that places tensors takes device=None as "cuda", so a
     # caller that names no device never lands on the CPU unawares
     import numpy as np
@@ -105,7 +107,9 @@ def test_device_defaults_to_the_card(monkeypatch, entry):
     )
     from netrep_tpu_torch.models.grid import grid_preservation
     from netrep_tpu_torch.models.preservation import module_preservation
-    from netrep_tpu_torch.serve import PreservationServer
+    from netrep_tpu_torch.serve import (
+        PreservationServer, build_inprocess_fleet,
+    )
     from netrep_tpu_torch.serve.packer import GridPackedEngine, PackedEngine
     from netrep_tpu_torch.models.sparse_api import (
         sparse_module_preservation, sparse_network_properties,
@@ -149,6 +153,7 @@ def test_device_defaults_to_the_card(monkeypatch, entry):
             [(eye, eye, None)] * 2, eye, eye, None, [spec, spec],
             np.arange(4)),
         "serve": lambda: PreservationServer(start=False),
+        "fleet": lambda: build_inprocess_fleet(1, str(tmp_path / "fleet")),
     }[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()
