@@ -153,6 +153,27 @@ launch count set to 0 just before a path and read just after:
   (the bundle's files, a non-empty flight ring, the three kernel
   libraries named, the journal's redacted tail) and a checkpoint refused
   for another seed firing ``checkpoint_refused``;
+- ``startup`` (right after the build, while this process holds little
+  host memory): where a fresh process's start goes
+  (``startup_phase``): a replica daemon's boot cold (an empty
+  kernel-library store, ``nvcc`` runs) and warm, split by its ready line
+  into the interpreter, the imports, the CUDA context, each library's
+  build or load with its ``source``, the journal and the rest; ``warmup
+  --measure`` at the main path's widths cold and warm (``first_run_s``,
+  ``compile_span_s``, ``source`` ``jit`` then ``aot``); ``warmup``'s first
+  chunk of each engine in a fresh process;
+- ``cli``: the CLI's ``chaos`` on the card, then its ``selftest --json``,
+  ``telemetry``, ``roofline --check``, ``perf --check`` and ``version``
+  on the files two telemetry-on nulls wrote (``cli_phase``), each
+  exiting 0;
+- ``fleet_daemon``: ``serve --fleet 2`` — a coordinator over two replica
+  daemon processes on the card (``fleet_daemon_phase``): the 20,000-gene
+  fixture registered through its socket, a replica SIGKILLed mid-pack,
+  failed over and respawned as ``.g1``, each replica's boot and
+  fused-kernel launches, the card's memory with two contexts, the
+  coordinator without one, and the drain to exit 0; after ``fleet``,
+  ``fleet_daemon_check`` holds every result bit-equal to the same
+  request through the in-process fleet;
 
 and checks each against the others: equal p-values where the same
 statistics run, nulls within 1e-4 where the arithmetic differs, and every
@@ -229,7 +250,12 @@ only ``fleet``, and
 
 only the fused-statistics rows' bounds by the cost model
 (``kernel_bounds``), ``roofline``, ``flightrec_ab``, ``selftest`` and
-``forensics``. Each mode runs
+``forensics``, and
+
+    python3 chip_smoke.py --startup
+
+only ``startup``, ``cli`` and ``fleet_daemon`` (its references from one
+in-process server on the same fixture). Each mode runs
 through the ``netrep_tpu_torch`` beside the script: copied into another checkout,
 it measures that checkout's version on the same inputs.
 """
@@ -247,7 +273,14 @@ import sys
 import time
 
 
+#: the script's start on the host clock: each phase line says how far in
+#: it ended (``at_s``), so a phase's cost reads off two lines
+T_START = time.perf_counter()
+
+
 def emit(obj: dict) -> None:
+    if "phase" in obj:
+        obj = {**obj, "at_s": time.perf_counter() - T_START}
     print(json.dumps(obj, allow_nan=False), flush=True)
 
 
@@ -2017,11 +2050,11 @@ def fault_ladder_phase(torch, np, drive, labels, disc, test, refs, card,
        engine, and the telemetry file read back through
        ``aggregate_file``;
     7. ``profile=`` on the fused streaming call (5,120 permutations in
-       superchunks of one chunk, so the null has a steady window), three
-       times, each beside the same call unprofiled: the null's device busy
-       and idle share (median and spread) and its top five operations by
+       superchunks of one chunk, so the null has a steady window), twice,
+       each beside the same call unprofiled: the null's device busy and
+       idle share (median and spread) and its top five operations by
        device time, the profiled and unprofiled null seconds, and counts
-       equal across the six calls.
+       equal across the four calls.
 
     Returns the launches by path."""
     import os
@@ -2301,12 +2334,12 @@ def fault_ladder_phase(torch, np, drive, labels, disc, test, refs, card,
 
         # ---- 7. profile=: the null's device busy and idle share -------
         # a null long enough for a steady window (40 superchunks of one
-        # chunk), profiled three times, each beside the same call
-        # unprofiled (P U P U P U); the counts of all six agree
+        # chunk), profiled twice, each beside the same call unprofiled
+        # (P U P U); the counts of all four agree
         n_prof = 40 * C
         want = {"fused_stats_counts": 40 * B}
         runs, plain_s, first = [], [], None
-        for i in range(3):
+        for i in range(2):
             trace = os.path.join(top, f"profile{i}")
             res, used, _ = drive("fault_ladder", ["fused_stats_counts"],
                                  want, completed=n_prof, n_perm=n_prof,
@@ -4454,7 +4487,8 @@ FLEET_FIXTURE = dict(genes=GENES, modules=MODULES, n_samples=SAMPLES,
 FLEET_CRASH_AT, FLEET_CKPT_EVERY = 640, 256
 
 
-def fleet_phase(torch, np, tops, kw, labels, card, dev) -> dict:
+def fleet_phase(torch, np, tops, kw, labels, card, dev,
+                results_b=None) -> dict:
     """The serving fleet (``netrep_tpu_torch.serve.fleet``) on one card: two
     fleets of two in-process replicas, chunk 128, ``N_PERM``
     permutations a request.
@@ -4488,7 +4522,9 @@ def fleet_phase(torch, np, tops, kw, labels, card, dev) -> dict:
     Emits each drill's wall seconds, ``failover_done.s`` and the handoff's
     seconds, permutations recomputed, launches per replica, pinned GiB per
     replica, and the card's GiB after failover and after ``close()``.
-    Returns launches by key."""
+    Returns launches by key; fleet B's results by seed go into ``results_b``
+    (the ``fleet_daemon`` phase's references)."""
+    results_b = {} if results_b is None else results_b
     import os
     import shutil
     import tempfile
@@ -4754,8 +4790,9 @@ def fleet_phase(torch, np, tops, kw, labels, card, dev) -> dict:
             # after the failover
             home = fleet.route("acme", d_name, t_name)
             home.server.start()
-            fleet.analyze("acme", d_name, t_name, n_perm=N_PERM, seed=300,
-                          timeout=1200)
+            results_b[300] = fleet.analyze("acme", d_name, t_name,
+                                           n_perm=N_PERM, seed=300,
+                                           timeout=1200)
             home.arm_fault_plan(crash)
             fo_seeds = (301, 302)
             # failover: the home dies mid-pack, the peer resumes the pack
@@ -4783,6 +4820,7 @@ def fleet_phase(torch, np, tops, kw, labels, card, dev) -> dict:
                                     seed=s, idempotency_key=f"fo{s}",
                                     timeout=1200) for s in fo_seeds}
             failover_wall = time.perf_counter() - t0
+            results_b.update(got)
             refs = drill_refs(fo_seeds)
             entry, resumed_at, want = resumed_pack(
                 "failover", peer_rid, refs, got,
@@ -4858,6 +4896,7 @@ def fleet_phase(torch, np, tops, kw, labels, card, dev) -> dict:
                                     seed=s, idempotency_key=f"ev{s}",
                                     timeout=1200) for s in ev_seeds}
             evict_wall = time.perf_counter() - t0
+            results_b.update(got)
             refs = drill_refs(ev_seeds)
             entry, resumed_at, want = resumed_pack(
                 "eviction", receipt["peer"], refs, got,
@@ -5558,6 +5597,549 @@ def tooling_only() -> int:
     return 0
 
 
+#: the startup phase: a fresh process's first null at the main path's
+#: widths by the fixture generator (``FLEET_FIXTURE``), chunk 128, this
+#: many permutations
+STARTUP_PERM = 1024
+#: the fleet_daemon phase's requests: the in-process fleet's seeds (fleet
+#: phase): 300 before the drill, 301-302 killed mid-pack, 303-304 after
+#: the respawn
+DAEMON_SEEDS = (300, 301, 302, 303, 304)
+FIELDS = ("p_values", "counts_hi", "counts_lo", "counts_eff")
+
+
+def here() -> str:
+    return os.path.dirname(os.path.abspath(__file__))
+
+
+def cli_env(**extra) -> dict:
+    """The environment of a ``python -m netrep_tpu_torch`` child: the
+    checkout beside this script first on ``PYTHONPATH``."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (here(), env.get("PYTHONPATH")) if p)
+    env.pop("NETREP_FAULT_PLAN", None)
+    env.update(extra)
+    return env
+
+
+def run_cli(*argv, cwd=None, timeout=900, **env) -> tuple:
+    """``python -m netrep_tpu_torch ARGV``: ``(returncode, stdout, stderr,
+    wall seconds)``."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "netrep_tpu_torch", *argv],
+                          cwd=cwd or here(), env=cli_env(**env),
+                          capture_output=True, text=True, timeout=timeout)
+    return (proc.returncode, proc.stdout, proc.stderr,
+            time.perf_counter() - t0)
+
+
+def last_json(text: str) -> dict:
+    return json.loads(text.strip().splitlines()[-1])
+
+
+def boot_split(boot: dict, t_spawn: float) -> dict:
+    """A daemon's ready-line ``boot`` block as the split of its start:
+    the interpreter (spawn to the CLI's import), the imports, the CUDA
+    context, the kernel libraries, the journal, and the rest up to the
+    ready line."""
+    parts = {"interpreter_s": boot["t_main"] - t_spawn}
+    for k in ("import_torch_s", "import_utils_s", "import_serve_s",
+              "context_s", "libraries_s", "journal_s"):
+        parts[k] = boot.get(k, 0.0)
+    total = boot["ready_t"] - t_spawn
+    parts["rest_s"] = total - sum(parts.values())
+    parts["ready_s"] = total
+    parts["libraries"] = boot.get("libraries", {})
+    return parts
+
+
+def daemon_boot(cwd: str, store: str) -> dict:
+    """One fresh daemon on the card as a fleet replica would start
+    (``serve --fleet-label r0``: every kernel library built or loaded at
+    boot) with ``NETREP_AOT_STORE=store``, shut down once ready; its boot
+    split."""
+    t_spawn = time.time()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "netrep_tpu_torch", "serve", "--socket",
+         "s.sock", "--journal", "j.jsonl", "--fleet-label", "r0"],
+        cwd=cwd, env=cli_env(NETREP_AOT_STORE=store),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        ready = json.loads(proc.stdout.readline() or "{}")
+        if ready.get("serve") != "ready":
+            raise RuntimeError(f"startup: the daemon did not start: "
+                               f"{proc.stderr.read()[-3000:]}")
+        from netrep_tpu_torch.serve.client import SocketClient
+
+        old = os.getcwd()
+        os.chdir(cwd)
+        try:
+            c = SocketClient("s.sock", timeout=120)
+            c.shutdown()
+            c.close()
+        finally:
+            os.chdir(old)
+        out, err = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"startup: daemon exit {proc.returncode}: "
+                           f"{err[-3000:]}")
+    return boot_split(ready["boot"], t_spawn)
+
+
+def startup_phase(card, first_launch=True) -> dict:
+    """``startup``: where a fresh process's start goes, on the card.
+
+    - **daemon**: a replica daemon's boot (``serve --fleet-label``), cold
+      (an empty ``NETREP_AOT_STORE``: ``nvcc`` builds every library) and
+      warm (the same store: every library loaded), split by its ready
+      line into the interpreter's start, ``import torch``, the port's
+      ``utils`` (flight recorder, TF32 off), the serving modules, the CUDA
+      context, each library's build or load (its ``source``), the journal
+      and the rest up to the ready line;
+    - **first_null**: ``warmup --measure`` at the main path's widths
+      (``FLEET_FIXTURE``, chunk 128, ``STARTUP_PERM`` permutations) in a
+      fresh process, cold (another empty store) and warm: ``first_run_s``,
+      ``compile_span_s``, ``source``, permutations/s, the process's wall;
+    - **first_launch** (``--startup``; the whole script leaves it out for
+      time): ``warmup`` on the warm store at the default shape: each
+      engine's first chunk in a fresh process, with its launches.
+
+    Fails unless the cold daemon's libraries are all ``jit`` and the warm
+    one's all ``aot``, and the first null's source is ``jit`` cold and
+    ``aot`` warm."""
+    import shutil
+    import tempfile
+
+    os.makedirs(build_dir(), exist_ok=True)
+    top = tempfile.mkdtemp(prefix="st_", dir=build_dir())
+    out = {}
+    try:
+        daemon_store = os.path.join(top, "store_d")
+        boots = {}
+        for temp in ("cold", "warm"):
+            cwd = os.path.join(top, temp)
+            os.makedirs(cwd)
+            boots[temp] = daemon_boot(cwd, daemon_store)
+            srcs = {v["source"] for v in boots[temp]["libraries"].values()}
+            want = "jit" if temp == "cold" else "aot"
+            if srcs != {want} or len(boots[temp]["libraries"]) != 3:
+                raise RuntimeError(f"startup: {temp} daemon's libraries "
+                                   f"{boots[temp]['libraries']}")
+        out["daemon"] = boots
+        emit({"phase": "startup", "part": "daemon", **boots, "card": card})
+        measure_store = os.path.join(top, "store_m")
+        firsts = {}
+        g = FLEET_FIXTURE
+        for temp in ("cold", "warm"):
+            rc, so, se, wall = run_cli(
+                "warmup", "--measure", "--json", "--genes", str(g["genes"]),
+                "--modules", str(g["modules"]), "--samples",
+                str(g["n_samples"]), "--fixture-seed", str(g["seed"]),
+                "--chunk", "128", "--n-perm", str(STARTUP_PERM), "--store",
+                measure_store)
+            if rc != 0:
+                raise RuntimeError(f"startup: warmup --measure ({temp}) exit "
+                                   f"{rc}: {se[-3000:]}")
+            firsts[temp] = {**last_json(so), "process_wall_s": wall}
+            want = "jit" if temp == "cold" else "aot"
+            if (firsts[temp]["source"] != want
+                    or firsts[temp]["completed"] != STARTUP_PERM):
+                raise RuntimeError(f"startup: first null ({temp}): "
+                                   f"{firsts[temp]}")
+        out["first_null"] = firsts
+        emit({"phase": "startup", "part": "first_null", **firsts,
+              "card": card})
+        if not first_launch:
+            return out
+        # every library is in the daemons' store: the first chunk of each
+        # engine in a fresh process loads them all
+        rc, so, se, wall = run_cli("warmup", "--json", "--store",
+                                   daemon_store)
+        if rc != 0:
+            raise RuntimeError(f"startup: warmup exit {rc}: {se[-3000:]}")
+        rep = last_json(so)
+        acquired = rep["store"]["acquired"]
+        if sorted(acquired) != sorted(f"{n}:aot" for n in
+                                      ("fused_stats", "fused_gather",
+                                       "ring_shift")):
+            raise RuntimeError(f"startup: warmup acquired {acquired}")
+        out["first_launch"] = {"shape": {k: rep["shapes"][0][k] for k in
+                                         ("genes", "modules", "samples")},
+                               "chunk": rep["chunk"],
+                               "serve": rep["shapes"][0]["serve"],
+                               "direct": rep["shapes"][0]["direct"],
+                               "acquired": acquired, "warmup_s": rep["s"],
+                               "process_wall_s": wall}
+        emit({"phase": "startup", "part": "first_launch",
+              **out["first_launch"], "card": card})
+    finally:
+        shutil.rmtree(top, ignore_errors=True)
+    return out
+
+
+def cli_phase(np, card) -> dict:
+    """``cli``: the port's command line on the card, through its ``main``
+    in this process (``startup`` and ``fleet_daemon`` start ``python -m
+    netrep_tpu_torch`` processes): ``chaos --json`` (the elastic drill on
+    a logical four-shard permutation mesh on the card, with
+    ``--telemetry``); two streaming nulls with ``telemetry=`` and
+    ``NETREP_PERF_LEDGER`` on (a 4,000-gene fixture, 2,048 permutations,
+    chunk 128); then ``selftest --json``, ``telemetry`` (plain and
+    ``--prom`` on a null's log, ``--recovery`` on the drill's),
+    ``roofline --check``, ``perf --check`` and ``version``. Each must exit
+    0."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from netrep_tpu_torch import __main__ as tcli
+    from netrep_tpu_torch.data import make_mixed_pair
+    from netrep_tpu_torch.models.preservation import module_preservation
+    from netrep_tpu_torch.utils import perfledger
+    from netrep_tpu_torch.utils.config import EngineConfig
+
+    os.makedirs(build_dir(), exist_ok=True)
+    top = tempfile.mkdtemp(prefix="cli_", dir=build_dir())
+    chaos_tel = os.path.join(top, "chaos.jsonl")
+    ledger = os.path.join(top, "ledger.jsonl")
+    runs = [os.path.join(top, f"run{i}.jsonl") for i in (1, 2)]
+    out = {}
+    before = os.environ.get(perfledger.LEDGER_ENV)
+    try:
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = tcli.main(["chaos", "--json", "--telemetry", chaos_tel])
+        row = last_json(buf.getvalue()) if rc == 0 else {}
+        if rc != 0 or not (row.get("ok") and row.get("bit_identical")):
+            raise RuntimeError(f"cli: chaos exit {rc}: "
+                               f"{buf.getvalue()[-2000:]}")
+        out["chaos"] = {"rc": rc, "s": time.perf_counter() - t0, **row}
+        mixed = make_mixed_pair(4000, 10, n_samples=64, seed=SEED)
+        (dd, dc, dn), (td, tc, tn) = mixed["discovery"], mixed["test"]
+        labels = np.zeros(dn.shape[0], dtype=int)
+        for lab, idx in mixed["specs"]:
+            labels[idx] = int(lab)
+        os.environ[perfledger.LEDGER_ENV] = ledger
+        for path in runs:
+            module_preservation(
+                network={"d": dn, "t": tn}, correlation={"d": dc, "t": tc},
+                data={"d": dd, "t": td},
+                module_assignments=[str(x) for x in labels], discovery="d",
+                test="t", n_perm=2048, seed=SEED, store_nulls=False,
+                config=EngineConfig(chunk_size=128), telemetry=path)
+        for argv in (["selftest", "--json"], ["telemetry", runs[0]],
+                     ["telemetry", runs[0], "--prom"],
+                     ["telemetry", chaos_tel, "--recovery"],
+                     ["roofline", runs[1], "--ledger", ledger, "--check"],
+                     ["perf", ledger, "--check"], ["version"]):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = tcli.main(argv)
+            text = buf.getvalue()
+            if rc != 0 or not text.strip():
+                raise RuntimeError(f"cli: {argv} exit {rc}: {text[-2000:]}")
+            key = " ".join(os.path.basename(a) for a in argv)
+            out[key] = {"rc": rc, "s": time.perf_counter() - t0,
+                        "lines": len(text.splitlines())}
+            if argv[-1] == "--recovery" and "mesh_shrunk" not in text:
+                raise RuntimeError("cli: the chaos drill never shrank its "
+                                   "mesh")
+            if argv[0] == "selftest":
+                row = last_json(text)
+                if not row["ok"] or row["device"] == "cpu":
+                    raise RuntimeError(f"cli: selftest {row}")
+                out[key]["observed_max_abs_dev"] = row[
+                    "observed_max_abs_dev"]
+        out["ledger_fingerprints"] = sorted(
+            {e["fingerprint"] for e in perfledger.read_entries(ledger)})
+    finally:
+        if before is None:
+            os.environ.pop(perfledger.LEDGER_ENV, None)
+        else:
+            os.environ[perfledger.LEDGER_ENV] = before
+        shutil.rmtree(top, ignore_errors=True)
+    emit({"phase": "cli", **out, "card": card})
+    return out
+
+
+def inprocess_refs(torch) -> dict:
+    """The ``DAEMON_SEEDS`` requests through one in-process server on the
+    card at the fleet's configuration (``--fleet`` alone, without the
+    fleet phase's results)."""
+    from netrep_tpu_torch.serve import PreservationServer, ServeConfig
+    from netrep_tpu_torch.utils.config import EngineConfig
+
+    srv = PreservationServer(ServeConfig(engine=EngineConfig(chunk_size=128),
+                                         journal=None))
+    try:
+        fx = srv.register_fixture("acme", "fx", **FLEET_FIXTURE)
+        return {s: srv.analyze("acme", fx["discovery"], fx["test"],
+                               n_perm=N_PERM, seed=s, timeout=1200)
+                for s in DAEMON_SEEDS}
+    finally:
+        srv.close()
+        torch.cuda.empty_cache()
+
+
+def daemon_results_check(np, got, refs, card) -> None:
+    """``fleet_daemon_check``: every daemon-fleet result's p-values and
+    ``counts_hi/lo/eff`` bit-equal to the same request through the
+    in-process fleet (``refs``, by seed)."""
+    for s in DAEMON_SEEDS:
+        for f in FIELDS:
+            if not np.array_equal(np.asarray(got[s][f]),
+                                  np.asarray(refs[s][f])):
+                raise RuntimeError(f"fleet_daemon: seed {s} {f} differs "
+                                   f"from the in-process fleet")
+    emit({"phase": "fleet_daemon_check", "seeds": list(DAEMON_SEEDS),
+          "fields": list(FIELDS), "equal_in_process_fleet": True,
+          "card": card})
+
+
+def fleet_daemon_phase(torch, np, card, refs=None) -> dict:
+    """``fleet_daemon``: ``python -m netrep_tpu_torch serve --fleet 2`` on
+    the card — a coordinator over two replica daemon processes, chunk 128,
+    a checkpoint every 256 permutations, on the 20,000-gene
+    ``FLEET_FIXTURE`` registered through the coordinator's socket.
+
+    1. Spawn: the coordinator's ready line (both replicas up), each
+       replica's boot split and its libraries' source, the card's memory
+       with the two contexts, and the coordinator without a CUDA context.
+    2. Seed 300 served; seeds 301 and 302 submitted together, and the
+       replica daemon with work in flight SIGKILLed mid-pack (the ``chaos
+       --fleet`` drill): the coordinator fails its shipped journal over to
+       the peer, the clients' retries under their keys finish there, and
+       the victim respawns as its generation ``.g1`` (adopting the
+       registrations); then seeds 303 and 304.
+    3. The fused kernel's launches in each replica process (the victim's
+       read just before the kill); ``failover_done.s``, the respawn's
+       seconds; the coordinator drains to exit 0. With ``refs`` (by seed)
+       every result is held to them here (:func:`daemon_results_check`);
+       the whole script runs this phase before its host arrays fill the
+       machine's memory and holds the results to the fleet phase's later.
+
+    Returns the results by seed."""
+    import contextlib
+    import shutil
+    import signal
+    import tempfile
+    import threading
+
+    from netrep_tpu_torch.serve.client import SocketClient
+    from netrep_tpu_torch.utils.telemetry import read_events
+
+    os.makedirs(build_dir(), exist_ok=True)
+    top = tempfile.mkdtemp(prefix="fd_", dir=build_dir())
+    old = os.getcwd()
+    os.chdir(top)   # a unix socket's path is bounded: relative paths
+    proc = None
+    out: dict = {}
+    gib = 2 ** 30
+
+    def card_used():
+        free, total = torch.cuda.mem_get_info()
+        return (total - free) / gib
+
+    def launches_of(sock):
+        c = SocketClient(sock, timeout=60)
+        try:
+            return c.stats()["kernel_launches"]
+        finally:
+            c.close()
+
+    try:
+        used0 = card_used()
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "netrep_tpu_torch", "serve", "--fleet",
+             "2", "--socket", "f.sock", "--fleet-dir", "fl", "--chunk",
+             "128", "--checkpoint-every", "256", "--heartbeat-s", "0.25",
+             "--telemetry", "coord.jsonl"],
+            env=cli_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, start_new_session=True)
+        ready = json.loads(proc.stdout.readline() or "{}")
+        if ready.get("serve") != "ready":
+            raise RuntimeError(f"fleet_daemon: no ready line: "
+                               f"{proc.stderr.read()[-3000:]}")
+        spawn_s = time.perf_counter() - t0
+        used_ready = card_used()
+        replicas = {rid: {"ready_s": b["ready_t"] - b["spawned_t"],
+                          "split": boot_split(b, b["spawned_t"]),
+                          "sources": {n: v["source"] for n, v in
+                                      b.get("libraries", {}).items()}}
+                    for rid, b in ready["boot"].items()}
+        c = SocketClient("f.sock", timeout=1200)
+        st = c.stats()
+        if st["coordinator"]["cuda_initialized"]:
+            raise RuntimeError("fleet_daemon: the coordinator holds a CUDA "
+                               "context")
+        t0 = time.perf_counter()
+        fx = c.register_fixture("acme", "fx", **FLEET_FIXTURE)
+        register_s = time.perf_counter() - t0
+        used_registered = card_used()
+        d_name, t_name = fx["discovery"], fx["test"]
+        got = {}
+        t0 = time.perf_counter()
+        got[300] = c.analyze("acme", d_name, t_name, n_perm=N_PERM,
+                             seed=300, idempotency_key="d300")
+        first_s = time.perf_counter() - t0
+        used_engine = card_used()
+        lock = threading.Lock()
+        errors = []
+
+        def worker(s):
+            w = SocketClient("f.sock", timeout=1200)
+            try:
+                r = w.analyze("acme", d_name, t_name, n_perm=N_PERM, seed=s,
+                              idempotency_key=f"d{s}", retries=8)
+                with lock:
+                    got[s] = r
+            # netrep: allow(exception-taxonomy) — a failed request is the drill's failure, raised below
+            except Exception as e:
+                errors.append(f"seed {s}: {type(e).__name__}: {e}")
+            finally:
+                w.close()
+
+        threads = [threading.Thread(target=worker, args=(s,), daemon=True)
+                   for s in (301, 302)]
+        t_drill = time.perf_counter()
+        for t in threads:
+            t.start()
+        victim = None
+        deadline = time.monotonic() + 600
+        while victim is None and time.monotonic() < deadline:
+            for rid, row in sorted(c.stats()["replicas"].items()):
+                if row.get("alive") and row.get("inflight") and row.get("pid"):
+                    victim = (rid, int(row["pid"]))
+                    break
+            if victim is None:
+                time.sleep(0.01)
+        if victim is None:
+            raise RuntimeError("fleet_daemon: no replica took the work")
+        launches = {victim[0]: launches_of(ready["replicas"][victim[0]])}
+        os.kill(victim[1], signal.SIGKILL)
+        t_kill = time.perf_counter()
+        for t in threads:
+            t.join(timeout=1200)
+        drill_s = time.perf_counter() - t_drill
+        if errors or any(t.is_alive() for t in threads):
+            raise RuntimeError(f"fleet_daemon: the drill's requests: "
+                               f"{errors}")
+        respawned = None
+        while respawned is None and time.monotonic() < deadline:
+            rows = c.stats()["replicas"]
+            gens = [r for r, row in rows.items()
+                    if r.startswith(victim[0] + ".g") and row.get("alive")]
+            if gens:
+                respawned = sorted(gens)[-1]
+            else:
+                time.sleep(0.05)
+        if respawned != f"{victim[0]}.g1":
+            raise RuntimeError(f"fleet_daemon: respawn {respawned}")
+        respawn_s = time.perf_counter() - t_kill
+        g1_sock = os.path.join("fl", victim[0], "serve.g1.sock")
+        with open(os.path.join("fl", victim[0], "serve.g1.out")) as f:
+            g1_boot = json.loads(f.readline())["boot"]
+        for s in (303, 304):
+            got[s] = c.analyze("acme", d_name, t_name, n_perm=N_PERM, seed=s,
+                               idempotency_key=f"d{s}")
+        st = c.stats()
+        done = {}
+        for rid, row in st["replicas"].items():
+            if row["alive"]:
+                sock = (g1_sock if rid == respawned
+                        else ready["replicas"][rid])
+                launches[rid] = launches_of(sock)
+                done[rid] = row["done"]
+        coordinator = st["coordinator"]
+        if coordinator["cuda_initialized"]:
+            raise RuntimeError("fleet_daemon: the coordinator made a CUDA "
+                               "context")
+        c.shutdown()
+        c.close()
+        rc = proc.wait(timeout=600)
+        drained = last_json(proc.stdout.read())
+        if rc != 0 or drained.get("serve") != "fleet_drained":
+            raise RuntimeError(f"fleet_daemon: exit {rc}, {drained}, "
+                               f"{proc.stderr.read()[-3000:]}")
+        events = list(read_events("coord.jsonl"))
+        fo = [e["data"] for e in events if e["ev"] == "failover_done"]
+        order = [e["ev"] for e in events if e["ev"] in (
+            "replica_lost", "failover_start", "failover_done",
+            "ring_rebalanced")]
+        i = order.index("replica_lost")
+        if len(fo) != 1 or order[i:i + 4] != [
+                "replica_lost", "failover_start", "failover_done",
+                "ring_rebalanced"]:
+            raise RuntimeError(f"fleet_daemon: failover events {order}")
+        fused = {rid: sum(v for k, v in row.items()
+                          if k.startswith("fused_stats"))
+                 for rid, row in launches.items()}
+        if not all(fused[rid] for rid, n in done.items() if n):
+            raise RuntimeError(f"fleet_daemon: launches {launches}")
+        out = {"fixture": FLEET_FIXTURE, "n_perm": N_PERM,
+               "spawn_s": spawn_s, "replicas": replicas,
+               "card_used_gib": {"before": used0, "two_contexts": used_ready,
+                                 "registered": used_registered,
+                                 "after_first_request": used_engine},
+               "coordinator_cuda_initialized": False,
+               "register_s_two_replicas": register_s,
+               "first_request_s": first_s, "killed": victim[0],
+               "drill_s": drill_s, "failover_done_s": fo[0]["s"],
+               "requeued": fo[0]["requeued"], "respawned": respawned,
+               "respawn_s": respawn_s,
+               "respawn_boot": {k: v for k, v in g1_boot.items()
+                                if k.endswith("_s")},
+               "respawn_main_to_ready_s": g1_boot["ready_t"]
+               - g1_boot["t_main"],
+               "respawn_sources": {n: v["source"] for n, v in
+                                   g1_boot.get("libraries", {}).items()},
+               "kernel_launches": launches,
+               "fused_launches_per_replica": fused,
+               "requests_done_per_live_replica": done,
+               "seeds": list(DAEMON_SEEDS), "exit_code": rc,
+               "drained": drained}
+    finally:
+        os.chdir(old)
+        if proc is not None:
+            # the coordinator and every replica daemon it started share
+            # its session: none outlives the phase, even on a failure
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+        shutil.rmtree(top, ignore_errors=True)
+    emit({"phase": "fleet_daemon", **out, "card": card})
+    if refs is not None:
+        daemon_results_check(np, got, refs, card)
+    return got
+
+
+def startup_only() -> int:
+    """``--startup``: this slice's phases alone — ``startup``, ``cli`` and
+    ``fleet_daemon`` (its references from one in-process server)."""
+    setup = mode_setup()
+    if setup is None:
+        return 1
+    torch, np, _dev, card = setup
+    startup_phase(card)
+    cli_phase(np, card)
+    t0 = time.perf_counter()
+    refs = inprocess_refs(torch)
+    emit({"phase": "inprocess_refs", "seeds": list(DAEMON_SEEDS),
+          "s": time.perf_counter() - t0, "card": card})
+    fleet_daemon_phase(torch, np, card, refs=refs)
+    print(card_line(), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -5605,6 +6187,14 @@ def main() -> int:
         }
     emit({"phase": "build", "total_s": time.perf_counter() - t0,
           "sources": built})
+
+    # ---- the start-up path: traced starts, the CLI, the daemon fleet ----
+    # first, while this process holds little host memory: two replica
+    # daemons generate the 20,000-gene fixture at once (the results are
+    # held to the in-process fleet's after the fleet phase)
+    startup_phase(card, first_launch=False)
+    cli_phase(np, card)
+    daemon_got = fleet_daemon_phase(torch, np, card)
 
     # ---- inputs at the north-star width, from one seed -------------------
     t0 = time.perf_counter()
@@ -6116,7 +6706,10 @@ def main() -> int:
     # ---- the single server: packs, warm pool, recovery, the daemon ------
     launches.update(serve_phase(torch, np, tops, kw, labels, card, dev))
     # ---- the fleet: grid and routing, failover, autoscaling, eviction ---
-    launches.update(fleet_phase(torch, np, tops, kw, labels, card, dev))
+    results_b = {}
+    launches.update(fleet_phase(torch, np, tops, kw, labels, card, dev,
+                                results_b))
+    daemon_results_check(np, daemon_got, results_b, card)
     # ---- the forensic chain: the dump op's bundle, a refused checkpoint -
     forensics_phase(np, module_preservation, card)
     del kw, runs, a, b, comp, der, multi, fused_run, res, seq, f32_ref
@@ -6138,6 +6731,7 @@ def main() -> int:
     # ---- the atlas tile network builder, into the sparse engine ----------
     pr9.update({f"atlas_build {k}": v
                 for k, v in atlas_build_phase(torch, np, card).items()})
+
 
     # ---- a small reference: the same call on the card and on the CPU -----
     from netrep_tpu_torch.data import make_example_pair, pair_frames
@@ -6308,7 +6902,7 @@ if __name__ == "__main__":
              "--bf16": bf16_only, "--screened": screened_only,
              "--faults": faults_only, "--grid": grid_only,
              "--serve": serve_only, "--fleet": fleet_only,
-             "--tooling": tooling_only}
+             "--tooling": tooling_only, "--startup": startup_only}
     args = sys.argv[1:]
     if len(args) > 1 or (args and args[0] not in modes):
         sys.exit(f"usage: {sys.argv[0]} [{' | '.join(modes)}]")

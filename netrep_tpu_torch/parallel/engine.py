@@ -111,7 +111,7 @@ from ..ops.fused_stats import (
 from ..ops.oracle import N_STATS
 from ..ops.sequential import StopMonitor, StopRule
 from ..utils import checkpoint as ckpt
-from ..utils import costmodel
+from ..utils import aot, costmodel
 from ..utils import faults as flt
 from ..utils import perfledger
 from ..utils import telemetry as tm
@@ -720,17 +720,21 @@ def _nbytes(tree) -> int:
 
 def _finish_run(telemetry, run_sid, t_marks, t_run0, start, mode,
                 run_key: str, n_perm: int, tracker=None,
-                device=None) -> None:
+                device=None, engine=None) -> None:
     """End of a run's accounting, once at least two chunks landed: a
     ``compile_span`` event, the first interval's surplus over the steady
     rate of marks 0 → last — the first chunk's kernel build or load and
-    first-touch costs, as the JAX package estimates its jit compile; with
+    first-touch costs, as the JAX package estimates its jit compile, with
+    the ``source`` of the kernel libraries the run's engine acquired
+    (:func:`~netrep_tpu_torch.utils.aot.run_source`: ``jit``, ``aot`` or
+    ``memo``); with
     a cost tracker the ``roofline`` event at that steady rate, also kept
     as the process's and the bus's last-run note (a server's ``stats()``
     reads its own bus's); and
     the perf ledger's run entry (:func:`~netrep_tpu_torch.utils.
     perfledger.maybe_record_run`, when ``NETREP_PERF_LEDGER`` names one),
-    keyed by the engine's ``run_key``. A run only the flight recorder
+    keyed by the engine's ``run_key`` with the ``|src:`` suffix, so warm
+    and cold histories never mix. A run only the flight recorder
     observes writes neither the note nor the ledger."""
     if len(t_marks) < 2:
         return
@@ -739,8 +743,9 @@ def _finish_run(telemetry, run_sid, t_marks, t_run0, start, mode,
         return
     rate = (c1 - c0) / (t1 - t0)
     compile_s = max(0.0, (t0 - t_run0) - (c0 - start) / rate)
+    src = aot.run_source(getattr(engine, "_lib_mark", None))
     telemetry.emit("compile_span", parent=run_sid, s=compile_s,
-                   key=run_key, mode=mode)
+                   key=run_key, mode=mode, source=src)
     roofline = None
     if tracker is not None:
         roofline = tracker.roofline_block(rate)
@@ -749,7 +754,7 @@ def _finish_run(telemetry, run_sid, t_marks, t_run0, start, mode,
     if _flight_only(telemetry):
         return
     perfledger.maybe_record_run(
-        run_key, rate, mode,
+        f"{run_key}|src:{src}" if run_key else run_key, rate, mode,
         backend="cuda" if device is None else torch.device(device).type,
         compile_s=compile_s, n_perm=int(n_perm), run_id=telemetry.run_id,
         roofline=roofline)
@@ -911,7 +916,8 @@ def run_checkpointed_chunks(key, n_perm: int, C: int, chunk: Callable,
     if telemetry is not None:
         d, b = _totals(profile)
         _finish_run(telemetry, run_sid, t_marks, t_run0, start,
-                    "materialized", run_key, n_perm, tracker, device)
+                    "materialized", run_key, n_perm, tracker, device,
+                    engine)
         el = time.perf_counter() - t_run0
         telemetry.end_span(
             run_sid, "null_run_end", mode="materialized",
@@ -1069,7 +1075,7 @@ def run_stream_superchunks(key, n_perm: int, C: int, K: int,
             ck.close()
     if telemetry is not None:
         _finish_run(telemetry, run_sid, t_marks, t_run0, start,
-                    "streaming", run_key, n_perm, tracker, device)
+                    "streaming", run_key, n_perm, tracker, device, engine)
         d, b = _totals(profile)
         el = time.perf_counter() - t_run0
         telemetry.end_span(
@@ -1219,7 +1225,7 @@ def run_adaptive_chunks(key, n_perm: int, C: int, chunk: Callable,
             ck.close()
     if telemetry is not None:
         _finish_run(telemetry, run_sid, t_marks, t_run0, start, "adaptive",
-                    run_key, n_perm, tracker, device)
+                    run_key, n_perm, tracker, device, engine)
         el = time.perf_counter() - t_run0
         telemetry.end_span(
             run_sid, "null_run_end", mode="adaptive",
@@ -1366,7 +1372,8 @@ def run_adaptive_stream_chunks(key, n_perm: int, C: int,
     if telemetry is not None:
         d, b = _totals(profile)
         _finish_run(telemetry, run_sid, t_marks, t_run0, start,
-                    "adaptive-streaming", run_key, n_perm, tracker, device)
+                    "adaptive-streaming", run_key, n_perm, tracker, device,
+                    engine)
         el = time.perf_counter() - t_run0
         telemetry.end_span(
             run_sid, "null_run_end", mode="adaptive-streaming",
@@ -1506,6 +1513,8 @@ class PermutationEngine:
                  mesh: Mesh | None = None,
                  observed_cache: ObservedCache | None = None):
         dev = tmesh.resolve_device(mesh, device)
+        #: the kernel-library acquisitions this engine's runs account for
+        self._lib_mark = aot.mark()
         modules = list(modules)
         has_data = disc_data is not None and test_data is not None
         net_beta = config.network_from_correlation

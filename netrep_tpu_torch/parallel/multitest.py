@@ -37,6 +37,7 @@ import torch
 from .. import random as trandom
 from ..ops.oracle import N_STATS
 from ..ops.sequential import StopMonitor, StopRule
+from ..utils import aot
 from ..utils import checkpoint as ckpt
 from ..utils.config import EngineConfig, resolve_device
 from .engine import (
@@ -66,6 +67,7 @@ class MultiTestEngine:
                  test_datas, modules: Sequence[ModuleSpec], pool,
                  config: EngineConfig = EngineConfig(), device=None):
         dev = resolve_device(device)
+        self._lib_mark = aot.mark()
         modules = list(modules)
         self.T = len(test_corrs)
         net_beta = config.network_from_correlation

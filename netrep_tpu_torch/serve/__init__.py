@@ -18,8 +18,10 @@ Surface::
     )
 
 The daemon (:mod:`~netrep_tpu_torch.serve.server`) speaks one JSON op a
-line over a unix socket (:class:`SocketClient`); until the port has a CLI
-it starts through ``serve_daemon(daemon_args(socket=PATH))``.
+line over a unix socket (:class:`SocketClient`); it starts with ``python
+-m netrep_tpu_torch serve --socket PATH`` (on the card; ``--device cpu``
+on the CPU), and ``serve --fleet N`` runs N replica daemons behind a
+coordinator (:func:`~netrep_tpu_torch.serve.fleet.fleet_daemon`).
 
 The fleet (:mod:`~netrep_tpu_torch.serve.fleet`): in-process replicas
 behind a :class:`FleetCoordinator` — consistent-hash routing on dataset
@@ -31,16 +33,14 @@ and an :class:`Autoscaler`::
     from netrep_tpu_torch.serve import build_inprocess_fleet
 
     fleet = build_inprocess_fleet(2, "fleet_dir")   # on the card
-
-The CLI, the daemon fleet and the AOT store are ROADMAP.md Queue 1 item
-16b.4.
 """
 
 from .client import InProcessClient, ServeRejected, SocketClient, retry_delay
 from .fleet import (
-    AutoscaleConfig, Autoscaler, FleetConfig, FleetCoordinator, HashRing,
-    InProcessReplica, ReplicaLost, build_inprocess_fleet, dispatch_fleet_op,
-    inprocess_spawner,
+    AutoscaleConfig, Autoscaler, DaemonReplica, FleetConfig,
+    FleetCoordinator, HashRing, InProcessReplica, ReplicaLost,
+    build_inprocess_fleet, dispatch_fleet_op, fleet_daemon,
+    inprocess_spawner, spawn_replica_daemon,
 )
 from .journal import JournalShipper, RequestJournal
 from .lifecycle import IllegalTransition, ReplicaLifecycle
@@ -77,6 +77,9 @@ __all__ = [
     "FleetCoordinator",
     "HashRing",
     "InProcessReplica",
+    "DaemonReplica",
+    "spawn_replica_daemon",
+    "fleet_daemon",
     "build_inprocess_fleet",
     "inprocess_spawner",
     "dispatch_fleet_op",

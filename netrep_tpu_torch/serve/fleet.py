@@ -43,29 +43,41 @@ replica dies or leaves::
 - **Autoscaling** (:class:`Autoscaler`): scale up on backlog, retire idle
   replicas, scale to zero and spawn on demand.
 
-What the port does its own way:
+Two kinds of replica stand behind one coordinator:
 
-- In-process replicas only (:func:`build_inprocess_fleet`). Their servers
-  run on ``ServeConfig.device`` (None means ``"cuda"``; the default config
+- **In process** (:func:`build_inprocess_fleet`): servers on
+  ``ServeConfig.device`` (None means ``"cuda"``; the default config
   raises ``RuntimeError`` without a card); pass ``device="cpu"`` through
   ``make_config`` to run on the CPU. Every replica's worker shares the one
   card; each replica's fault runtime (``arm_fault_plan``) is its own.
-- A dead replica's warm pool is released at failover, after the final
-  ship pass, without draining (the JAX package leaves a dead in-process
-  replica's engines in place), so the peer's engines do not stack on the
-  dead one's.
+- **Daemons** (:func:`fleet_daemon`, ``python -m netrep_tpu_torch serve
+  --fleet N``): each replica a ``serve`` process on its own unix socket
+  (:class:`DaemonReplica`), started with the coordinator's ``--device``
+  (the card unless ``--device cpu``), respawned under a new generation
+  (``r0`` → ``r0.g1``) after its failover unless ``--no-respawn``. The
+  coordinator only routes and ships journals: it creates no CUDA context.
+
+What the port does its own way:
+
+- A dead replica's device memory is given back at failover, after the
+  final ship pass: an in-process replica's warm pool is released without
+  draining (the JAX package leaves a dead in-process replica's engines in
+  place), a daemon declared dead is killed if it still runs, so the
+  peer's engines do not stack on the dead one's.
 - :class:`InProcessReplica` answers :meth:`~InProcessReplica.forward`, so
   :func:`dispatch_fleet_op` proxies every op to in-process replicas too.
+- Daemon replicas take a broadcast registration all at once (each is a
+  process of its own); the JAX coordinator registers on one after another.
+- A respawned daemon adopts the registrations (datasets only) from a live
+  peer's shipped journal before it joins the ring, as an autoscaled spawn
+  does; the JAX respawn joins without them, so a pair routed to it is
+  unknown there.
 
 A departed replica (failover or eviction) leaves a diagnostic bundle
 under ``<fleet_dir>/bundles/`` (:meth:`FleetCoordinator._collect_bundle`),
 and each replica row of :meth:`FleetCoordinator.stats` carries its
 server's roofline ``utilisation``: the most recent run on that server's
 own telemetry bus (null for a replica without one).
-
-Not carried over (ROADMAP.md Queue 1 item 16b.4): the daemon fleet
-(``DaemonReplica``, ``spawn_replica_daemon``, ``fleet_daemon`` with its
-socket loop and the ``on_failover`` respawn hook).
 """
 
 from __future__ import annotations
@@ -73,8 +85,10 @@ from __future__ import annotations
 import bisect
 import dataclasses
 import hashlib
+import json
 import logging
 import os
+import socket as _socket
 import threading
 import time
 import uuid
@@ -297,10 +311,190 @@ class InProcessReplica:
         self.server.close(drain=drain, timeout=timeout)
 
 
+def _wire_line(path: str, payload: dict, timeout: float = 600.0) -> dict:
+    """One raw request/response line over a unix socket — the
+    coordinator's proxy primitive: the client's op forwards VERBATIM
+    (idempotency keys and trace ids pass through unchanged) and the
+    replica's response returns verbatim."""
+    s = _socket.socket(_socket.AF_UNIX, _socket.SOCK_STREAM)
+    s.settimeout(timeout)
+    try:
+        s.connect(path)
+        s.sendall((json.dumps(payload) + "\n").encode("utf-8"))
+        f = s.makefile("r", encoding="utf-8")
+        line = f.readline()
+        if not line:
+            raise ConnectionError("replica closed the connection")
+        return json.loads(line)
+    finally:
+        s.close()
+
+
+class DaemonReplica:
+    """A replica daemon: a ``python -m netrep_tpu_torch serve`` process on
+    its own unix socket. Each op opens a short-lived connection (unix
+    connects are microseconds, and per-op connections keep the proxy
+    thread-safe without a pool)."""
+
+    def __init__(self, rid: str, socket_path: str, journal_path: str,
+                 proc=None, timeout: float = 600.0, generation: int = 0,
+                 out_path: str | None = None):
+        self.rid = rid
+        self.socket_path = socket_path
+        self.journal_path = journal_path
+        self.proc = proc
+        self.timeout = timeout
+        #: where the daemon's standard output goes (its ``ready`` line)
+        self.out_path = out_path
+        #: wall clock of the spawn (the ``ready`` line's boot split is on
+        #: the same clock)
+        self.spawned_t = time.time()
+        self.lifecycle = ReplicaLifecycle(rid, generation=generation)
+        self.dead = threading.Event()
+
+    def forward(self, op: dict) -> dict:
+        """Raw proxy: the op forwards verbatim, the response comes back
+        verbatim (whatever ``ok`` it carries)."""
+        return _wire_line(self.socket_path, op, self.timeout)
+
+    def request(self, op_name: str, **kw) -> dict:
+        resp = self.forward({"op": op_name, **kw})
+        if not resp.get("ok", False):
+            raise ServeError(f"replica {self.rid} {op_name}: "
+                             f"{resp.get('error', 'unknown error')}")
+        return resp
+
+    def ready_line(self) -> dict | None:
+        """The daemon's ``ready`` line (with its boot split), once it has
+        printed one."""
+        if not self.out_path:
+            return None
+        try:
+            with open(self.out_path, encoding="utf-8") as f:
+                for line in f:
+                    if line.startswith("{"):
+                        rec = json.loads(line)
+                        if rec.get("serve") == "ready":
+                            return rec
+        except (OSError, ValueError):
+            return None
+        return None
+
+    def alive(self) -> bool:
+        if self.dead.is_set():
+            return False
+        if self.proc is not None and self.proc.poll() is not None:
+            return False
+        try:
+            # a short-fused ping: liveness answers in heartbeats, not the
+            # data plane's timeout — a wedged-but-listening daemon is as
+            # dead as a closed socket
+            resp = _wire_line(self.socket_path, {"op": "ping"}, timeout=2.0)
+            return bool(resp.get("pong"))
+        except (OSError, ValueError):
+            return False
+
+    # -- ops ---------------------------------------------------------------
+
+    def register_tenant(self, name: str, weight: int = 1) -> None:
+        # the wire creates tenants implicitly at weight 1; an explicit
+        # weight has no wire op
+        pass
+
+    def register_dataset(self, tenant: str, name: str, **kw) -> str:
+        from .client import SocketClient
+
+        c = SocketClient(self.socket_path, timeout=self.timeout)
+        try:
+            return c.register_dataset(tenant, name, **kw)
+        finally:
+            c.close()
+
+    def register_fixture(self, tenant: str, prefix: str = "fx",
+                         **kw) -> dict:
+        from .client import SocketClient
+
+        c = SocketClient(self.socket_path, timeout=self.timeout)
+        try:
+            return c.register_fixture(tenant, prefix, **kw)
+        finally:
+            c.close()
+
+    def analyze(self, tenant: str, discovery: str, test, *,
+                timeout: float | None = None, **kw) -> dict:
+        from .client import SocketClient
+
+        try:
+            c = SocketClient(self.socket_path,
+                             timeout=timeout or self.timeout)
+        except OSError as e:
+            raise ReplicaLost(f"replica {self.rid} unreachable") from e
+        try:
+            return c.analyze(tenant, discovery, test, **kw)
+        except OSError as e:
+            raise ReplicaLost(
+                f"replica {self.rid} died while serving the request"
+            ) from e
+        finally:
+            try:
+                c.close()
+            except OSError:
+                pass
+
+    def adopt_journal(self, path: str, datasets_only: bool = False):
+        return self.request("adopt_journal", path=path,
+                            datasets_only=datasets_only).get("adopted")
+
+    def stats(self) -> dict:
+        return self.request("stats")["stats"]
+
+    def metrics_text(self) -> str:
+        return self.request("metrics")["text"]
+
+    def kill(self) -> None:
+        """SIGKILL the replica process (drills)."""
+        import signal
+
+        if self.proc is not None and self.proc.poll() is None:
+            os.kill(self.proc.pid, signal.SIGKILL)
+
+    def release(self) -> None:
+        """A daemon declared dead gives its device memory back by exiting:
+        one still running (wedged, or past a failed ping) is killed."""
+        if self.proc is not None and self.proc.poll() is None:
+            self.kill()
+            self.proc.wait()
+
+    def close(self, drain: bool = True,
+              timeout: float | None = None) -> None:
+        import subprocess
+
+        timeout = 120.0 if timeout is None else timeout
+        if self.proc is None or self.proc.poll() is not None:
+            return
+        try:
+            if drain:
+                self.forward({"op": "shutdown"})
+        except (OSError, ValueError):
+            pass
+        try:
+            self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            pass   # escalate: SIGTERM, then SIGKILL below
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+
+
 class FleetCoordinator:
     """The fleet control plane: consistent-hash routing, per-replica
     journal shipping, the health loop, replica-kill failover, planned
-    departures and fleet-wide admission (module docstring)."""
+    departures and fleet-wide admission (module docstring). Its replicas
+    are :class:`InProcessReplica` or :class:`DaemonReplica` handles."""
 
     def __init__(self, replicas, config: FleetConfig | None = None,
                  start: bool = True):
@@ -329,6 +523,9 @@ class FleetCoordinator:
         self._ledger_rate: float | None = None
         self._ledger_rate_read = False
         self._started_m = time.monotonic()
+        #: optional post-failover hook (the daemon fleet's respawn), called
+        #: outside the lock as ``on_failover(rid, peer_rid)``
+        self.on_failover = None
         self._serve_sid = None
         if self.tel is not None:
             self._serve_sid = self.tel.begin_span(
@@ -512,6 +709,14 @@ class FleetCoordinator:
                           parent=self._serve_sid, reason="leave",
                           members=",".join(members))
         self._collect_bundle(rid, "replica_failover")
+        cb = self.on_failover
+        if cb is not None:
+            try:
+                cb(rid, peer_rid)
+            # netrep: allow(exception-taxonomy) — a broken respawn hook must not kill the health loop; the fleet keeps serving on the survivors
+            except Exception:
+                logger.warning("fleet on_failover hook failed",
+                               exc_info=True)
 
     def _collect_bundle(self, rid: str, reason: str) -> str | None:
         """The departed replica's diagnostic bundle: the flight ring, the
@@ -551,13 +756,17 @@ class FleetCoordinator:
                         else self.config.failover_wait_s)
 
     def kill_replica(self, rid: str) -> None:
-        """Drill helper: for in-process replicas the fault plan does the
-        killing — this triggers immediate detection instead of waiting a
-        heartbeat."""
+        """Drill helper: SIGKILL for a daemon; for in-process replicas the
+        fault plan does the killing — either way this triggers immediate
+        detection instead of waiting a heartbeat."""
         with self._lock:
-            known = rid in self._replicas
-        if known:
-            self._failover(rid)
+            rep = self._replicas.get(rid)
+        if rep is None:
+            return
+        kill = getattr(rep, "kill", None)
+        if kill is not None:
+            kill()
+        self._failover(rid)
 
     # -- planned departures: retire + eviction handoff ---------------------
 
@@ -866,7 +1075,8 @@ class FleetCoordinator:
                 "state": cycle.state,
                 "gen": cycle.generation,
                 "idle_s": st.get("idle_s"),
-                "pid": None,
+                "pid": getattr(getattr(reps[rid], "proc", None), "pid",
+                               None),
                 "backlog_perms": st.get("backlog_perms", 0),
                 "rate_pps": st.get("rate_pps"),
                 "utilisation": st.get("utilisation"),
@@ -1211,13 +1421,16 @@ def build_inprocess_fleet(
 
 
 def dispatch_fleet_op(coord: FleetCoordinator, op: dict,
-                      stop: threading.Event) -> dict:
+                      stop: threading.Event,
+                      route_mode: str = "proxy") -> dict:
     """Execute one wire op against the coordinator. Registrations
     broadcast (the digest noted for ring routing); ``analyze`` routes by
     the ring and PROXIES the op verbatim to the home replica's
-    :meth:`~InProcessReplica.forward` (idempotency keys and trace ids pass
-    through unchanged), re-routing under the same key when the replica is
-    lost; ``evict_notice`` runs the handoff. Never raises."""
+    ``forward`` (idempotency keys and trace ids pass through unchanged),
+    re-routing under the same key when the replica is lost — or, under
+    ``route_mode='redirect'``, answers with a ``redirect`` naming a daemon
+    replica's socket, so the client re-sends the same op there directly;
+    ``evict_notice`` runs the handoff. Never raises."""
     from .server import _malformed
 
     if not isinstance(op, dict):
@@ -1251,13 +1464,38 @@ def dispatch_fleet_op(coord: FleetCoordinator, op: dict,
                                  f"notice landed"}
             return {"ok": True, "evicted": rid, **summary}
         if kind in ("register", "register_fixture"):
-            resp = None
-            for _rid, rep in sorted(coord.live_replicas().items()):
-                resp = rep.forward(op)
-                if not resp.get("ok", False):
-                    return resp
-            if resp is None:
+            reps = [rep for _rid, rep in sorted(coord.live_replicas().items())]
+            if not reps:
                 return {"ok": False, "error": "no live replicas"}
+            if all(getattr(r, "socket_path", None) for r in reps):
+                # daemons are processes of their own: they register at
+                # once (a 20,000-gene fixture takes each tens of seconds)
+                resps = [None] * len(reps)
+
+                def one(i):
+                    try:
+                        resps[i] = reps[i].forward(op)
+                    except (OSError, ValueError) as e:
+                        resps[i] = {"ok": False, "error": f"replica "
+                                    f"{reps[i].rid}: {type(e).__name__}: "
+                                    f"{e}"}
+
+                threads = [threading.Thread(target=one, args=(i,))
+                           for i in range(len(reps))]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join()
+            else:
+                resps = []
+                for rep in reps:
+                    resps.append(rep.forward(op))
+                    if not resps[-1].get("ok", False):
+                        break
+            resp = next((r for r in resps if not r.get("ok", False)),
+                        resps[-1])
+            if not resp.get("ok", False):
+                return resp
             if kind == "register" and resp.get("digest"):
                 coord.note_digest(str(op.get("tenant")),
                                   str(op.get("name")),
@@ -1281,6 +1519,13 @@ def dispatch_fleet_op(coord: FleetCoordinator, op: dict,
                 if rep is None:
                     return {"ok": False, "error": "fleet has no live "
                                                   "replicas"}
+                if (route_mode == "redirect"
+                        and getattr(rep, "socket_path", None)):
+                    # data-plane redirect: the client re-sends the SAME op
+                    # (same key, same trace) to the home replica, and the
+                    # coordinator stays off the hot path
+                    return {"ok": False, "retryable": True,
+                            "redirect": rep.socket_path}
                 try:
                     resp = rep.forward(op)
                 except (OSError, ValueError):
@@ -1307,3 +1552,288 @@ def dispatch_fleet_op(coord: FleetCoordinator, op: dict,
     except Exception as e:
         return {"ok": False,
                 "error": f"internal error: {type(e).__name__}: {e}"}
+
+
+# ---------------------------------------------------------------------------
+# daemon fleet (`python -m netrep_tpu_torch serve --fleet N`)
+# ---------------------------------------------------------------------------
+
+#: the checkout's root, put on a daemon's ``PYTHONPATH`` so ``python -m
+#: netrep_tpu_torch`` finds the package from any directory
+_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+
+def daemon_env(**extra) -> dict:
+    """The environment of a daemon this process starts: its own, the
+    checkout's root on ``PYTHONPATH``, the kernel-library store named (so
+    every generation reads the same one), then ``extra``."""
+    from ..utils import aot
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (_ROOT, env.get("PYTHONPATH")) if p)
+    env[aot.STORE_ENV] = str(aot.store_dir())
+    env.update(extra)
+    return env
+
+
+def spawn_replica_daemon(rid: str, fleet_dir: str, args, *,
+                         generation: int = 0,
+                         env_extra: dict | None = None) -> DaemonReplica:
+    """Boot one replica daemon on its own socket, journaling into the
+    fleet layout with the SHARED checkpoint directory, on the
+    coordinator's ``--device`` (the card unless ``cpu``), with
+    ``--fleet-label`` so it builds or loads every kernel library at boot.
+    Respawns bump ``generation`` (``serve.g1.sock``, ``journal.g1.jsonl``)
+    so a fresh journal never replays work the peer already adopted. The
+    daemon's standard output (its ``ready`` line) goes to
+    ``serve[.gN].out`` beside its journal, its errors to ``serve[.gN].err``.
+    Every generation reads the same kernel-library store."""
+    import subprocess
+    import sys
+
+    rdir = os.path.join(fleet_dir, rid.split(".", 1)[0])
+    os.makedirs(rdir, exist_ok=True)
+    suffix = f".g{generation}" if generation else ""
+    sock = os.path.join(rdir, f"serve{suffix}.sock")
+    jpath = os.path.join(rdir, f"journal{suffix}.jsonl")
+    cmd = [
+        sys.executable, "-m", "netrep_tpu_torch", "serve",
+        "--socket", sock, "--journal", jpath,
+        "--checkpoint-dir", os.path.join(fleet_dir, "ckpt"),
+        "--chunk", str(args.chunk),
+        "--checkpoint-every", str(getattr(args, "checkpoint_every", 4096)),
+        "--drain-timeout", str(args.drain_timeout),
+        "--telemetry", os.path.join(rdir, f"tel{suffix}.jsonl"),
+        "--fleet-label", rid,
+    ]
+    if getattr(args, "device", None):
+        cmd += ["--device", str(args.device)]
+    if args.n_perm:
+        cmd += ["--n-perm", str(args.n_perm)]
+    if args.brownout_enter_s is not None:
+        cmd += ["--brownout-enter-s", str(args.brownout_enter_s)]
+    # a replica never inherits the coordinator's fault plan or its eviction
+    # drill: both address the FLEET, not the child process
+    env = daemon_env(**(env_extra or {}))
+    for k in ("NETREP_FAULT_PLAN", "NETREP_FLEET_EVICT"):
+        if k not in (env_extra or {}):
+            env.pop(k, None)
+    out_path = os.path.join(rdir, f"serve{suffix}.out")
+    with open(out_path, "w") as out, \
+            open(os.path.join(rdir, f"serve{suffix}.err"), "w") as err:
+        proc = subprocess.Popen(cmd, stdout=out, stderr=err, env=env)
+    return DaemonReplica(rid, sock, jpath, proc=proc, generation=generation,
+                         out_path=out_path)
+
+
+def _wait_socket(rep: DaemonReplica, budget_s: float = 180.0) -> bool:
+    deadline = time.monotonic() + budget_s
+    while not os.path.exists(rep.socket_path):
+        if (time.monotonic() > deadline
+                or (rep.proc is not None and rep.proc.poll() is not None)):
+            return False
+        time.sleep(0.05)
+    return True
+
+
+def fleet_daemon(args) -> int:
+    """The CLI's ``serve --fleet N --socket PATH``: spawn N replica
+    daemons, run the coordinator on the main socket, respawn a failed
+    replica under a new generation (the peer already adopted the old
+    journal) unless ``--no-respawn``; ``--autoscale`` runs the
+    :class:`Autoscaler` over daemon spawns, and ``NETREP_FLEET_EVICT=
+    rid[:grace[:after]]`` fires one noticed eviction (a drill). The ready
+    line names each replica's socket and carries each one's boot split."""
+    import signal
+    import sys
+
+    if not args.socket:
+        print("serve --fleet needs --socket PATH (the coordinator "
+              "socket)", file=sys.stderr)
+        return 2
+    if args.no_journal:
+        print("serve --fleet requires journaling (the failover story "
+              "IS the journal); drop --no-journal", file=sys.stderr)
+        return 2
+    fleet_dir = args.fleet_dir or (args.socket + ".fleet")
+    os.makedirs(os.path.join(fleet_dir, "ckpt"), exist_ok=True)
+    os.makedirs(os.path.join(fleet_dir, "ship"), exist_ok=True)
+
+    # the injected fault plan (drills) reaches EXACTLY ONE replica: the
+    # coordinator and the other replicas run clean
+    plan = os.environ.get("NETREP_FAULT_PLAN")
+    plan_replica = os.environ.get("NETREP_FLEET_FAULT_REPLICA")
+    replicas = []
+    for i in range(int(args.fleet)):
+        extra = {}
+        if plan and plan_replica is not None and str(i) == plan_replica:
+            extra["NETREP_FAULT_PLAN"] = plan
+        replicas.append(spawn_replica_daemon(f"r{i}", fleet_dir, args,
+                                             env_extra=extra))
+    for rep in replicas:
+        if not _wait_socket(rep):
+            print(f"fleet replica {rep.rid} never opened its socket",
+                  file=sys.stderr)
+            for r in replicas:
+                r.close(drain=False, timeout=5)
+            return 1
+
+    coord = FleetCoordinator(replicas, FleetConfig(
+        heartbeat_s=args.heartbeat_s,
+        ship_interval_s=args.ship_interval_s,
+        fleet_dir=fleet_dir,
+        telemetry=args.telemetry,
+        brownout_enter_s=args.fleet_brownout_enter_s,
+        rate_pps=args.brownout_rate,
+        drain_timeout_s=args.drain_timeout,
+    ))
+    generations = {rep.rid: 0 for rep in replicas}
+
+    if not args.no_respawn:
+        def respawn(rid, _peer):
+            base = rid.split(".", 1)[0]
+            generations[base] = generations.get(base, 0) + 1
+            fresh = spawn_replica_daemon(
+                f"{base}.g{generations[base]}",   # r0 -> r0.g1, r0.g2 ...
+                fleet_dir, args, generation=generations[base],
+            )
+            if not _wait_socket(fresh, budget_s=120.0):
+                logger.warning("fleet respawn of %s never came up", rid)
+                return
+            # the newcomer adopts the registrations (datasets only) from a
+            # live peer's shipped journal before it enters the ring, as an
+            # autoscaled spawn does: a pair routed to it finds its datasets
+            live = sorted(coord.live_replicas())
+            src = coord.ship_flush(live[0]) if live else None
+            if src:
+                try:
+                    fresh.adopt_journal(src, datasets_only=True)
+                except (ServeError, OSError) as e:
+                    logger.warning("fleet respawn: %s failed to adopt %s: "
+                                   "%s", fresh.rid, src, e)
+            coord.join(fresh)
+
+        coord.on_failover = respawn
+
+    if getattr(args, "autoscale", False):
+        def spawn_daemon(index: int):
+            rid = f"r{index}"
+            generations.setdefault(rid, 0)
+            fresh = spawn_replica_daemon(rid, fleet_dir, args)
+            if not _wait_socket(fresh, budget_s=120.0):
+                fresh.close(drain=False, timeout=5)
+                raise ServeError(
+                    f"autoscale spawn of {rid} never opened its socket")
+            return fresh
+
+        Autoscaler(coord, spawn_daemon, AutoscaleConfig(
+            scale_up_drain_s=float(args.scale_up_drain_s or 10.0),
+            scale_down_idle_s=float(args.scale_down_idle_s or 30.0),
+            min_replicas=int(args.autoscale_min or 0),
+            max_replicas=int(args.autoscale_max or max(4, int(args.fleet))),
+        ))
+
+    stop = threading.Event()
+
+    # the eviction drill: NETREP_FLEET_EVICT=rid[:grace[:after]] fires ONE
+    # noticed eviction against the live fleet; the drill thread is loud,
+    # never fatal, and the daemon keeps serving either way
+    evict_spec = os.environ.get("NETREP_FLEET_EVICT")
+    if evict_spec:
+        def _evict_drill():
+            try:
+                parts = evict_spec.split(":")
+                rid = parts[0]
+                grace = (float(parts[1])
+                         if len(parts) > 1 and parts[1] else 30.0)
+                after = (float(parts[2])
+                         if len(parts) > 2 and parts[2] else 1.0)
+            except ValueError:
+                logger.warning("bad NETREP_FLEET_EVICT spec %r", evict_spec)
+                return
+            if stop.wait(after):
+                return
+            try:
+                coord.evict_notice(rid, grace_s=grace)
+            except (ServeError, OSError):
+                logger.warning("eviction drill on %s failed", rid,
+                               exc_info=True)
+
+        threading.Thread(target=_evict_drill,
+                         name="netrep-fleet-evict-drill",
+                         daemon=True).start()
+
+    def _drain_signal(signum, frame):
+        stop.set()
+
+    signal.signal(signal.SIGTERM, _drain_signal)
+    signal.signal(signal.SIGINT, _drain_signal)
+
+    from .server import read_op_line
+
+    path = args.socket
+    try:
+        os.unlink(path)
+    except FileNotFoundError:
+        pass
+    listener = _socket.socket(_socket.AF_UNIX, _socket.SOCK_STREAM)
+    listener.bind(path)
+    listener.listen(64)
+    listener.settimeout(0.25)
+    print(json.dumps({
+        "serve": "ready", "fleet": int(args.fleet), "socket": path,
+        "pid": os.getpid(), "fleet_dir": fleet_dir,
+        "replicas": {r.rid: r.socket_path for r in replicas},
+        "boot": {r.rid: {"spawned_t": r.spawned_t,
+                         **((r.ready_line() or {}).get("boot") or {})}
+                 for r in replicas},
+    }), flush=True)
+
+    def handle(conn):
+        with conn:
+            rfile = conn.makefile("r", encoding="utf-8")
+            while True:
+                op, resp = read_op_line(rfile, coord)
+                if op is None and resp is None:
+                    return
+                if resp is not None and resp.get("empty"):
+                    continue
+                if resp is None:
+                    resp = dispatch_fleet_op(coord, op, stop,
+                                             route_mode=args.fleet_route)
+                    if op.get("op") == "stats" and resp.get("ok"):
+                        # the coordinator only routes and ships journals:
+                        # it holds no CUDA context of its own
+                        import torch
+
+                        resp["stats"]["coordinator"] = {
+                            "pid": os.getpid(),
+                            "cuda_initialized": torch.cuda.is_initialized()}
+                try:
+                    conn.sendall((json.dumps(resp) + "\n").encode("utf-8"))
+                except OSError:
+                    return
+                if stop.is_set():
+                    return
+
+    try:
+        while not stop.is_set():
+            try:
+                conn, _ = listener.accept()
+            except _socket.timeout:
+                continue
+            threading.Thread(target=handle, args=(conn,),
+                             daemon=True).start()
+    finally:
+        listener.close()
+        try:
+            os.unlink(path)
+        except OSError:
+            pass
+
+    coord.close(drain=True)
+    print(json.dumps({"serve": "fleet_drained",
+                      "replicas": sorted(generations)}), flush=True)
+    return 0

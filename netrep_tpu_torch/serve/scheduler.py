@@ -70,10 +70,15 @@ What the port does its own way:
   the observed pass, so the first request finds a warm engine.
 
 Inside a serving fleet (:mod:`~netrep_tpu_torch.serve.fleet`) a server
-carries its replica id as ``ServeConfig.fleet_label``: its first
-completed pack records a cold-start entry to the perf ledger
+carries its replica id as ``ServeConfig.fleet_label``: on the card it
+builds (or loads from the kernel-library store, :mod:`~netrep_tpu_torch.
+utils.aot`) every kernel library at boot, so a spawned or respawned
+replica never runs ``nvcc`` on a request's path; its first completed pack
+records a cold-start entry to the perf ledger
 (:mod:`~netrep_tpu_torch.utils.perfledger`), and the rate estimate falls
 back on the ledger's serve history before anything is measured.
+``boot`` records the seconds of the boot's library step (each library's
+acquisition source) and of its journal open and replay.
 
 ``stats()`` carries the roofline ``utilisation`` of the most recent
 engine run on the server's own telemetry bus (:func:`~netrep_tpu_torch.
@@ -81,9 +86,6 @@ utils.costmodel.last_run_note`; null without a bus), and a tenant whose
 SLO burn rate first passes its budget fires the ``slo_burn`` detector
 (:mod:`~netrep_tpu_torch.utils.detectors`), latched until the rate falls
 back to the budget.
-
-Not carried over (ROADMAP.md Queue 1 item 16b.4): the AOT program store
-and its export scope, which ``fleet_label`` turns on in the JAX package.
 """
 
 from __future__ import annotations
@@ -99,6 +101,7 @@ from typing import Callable, Sequence
 
 import numpy as np
 
+from .. import ops as tops
 from ..models import dataset as ds
 from ..models.preservation import _overlap_setup
 from ..ops import pvalues as pv
@@ -212,10 +215,11 @@ class ServeConfig:
     #: single-test dense requests; off by default
     cross_pair_packing: bool = False
     #: replica identity inside a serving fleet (e.g. ``"r0"``). When set,
-    #: the replica's FIRST completed pack records its cold-start compile
-    #: span to the perf ledger under a fleet-labeled fingerprint
+    #: the server builds every kernel library at boot on the card, and the
+    #: replica's FIRST completed pack records its cold-start compile span
+    #: to the perf ledger under a fleet-labeled fingerprint
     #: (``serve-fleet-coldstart|<label>|<backend>``). None = stand-alone
-    #: server, nothing recorded.
+    #: server: libraries load at first use, nothing recorded.
     fleet_label: str | None = None
 
 
@@ -381,6 +385,11 @@ class PreservationServer:
         self._ledger_rate: float | None = None
         self._ledger_rate_read = False
         self._coldstart_done = False
+        #: seconds of the boot's steps (the daemon's ready line carries it)
+        self.boot: dict = {}
+        if self.config.fleet_label and self.device.type == "cuda":
+            self._boot_libraries()
+        t0 = time.perf_counter()
         self.journal: jnl.RequestJournal | None = None
         self._ckpt_dir = self.config.checkpoint_dir
         if self.config.journal:
@@ -399,10 +408,21 @@ class PreservationServer:
         self._preload_thread: threading.Thread | None = None
         if self.config.recover and self.config.journal:
             self._recover()
+        self.boot["journal_s"] = time.perf_counter() - t0
         if self.config.preload:
             self._start_preload()
         if start:
             self.start()
+
+    def _boot_libraries(self) -> None:
+        """A fleet replica's boot: every kernel library built (one ``nvcc``
+        a source, together, under the store's lock) or loaded from the
+        store, each load timed with its source."""
+        from ..ops import _build
+
+        t0 = time.perf_counter()
+        self.boot["libraries"] = _build.load_all()
+        self.boot["libraries_s"] = time.perf_counter() - t0
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -1843,6 +1863,9 @@ class PreservationServer:
                     for d in t.datasets.values()) / 2**30,
                 "device": str(self.device),
                 "packs": self._pack_seq,
+                # this process's kernel launches (a daemon's are its own)
+                "kernel_launches": {fn.__name__: fn.launches
+                                    for fn in tops.kernels()},
                 "uptime_s": uptime,
                 "slo_s": self.config.slo_s,
                 "slo_budget": self.config.slo_budget,

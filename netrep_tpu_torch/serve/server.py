@@ -29,10 +29,13 @@ the environment, the kernel libraries, the journal's redacted tail)
 without stopping anything; the op answers ``{"ok": true, "bundle":
 PATH}``, the signal prints the path on stderr.
 
-The port has no CLI yet (ROADMAP.md Queue 1 item 16b.4): start the daemon
-with :func:`serve_daemon` on the namespace :func:`daemon_args` builds,
-e.g. ``python -c "from netrep_tpu_torch.serve.server import daemon_args,
-serve_daemon; serve_daemon(daemon_args(socket='/tmp/n.sock'))"``.
+Start it with ``python -m netrep_tpu_torch serve --socket PATH`` (on the
+card; ``--device cpu`` runs it on the CPU), or in process with
+:func:`serve_daemon` on the namespace :func:`daemon_args` builds. The
+``ready`` line carries the boot's split (``boot``): the seconds of the
+imports the CLI timed, the CUDA context, a fleet replica's kernel
+libraries (each with its source, ``jit`` or ``aot``), the journal's open
+and replay, and the wall clock of the CLI's start and of the line.
 """
 
 from __future__ import annotations
@@ -214,15 +217,16 @@ def _handle_conn(server: PreservationServer, conn: socket.socket,
 def daemon_args(**kw) -> argparse.Namespace:
     """The namespace :func:`serve_daemon` reads, with the JAX package's
     ``serve`` defaults (socket None = stdio, journal
-    ``netrep_serve_journal.jsonl``, chunk 64, drain timeout 120 s) and
-    ``device`` None (``"cuda"``); keywords override them."""
+    ``netrep_serve_journal.jsonl``, chunk 64, drain timeout 120 s),
+    ``device`` None (``"cuda"``), no ``fleet_label`` and no ``boot``
+    stamps; keywords override them."""
     args = dict(
         socket=None, telemetry=None, max_queue=64, max_pack=4,
         pool_size=8, chunk=64, n_perm=None, drain_timeout=120.0,
         journal="netrep_serve_journal.jsonl", no_journal=False,
         recover=None, checkpoint_dir=None, checkpoint_every=4096,
         brownout_enter_s=None, brownout_exit_s=None, brownout_rate=None,
-        device=None,
+        device=None, fleet_label=None, boot=None,
     )
     unknown = set(kw) - set(args)
     if unknown:
@@ -231,9 +235,30 @@ def daemon_args(**kw) -> argparse.Namespace:
     return argparse.Namespace(**args)
 
 
+def _cuda_context(device) -> float:
+    """Create the CUDA context of ``device`` (None means ``"cuda"``) now,
+    so the boot's split shows it and a broken card fails the boot; 0.0 on
+    the CPU."""
+    import time
+
+    import torch
+
+    from ..utils.config import resolve_device
+
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return 0.0
+    t0 = time.perf_counter()
+    torch.empty(1, device=dev)
+    torch.cuda.synchronize(dev)
+    return time.perf_counter() - t0
+
+
 def serve_daemon(args) -> int:
     """Run the daemon on ``args`` (see :func:`daemon_args` and the module
     docstring) until a drain; returns the process exit code."""
+    import time
+
     from ..utils.config import EngineConfig
 
     journal = None if args.no_journal else args.journal
@@ -260,8 +285,12 @@ def serve_daemon(args) -> int:
         brownout_exit_s=args.brownout_exit_s,
         brownout_rate_pps=args.brownout_rate,
         device=getattr(args, "device", None),
+        fleet_label=getattr(args, "fleet_label", None),
     )
+    boot = dict(getattr(args, "boot", None) or {})
+    boot["context_s"] = _cuda_context(cfg.device)
     server = PreservationServer(cfg)
+    boot.update(server.boot)
     stop = threading.Event()
 
     def _drain_signal(signum, frame):
@@ -298,7 +327,9 @@ def serve_daemon(args) -> int:
         listener.listen(16)
         listener.settimeout(0.25)
         print(json.dumps({"serve": "ready", "socket": path,
-                          "pid": os.getpid()}), flush=True)
+                          "pid": os.getpid(),
+                          "boot": {**boot, "ready_t": time.time()}}),
+              flush=True)
         try:
             while not stop.is_set():
                 try:
@@ -319,7 +350,9 @@ def serve_daemon(args) -> int:
         # stdio mode: one JSON op per stdin line, one response per stdout
         # line; EOF drains
         print(json.dumps({"serve": "ready", "stdio": True,
-                          "pid": os.getpid()}), flush=True)
+                          "pid": os.getpid(),
+                          "boot": {**boot, "ready_t": time.time()}}),
+              flush=True)
         while True:
             op, resp = read_op_line(sys.stdin, server)
             if op is None and resp is None:

@@ -143,8 +143,9 @@ def _kernels_snapshot() -> dict:
     """Each kernel source's library: path, hash, whether it is built, and
     this process's build record — read only, nothing is compiled."""
     from ..ops import _build
+    from . import aot
 
-    out = {"build_dir": str(_build.BUILD_DIR), "libraries": {}}
+    out = {"build_dir": str(aot.store_dir()), "libraries": {}}
     for name in _build.SOURCES:
         lib = _build.library_path(name)
         src = _build.CSRC / f"{name}.cu"
@@ -156,6 +157,7 @@ def _kernels_snapshot() -> dict:
             "exists": lib.exists(),
             "loaded": name in _build._LIBS,
             "build_s": info.get("seconds"),
+            "acquired": info.get("source"),
             "ptxas": info.get("ptxas"),
         }
     return out

@@ -16,12 +16,11 @@ Two paths feed :func:`fire`:
   telemetry events are picked up by :func:`scan`, which the flight
   observer calls with every emitted record;
 - **site-fired**: the stall escalation (``utils/telemetry.py``), the
-  checkpoint refusals (``utils/checkpoint.py``) and the SLO burn
-  (``serve/scheduler.py``) call :func:`fire` where they decide.
-
-``perf_drift``, ``roofline_drift`` and ``aot_refused`` are in the pinned
-catalogue; their sites (the CLI's ledger checks and the AOT store) come
-with ROADMAP.md item 16b.4.
+  checkpoint refusals (``utils/checkpoint.py``), the SLO burn
+  (``serve/scheduler.py``), the CLI's ledger gates (``perf --check`` →
+  ``perf_drift``, ``roofline --check`` → ``roofline_drift``,
+  ``__main__.py``) and the kernel-library store's quarantine
+  (``aot_refused``, ``utils/aot.py``) call :func:`fire` where they decide.
 
 ``anomaly_detected`` is emitted on the bus that carried (or observed) the
 signal, so a user run's JSONL tells its own anomaly story; the flight

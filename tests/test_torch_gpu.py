@@ -1454,3 +1454,65 @@ def test_main_path_utilisation_within_the_roofline(cuda, tmp_path,
     fam = roof[0]["family"]
     assert folded["families"][fam]["flops"] == folded["run_totals"][fam][
         "flops"]
+
+
+def test_store_builds_for_this_card_then_loads(cuda, tmp_path):
+    # a fresh store: one process compiles every library (jit), the next
+    # loads them (aot); each sidecar names this card
+    import json
+    import subprocess
+    import sys
+
+    from netrep_tpu_torch.ops import _build
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = (f"import sys; sys.path.insert(0, {root!r})\n"
+            "import json\n"
+            "from netrep_tpu_torch.ops import _build\n"
+            "_build.build(_build.SOURCES)\n"
+            "for n in _build.SOURCES:\n"
+            "    _build.load(n)\n"
+            "print(json.dumps({n: _build.BUILD_INFO[n]['source']\n"
+            "                  for n in _build.SOURCES}))\n")
+    env = {**os.environ, "NETREP_AOT_STORE": str(tmp_path)}
+    got = []
+    for _ in range(2):
+        proc = subprocess.run([sys.executable, "-c", code], env=env,
+                              capture_output=True, text=True, timeout=900)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        got.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    assert got == [dict.fromkeys(_build.SOURCES, "jit"),
+                   dict.fromkeys(_build.SOURCES, "aot")]
+    major, minor = torch.cuda.get_device_capability()
+    for meta in tmp_path.glob("lib*.json"):
+        env_sig = json.loads(meta.read_text())["env"]
+        assert f"card:sm_{major}{minor}:{torch.cuda.get_device_name()}" in \
+            env_sig
+
+
+def test_cli_selftest_and_warmup_on_the_card(cuda, capsys):
+    from netrep_tpu_torch import __main__ as tcli
+    from netrep_tpu_torch.warmup import measure_first_run
+
+    assert tcli.main(["selftest", "--json", "--max-shapes", "1"]) == 0
+    row = __import__("json").loads(
+        capsys.readouterr().out.strip().splitlines()[-1])
+    assert row["ok"] and row["device"] != "cpu"
+    out = measure_first_run(120, 3, 16, 7, 64, 256)
+    assert out["completed"] == 256 and out["source"] in ("jit", "aot",
+                                                         "memo")
+    assert out["compile_span_s"] is not None
+
+
+def test_chaos_fleet_drill_on_the_card(cuda, capsys, tmp_path, monkeypatch):
+    # replica daemons on the card: one SIGKILLed mid-pack, failed over,
+    # respawned as .g1, every request bit-equal to its direct call
+    import json
+
+    from netrep_tpu_torch import __main__ as tcli
+
+    monkeypatch.chdir(tmp_path)
+    assert tcli.main(["chaos", "--fleet", "--json", "--requests", "2"]) == 0
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert summary["ok"] and summary["bit_identical"]
+    assert summary["respawned"] == summary["killed_replica"] + ".g1"

@@ -65,6 +65,8 @@ import netrep_tpu_torch.models.grid, netrep_tpu_torch.serve.packer
 import netrep_tpu_torch.serve.server, netrep_tpu_torch.serve.top
 import netrep_tpu_torch.serve.fleet, netrep_tpu_torch.serve.lifecycle
 import netrep_tpu_torch.utils.perfledger
+import netrep_tpu_torch.__main__, netrep_tpu_torch.warmup
+import netrep_tpu_torch.utils.aot, netrep_tpu_torch.version
 bad = [m for m in set(sys.modules) - before
        if m in ("jax", "jaxlib", "netrep_tpu") or m.startswith(("jax.", "jaxlib.", "netrep_tpu."))]
 print(",".join(sorted(bad)))
@@ -94,7 +96,8 @@ def test_no_card_means_no_run(monkeypatch):
                                    "sparse_properties", "sparse_engine",
                                    "data_only", "data_only_datasets",
                                    "grid", "packed_engine",
-                                   "grid_packed_engine", "serve", "fleet"])
+                                   "grid_packed_engine", "serve", "fleet",
+                                   "warmup", "warmup_measure"])
 def test_device_defaults_to_the_card(monkeypatch, tmp_path, entry):
     # every function that places tensors takes device=None as "cuda", so a
     # caller that names no device never lands on the CPU unawares
@@ -118,6 +121,7 @@ def test_device_defaults_to_the_card(monkeypatch, tmp_path, entry):
     from netrep_tpu_torch.parallel.engine import ModuleSpec
     from netrep_tpu_torch.parallel.multitest import MultiTestEngine
     from netrep_tpu_torch.parallel.sparse import SparsePermutationEngine
+    from netrep_tpu_torch.warmup import measure_first_run, warmup_grid
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     eye, spec = np.eye(4), [ModuleSpec("1", np.arange(2), np.arange(2))]
@@ -154,6 +158,8 @@ def test_device_defaults_to_the_card(monkeypatch, tmp_path, entry):
             np.arange(4)),
         "serve": lambda: PreservationServer(start=False),
         "fleet": lambda: build_inprocess_fleet(1, str(tmp_path / "fleet")),
+        "warmup": lambda: warmup_grid([(120, 3, 16)], 64, None),
+        "warmup_measure": lambda: measure_first_run(120, 3, 16, 7, 64, 128),
     }[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()
