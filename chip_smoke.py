@@ -29,6 +29,12 @@ samples per dataset, 1,000 permutations — along each of its paths, every
 launch count set to 0 just before a path and read just after:
 
 - ``main_path``: the fused-statistics null, materialized and streaming;
+- ``native``: ``backend='native'``, the threaded C++ host tier, on the
+  same host inputs and seed with no device named — one thread on 32
+  permutations, every core on 256 (``native_phase``): its observed
+  statistics within ``tolerance_for('cuda')`` of the card's fused ones,
+  the two nulls equal on their common prefix, and its rates beside the
+  card's fused materialized rate, with the host's CPU model and cores;
 - ``composed_path``: ``stat_mode='xla', gather_mode='fused'`` (the gather
   kernel, one launch per chunk and matrix, then the composed statistics),
   both null modes;
@@ -129,8 +135,9 @@ launch count set to 0 just before a path and read just after:
   (``fleet_phase``): ``grid_preservation(fleet=)`` on the three cohorts
   across two replicas (each cell equal to the in-process grid's, a
   second round of pool hits on the same replicas), then a journaled
-  fleet on a 20,000-gene fixture: a crash plan mid-pack on the pair's
-  home and failover to the peer (each request equal to its solo call,
+  fleet on the generator's fixture (``FLEET_FIXTURE``; 10,000 genes in
+  the whole script, 20,000 in ``--fleet``): a crash plan mid-pack on the
+  pair's home and failover to the peer (each request equal to its solo call,
   fused null rows bit-equal, the resumed pack's launches exact, zero
   permutations recomputed, the dead replica's pool given back), the
   autoscaler spawning a third replica, an eviction handoff held the same
@@ -159,16 +166,17 @@ launch count set to 0 just before a path and read just after:
   kernel-library store, ``nvcc`` runs) and warm, split by its ready line
   into the interpreter, the imports, the CUDA context, each library's
   build or load with its ``source``, the journal and the rest; ``warmup
-  --measure`` at the main path's widths cold and warm (``first_run_s``,
-  ``compile_span_s``, ``source`` ``jit`` then ``aot``); ``warmup``'s first
-  chunk of each engine in a fresh process;
+  --measure`` on ``FLEET_FIXTURE`` (the main path's widths in
+  ``--startup``, 10,000 genes in the whole script) cold and warm
+  (``first_run_s``, ``compile_span_s``, ``source`` ``jit`` then
+  ``aot``); ``warmup``'s first chunk of each engine in a fresh process;
 - ``cli``: the CLI's ``chaos`` on the card, then its ``selftest --json``,
   ``telemetry``, ``roofline --check``, ``perf --check`` and ``version``
   on the files two telemetry-on nulls wrote (``cli_phase``), each
   exiting 0;
 - ``fleet_daemon``: ``serve --fleet 2`` — a coordinator over two replica
-  daemon processes on the card (``fleet_daemon_phase``): the 20,000-gene
-  fixture registered through its socket, a replica SIGKILLed mid-pack,
+  daemon processes on the card (``fleet_daemon_phase``): ``FLEET_FIXTURE``
+  registered through its socket, a replica SIGKILLed mid-pack,
   failed over and respawned as ``.g1``, each replica's boot and
   fused-kernel launches, the card's memory with two contexts, the
   coordinator without one, and the drain to exit 0; after ``fleet``,
@@ -186,6 +194,9 @@ too. Inputs are
 generated from a fixed seed (data with numpy on the host, correlation and
 network on the card) and handed to the entry point as host numpy arrays, as
 a user holds them, so its input phase includes the copy to the card.
+
+Right after the build, ``lint`` runs ``python -m netrep_tpu_torch lint
+--json`` on the checkout and requires exit 0 with no finding.
 
 Prints one JSON object per phase, then the ``{"kernels": [...]}`` summary,
 the card's ``name, power.limit`` line, and as its last line
@@ -255,7 +266,12 @@ only the fused-statistics rows' bounds by the cost model
     python3 chip_smoke.py --startup
 
 only ``startup``, ``cli`` and ``fleet_daemon`` (its references from one
-in-process server on the same fixture). Each mode runs
+in-process server on the same fixture), and
+
+    python3 chip_smoke.py --native
+
+only ``lint``, the main path's fused materialized run and ``native``.
+Each mode runs
 through the ``netrep_tpu_torch`` beside the script: copied into another checkout,
 it measures that checkout's version on the same inputs.
 """
@@ -4485,6 +4501,12 @@ def serve_phase(torch, np, tops, kw, labels, card, dev) -> dict:
 FLEET_FIXTURE = dict(genes=GENES, modules=MODULES, n_samples=SAMPLES,
                      seed=SEED)
 FLEET_CRASH_AT, FLEET_CKPT_EVERY = 640, 256
+#: the whole script cuts that fixture's scale to this many genes (the
+#: ``--fleet`` and ``--startup`` modes keep GENES): its generation, once
+#: in each replica and each fresh process of the ``startup``,
+#: ``fleet_daemon`` and ``fleet`` drills, is most of their time, and the
+#: whole run must stay well inside its time limit
+WHOLE_FIXTURE_GENES = 10_000
 
 
 def fleet_phase(torch, np, tops, kw, labels, card, dev,
@@ -6122,6 +6144,193 @@ def fleet_daemon_phase(torch, np, card, refs=None) -> dict:
     return got
 
 
+#: the native phase: permutations of the C++ host tier at one thread and
+#: at every core of the card's host, on the main path's inputs (chosen so
+#: the phase stays well under 90 s there)
+NATIVE_PERM_1, NATIVE_PERM_ALL = 32, 256
+
+
+def host_cpu() -> dict:
+    """The host's CPU as ``/proc/cpuinfo`` names its first core (model
+    name, vendor, family and model numbers, whether it has AVX2 and
+    AVX-512) and its cores: the machine's and this process's."""
+    info = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if not line.strip():
+                    break
+                k, _, v = line.partition(":")
+                info[k.strip()] = v.strip()
+    except OSError:
+        pass
+    flags = info.get("flags", "").split()
+    return {"model": info.get("model name"),
+            "vendor": info.get("vendor_id"),
+            "family": info.get("cpu family"),
+            "model_number": info.get("model"),
+            "avx2": "avx2" in flags, "avx512f": "avx512f" in flags,
+            "cores": os.cpu_count(),
+            "usable_cores": len(os.sched_getaffinity(0))}
+
+
+def native_phase(np, module_preservation, kw, fused_run, card) -> dict:
+    """``module_preservation(backend='native')`` on the main path's host
+    float64 inputs (adopted without a copy, checked on the CPU): at one
+    thread on NATIVE_PERM_1 permutations and at every usable core on
+    NATIVE_PERM_ALL, with no device named (the tier needs no card). The
+    native observed statistics are held to the card's fused ones
+    (``fused_run``, the main path's materialized run) within
+    ``tolerance_for('cuda')``, the two native nulls equal on their common
+    prefix (the counter-based stream does not depend on the thread count),
+    and the rates set beside the card's fused materialized rate on the
+    same inputs and seed. Where a native entry is farther than that from
+    the card's, the float64 oracle (``ops/oracle.py``, numpy's SVD on the
+    module's host slices) decides: the card must lie within the tolerance
+    of the oracle and the native tier beyond it there — its power
+    iteration stops at 512 steps, as the JAX package's copy does — and
+    each such entry is listed."""
+    import gc
+
+    from netrep_tpu_torch.native import build as nbuild
+    from netrep_tpu_torch.ops import oracle
+    from netrep_tpu_torch.utils.selftest import tolerance_for
+
+    tol = tolerance_for("cuda")
+    cpu = host_cpu()
+    labels = np.asarray(kw["module_assignments"])
+    (dc, dn, dd), (tc, tn, td) = [
+        [kw[f][side] for f in ("correlation", "network", "data")]
+        for side in ("disc", "test")]
+    want = []
+    for m in fused_run.module_labels:
+        i = np.flatnonzero(labels == m)
+        dp = oracle.DiscoveryProps(dc[np.ix_(i, i)], dn[np.ix_(i, i)],
+                                   dd[:, i])
+        want.append(oracle.module_stats(dp, tc[np.ix_(i, i)],
+                                        tn[np.ix_(i, i)], td[:, i]))
+    want = np.stack(want)
+    card_vs_oracle = float(np.abs(fused_run.observed - want).max())
+    if card_vs_oracle > tol:
+        raise RuntimeError(f"the card's observed statistics differ from the "
+                           f"float64 oracle by {card_vs_oracle} > {tol}")
+    base = {k: kw[k] for k in ("network", "data", "correlation",
+                               "module_assignments", "discovery", "test",
+                               "seed")}
+    runs, res = {}, {}
+    t_phase = time.perf_counter()
+    for label, n_threads, n_perm in (
+            ("1_thread", 1, NATIVE_PERM_1),
+            ("all_threads", cpu["usable_cores"], NATIVE_PERM_ALL)):
+        t0 = time.perf_counter()
+        r = module_preservation(**base, n_perm=n_perm, backend="native",
+                                n_threads=n_threads)
+        wall = time.perf_counter() - t0
+        if r.observed.shape != (MODULES, 7) or not np.isfinite(
+                r.observed).all():
+            raise RuntimeError(f"native {label}: observed statistics not "
+                               f"finite (MODULES, 7): {r.observed.shape}")
+        if r.completed != n_perm or r.nulls.shape != (n_perm, MODULES, 7):
+            raise RuntimeError(f"native {label}: completed {r.completed} "
+                               f"of {n_perm}, null {r.nulls.shape}")
+        if not ((r.p_values > 0) & (r.p_values <= 1)).all():
+            raise RuntimeError(f"native {label}: p-values outside (0, 1]")
+        dev_card = np.abs(r.observed - fused_run.observed)
+        dev_oracle = np.abs(r.observed - want)
+        beyond = [
+            {"module": fused_run.module_labels[k], "stat": int(j),
+             "native": float(r.observed[k, j]),
+             "card": float(fused_run.observed[k, j]),
+             "oracle": float(want[k, j])}
+            for k, j in zip(*np.nonzero(dev_card > tol))]
+        if (dev_oracle[dev_card > tol] <= tol).any():
+            raise RuntimeError(f"native {label}: observed statistics differ "
+                               f"from the card's beyond {tol} where the "
+                               f"native tier agrees with the oracle: "
+                               f"{beyond}")
+        res[label] = r
+        runs[label] = {"n_threads": n_threads, "n_perm": n_perm,
+                       "wall_s": wall, "input_s": r.profile["input_s"],
+                       "engine_s": r.profile["engine_s"],
+                       "observed_s": r.profile["observed_s"],
+                       "null_s": r.profile["null_s"],
+                       "perms_per_s": r.profile["perms_per_s"],
+                       "observed_max_abs_err_vs_card": float(dev_card.max()),
+                       "observed_max_abs_err_vs_oracle": float(
+                           dev_oracle.max()),
+                       "beyond_tolerance_of_card": beyond}
+    one, every = res["1_thread"].nulls, res["all_threads"].nulls
+    if not np.array_equal(one, every[:len(one)], equal_nan=True):
+        raise RuntimeError("native nulls differ between 1 thread and "
+                           "every core on their common prefix")
+    card_pps = fused_run.profile["perms_per_s"]
+    native_pps = runs["all_threads"]["perms_per_s"]
+    lib = nbuild.library_path()
+    emit({"phase": "native", "genes": GENES, "modules": MODULES,
+          "samples": SAMPLES, "seed": SEED, "host_cpu": cpu,
+          "library": lib.name, "march": nbuild.march() or None,
+          "runs": runs, "nulls_equal_on_prefix": True,
+          "observed_tolerance": tol,
+          "card_observed_max_abs_err_vs_oracle": card_vs_oracle,
+          "card_fused_materialized": {
+              "n_perm": int(fused_run.completed), "perms_per_s": card_pps,
+              "null_s": fused_run.profile["null_s"]},
+          "card_speedup_vs_1_thread": card_pps
+          / runs["1_thread"]["perms_per_s"],
+          "card_speedup_vs_all_threads": card_pps / native_pps,
+          "s": time.perf_counter() - t_phase, "card": card})
+    del res, one, every, r
+    gc.collect()
+    return runs
+
+
+def lint_check(card) -> dict:
+    """``python -m netrep_tpu_torch lint --json`` on the checkout beside
+    this script: exit 0, no finding, every suppression with its reason."""
+    rc, out, err, wall = run_cli("lint", "--json", timeout=300)
+    if rc != 0:
+        raise RuntimeError(f"lint exited {rc}:\n{out[-2000:]}{err[-2000:]}")
+    row = last_json(out)
+    if (row.get("lint_v") != 1 or row.get("ok") is not True
+            or row.get("findings")
+            or not all(s["reason"].strip() for s in row["suppressions"])):
+        raise RuntimeError(f"lint: unexpected report {row}")
+    emit({"phase": "lint", "rc": rc, "files": row["files"],
+          "rules": row["rules"], "suppressed": len(row["suppressed"]),
+          "stale": len(row["stale_suppressions"]), "s": wall, "card": card})
+    return row
+
+
+def native_only() -> int:
+    """``--native``: the lint check, then the main path's fused
+    materialized run on the card and the ``native`` phase on the same
+    inputs."""
+    setup = mode_setup()
+    if setup is None:
+        return 1
+    torch, np, dev, card = setup
+    from netrep_tpu_torch import ops as tops
+    from netrep_tpu_torch.models.preservation import module_preservation
+    from netrep_tpu_torch.utils.config import EngineConfig
+
+    lint_check(card)
+    _sizes, labels, (xd, xt, _x2) = make_cohorts(np)
+    (dd, dc, dn), (td, tc, tn) = [
+        [m.cpu().numpy() for m in mats(torch, x, dev)] for x in (xd, xt)]
+    torch.cuda.empty_cache()
+    kw = dict(network={"disc": dn, "test": tn},
+              data={"disc": dd, "test": td},
+              correlation={"disc": dc, "test": tc},
+              module_assignments=list(labels), discovery="disc",
+              test="test", n_perm=N_PERM, seed=SEED, device="cuda")
+    drive = make_drive(torch, np, tops, module_preservation, kw, card)
+    fused_run, _launches, _mem = drive("main_path", ["fused_stats_values"],
+                                       config=EngineConfig())
+    native_phase(np, module_preservation, kw, fused_run, card)
+    print(card_line(), flush=True)
+    return 0
+
+
 def startup_only() -> int:
     """``--startup``: this slice's phases alone — ``startup``, ``cli`` and
     ``fleet_daemon`` (its references from one in-process server)."""
@@ -6141,6 +6350,7 @@ def startup_only() -> int:
 
 
 def main() -> int:
+    global FLEET_FIXTURE
     import torch
 
     if not torch.cuda.is_available():
@@ -6187,11 +6397,14 @@ def main() -> int:
         }
     emit({"phase": "build", "total_s": time.perf_counter() - t0,
           "sources": built})
+    # ---- the invariant linter over the checkout's port ------------------
+    lint_check(card)
 
     # ---- the start-up path: traced starts, the CLI, the daemon fleet ----
     # first, while this process holds little host memory: two replica
-    # daemons generate the 20,000-gene fixture at once (the results are
-    # held to the in-process fleet's after the fleet phase)
+    # daemons generate the fixture at once (the results are held to the
+    # in-process fleet's after the fleet phase)
+    FLEET_FIXTURE = dict(FLEET_FIXTURE, genes=WHOLE_FIXTURE_GENES)
     startup_phase(card, first_launch=False)
     cli_phase(np, card)
     daemon_got = fleet_daemon_phase(torch, np, card)
@@ -6465,6 +6678,8 @@ def main() -> int:
           "modules_preserved": int(preserved.sum()),
           "planted_preserved": MODULES // 2})
     fused_run = a
+    # ---- the native C++ host tier on the same inputs and seed -----------
+    native_phase(np, module_preservation, kw, fused_run, card)
     #: the float32 run and memory of each call the bf16 phase repeats
     f32_ref = {"main/materialized": (a, memory[True]),
                "main/streaming": (b, memory[False])}
@@ -6902,7 +7117,8 @@ if __name__ == "__main__":
              "--bf16": bf16_only, "--screened": screened_only,
              "--faults": faults_only, "--grid": grid_only,
              "--serve": serve_only, "--fleet": fleet_only,
-             "--tooling": tooling_only, "--startup": startup_only}
+             "--tooling": tooling_only, "--startup": startup_only,
+             "--native": native_only}
     args = sys.argv[1:]
     if len(args) > 1 or (args and args[0] not in modes):
         sys.exit(f"usage: {sys.argv[0]} [{' | '.join(modes)}]")

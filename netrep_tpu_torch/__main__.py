@@ -29,15 +29,18 @@ The port of ``netrep_tpu/__main__.py``. Commands:
   permutation mesh, ``--serve`` (a daemon killed mid-pack and recovered),
   ``--fleet`` (a replica daemon killed mid-pack, failed over, respawned)
   and ``--fleet --evict`` (a noticed eviction's handoff).
-- ``lint`` — not ported yet (ROADMAP.md Queue 1 item 16b.6); exits 2.
+- ``lint [--json] [--rule NAME] [paths...]`` — the invariant linter
+  (:mod:`netrep_tpu_torch.analysis`) over the port (or the paths named):
+  exits 0 when clean, 2 on findings or an unknown rule.
 
 ``selftest``, ``warmup``, ``serve`` and ``chaos`` take ``--device`` and
 run on the card unless it says ``cpu``; without a card they exit 1 with
-the port's device error. ``telemetry``, ``perf``, ``roofline``, ``bundle``
-and ``top`` only read files or sockets and never touch a device. The JAX
-CLI's backend resolution (its TPU tunnel) and persistent XLA cache have no
-counterpart: the device is named, and the kernel-library store
-(:mod:`netrep_tpu_torch.utils.aot`) is the port's cache.
+the port's device error. ``telemetry``, ``perf``, ``roofline``,
+``bundle``, ``top`` and ``lint`` only read files or sockets and never
+touch a device. The JAX CLI's backend resolution (its TPU tunnel) and
+persistent XLA cache have no counterpart: the device is named, and the
+kernel-library store (:mod:`netrep_tpu_torch.utils.aot`) is the port's
+cache.
 """
 
 from __future__ import annotations
@@ -794,10 +797,19 @@ def build_parser() -> argparse.ArgumentParser:
     wu.add_argument("--json", action="store_true",
                     help="print the report as one JSON line")
     _device_arg(wu)
-    ln = sub.add_parser("lint", help="the invariant linter (not ported yet)")
-    ln.add_argument("paths", nargs="*", default=None)
-    ln.add_argument("--json", action="store_true")
-    ln.add_argument("--rule", action="append", metavar="NAME")
+    ln = sub.add_parser(
+        "lint",
+        help="invariant linter: statically enforce the port's RNG, "
+             "exception, telemetry, checkpoint, thread, import, TF32 and "
+             "device contracts over netrep_tpu_torch/ (exit 2 on findings; "
+             "suppressions are counted, reasons required)")
+    ln.add_argument("paths", nargs="*", default=None,
+                    help="files or directories to lint (default: the "
+                         "netrep_tpu_torch package)")
+    ln.add_argument("--json", action="store_true",
+                    help="one machine-readable JSON line (lint_v schema)")
+    ln.add_argument("--rule", action="append", metavar="NAME",
+                    help="run only this rule (repeatable)")
     bu = sub.add_parser(
         "bundle", help="render a diagnostic bundle's triage report, or "
                        "--collect one from this process")
@@ -984,9 +996,10 @@ def main(argv=None) -> int:
         args = ap.parse_args(["selftest", *(argv or [])])
 
     if args.cmd == "lint":
-        print("lint: the invariant linter is not ported yet (ROADMAP.md "
-              "Queue 1 item 16b.6)", file=sys.stderr)
-        return 2
+        # device-free: pure AST analysis
+        from .analysis.linter import main_lint
+
+        return main_lint(args)
     if args.cmd == "version":
         from .version import __version__
 

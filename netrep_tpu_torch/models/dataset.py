@@ -33,6 +33,7 @@ data alone: its correlation and network derive from it on demand.
 from __future__ import annotations
 
 import dataclasses
+import math
 import warnings
 from typing import Mapping, Sequence
 
@@ -59,14 +60,15 @@ FIELDS = ("correlation", "network", "data")
 
 @dataclasses.dataclass
 class Dataset:
-    """One dataset's aligned matrices, as float32 tensors: ``correlation``
-    and ``network`` ``(n, n)`` (both None for a data-only dataset, whose
-    matrices derive from its data and are never materialized), ``data``
-    ``(n_samples, n)`` or None (data-less variant). :func:`build_datasets`
-    and :func:`build_data_only_datasets` leave them on the run's
-    device; :func:`place` may move one to pinned host memory or let it go
-    (None). ``copies`` holds, per field, the event of a copy to the host
-    still in flight."""
+    """One dataset's aligned matrices, as float32 tensors (float64 host
+    arrays for the native tier, ``build_datasets(host64=True)``):
+    ``correlation`` and ``network`` ``(n, n)`` (both None for a data-only
+    dataset, whose matrices derive from its data and are never
+    materialized), ``data`` ``(n_samples, n)`` or None (data-less
+    variant). :func:`build_datasets` and :func:`build_data_only_datasets`
+    leave them on the run's device; :func:`place` may move one to pinned
+    host memory or let it go (None). ``copies`` holds, per field, the
+    event of a copy to the host still in flight."""
 
     name: str
     correlation: torch.Tensor | None
@@ -204,11 +206,11 @@ def _pairs(n: int, side: int):
 
 
 def _check_square_symmetric(src: torch.Tensor, what: str, dataset: str,
-                            tiles: _Tiles):
+                            tiles: _Tiles, narrow: bool = True):
     """The JAX package's square, finite and ``np.allclose(arr, arr.T,
     atol=1e-8)`` checks, in that order, over tile pairs; returns the
-    matrix narrowed to float32 on the device and its largest magnitude
-    (float64, for a correlation's range check)."""
+    matrix narrowed to float32 on the device (None unless ``narrow``) and
+    its largest magnitude (float64, for a correlation's range check)."""
     if src.shape[0] != src.shape[1]:
         raise ValueError(
             f"{what} for dataset {dataset!r} must be square, got shape "
@@ -216,8 +218,8 @@ def _check_square_symmetric(src: torch.Tensor, what: str, dataset: str,
         )
     n = src.shape[0]
     dev = tiles.device
-    out = torch.empty((n, n), dtype=torch.float32, device=dev)
-    nonfinite = torch.zeros((), dtype=torch.bool, device=dev)
+    out = (torch.empty((n, n), dtype=torch.float32, device=dev) if narrow
+           else None)
     asym = torch.zeros((), dtype=torch.bool, device=dev)
     top = torch.zeros((), dtype=torch.float64, device=dev)
     for item, got in tiles.walk(src, _pairs(n, tiles.side)):
@@ -227,19 +229,19 @@ def _check_square_symmetric(src: torch.Tensor, what: str, dataset: str,
         # against the smaller magnitude (rounding is monotone)
         a = got[0]
         bt = got[1].T if len(got) == 2 else a.T
-        nonfinite |= ~torch.isfinite(a).all()
-        if len(got) == 2:
-            nonfinite |= ~torch.isfinite(bt).all()
         aa, ba = a.abs(), bt.abs()
+        # the maxima carry any NaN or infinity of the pair: a finite
+        # largest magnitude is the finiteness check
         top = torch.maximum(top, torch.maximum(aa.amax(), ba.amax()))
         tol = torch.minimum(aa, ba).mul_(_SYM_RTOL).add_(_SYM_TOL)
         del aa, ba
         asym |= torch.gt((a - bt).abs_(), tol).any()
         del tol
-        for (r, c), t in zip(item, got):
-            out[r, c] = t
-    nonfinite, asym, top = (v.item() for v in (nonfinite, asym, top))
-    if nonfinite:
+        if narrow:
+            for (r, c), t in zip(item, got):
+                out[r, c] = t
+    asym, top = asym.item(), top.item()
+    if not math.isfinite(top):
         raise ValueError(
             f"{what} for dataset {dataset!r} contains non-finite values "
             "(NA/NaN/Inf are not allowed)"
@@ -249,19 +251,23 @@ def _check_square_symmetric(src: torch.Tensor, what: str, dataset: str,
     return out, top
 
 
-def _check_data(src: torch.Tensor, dataset: str, tiles: _Tiles):
-    """The data matrix narrowed to float32 on the device, after the JAX
-    package's finiteness check, in blocks of about ``TILE``² entries."""
+def _check_data(src: torch.Tensor, dataset: str, tiles: _Tiles,
+                narrow: bool = True):
+    """The data matrix narrowed to float32 on the device (None unless
+    ``narrow``), after the JAX package's finiteness check, in blocks of
+    about ``TILE``² entries."""
     s, n = src.shape
     side = tiles.side
     width = max(side, side * side // max(1, min(s, side)))
     items = [[(slice(i, min(s, i + side)), slice(j, min(n, j + width)))]
              for i in range(0, s, side) for j in range(0, n, width)]
-    out = torch.empty((s, n), dtype=torch.float32, device=tiles.device)
+    out = (torch.empty((s, n), dtype=torch.float32, device=tiles.device)
+           if narrow else None)
     nonfinite = torch.zeros((), dtype=torch.bool, device=tiles.device)
     for item, got in tiles.walk(src, items):
         nonfinite |= ~torch.isfinite(got[0]).all()
-        out[item[0]] = got[0]
+        if narrow:
+            out[item[0]] = got[0]
     if nonfinite.item():
         raise ValueError(
             f"data for dataset {dataset!r} contains non-finite values"
@@ -299,13 +305,28 @@ def input_sources(network, data=None, correlation=None
     }
 
 
+def _host_float64(t: torch.Tensor) -> np.ndarray:
+    """``t`` as a float64 host array, the JAX package's ``np.asarray(x,
+    dtype=np.float64)``: a host float64 input's own memory, anything else
+    widened (exactly) into a copy."""
+    t = t.detach().cpu()
+    if t.dtype != torch.float64:
+        t = t.to(torch.float64)
+    return t.numpy()
+
+
 def build_datasets(network, data=None, correlation=None,
-                   device=None) -> dict[str, Dataset]:
+                   device=None, host64: bool = False) -> dict[str, Dataset]:
     """Normalize user inputs into named, validated :class:`Dataset` objects
     on ``device`` (None means ``"cuda"``; raises without a card): square,
     symmetric and finite correlation/network, correlation entries in
-    [-1, 1], finite data, node-name agreement and equal node counts."""
-    device = resolve_device(device)
+    [-1, 1], finite data, node-name agreement and equal node counts.
+
+    ``host64``: the native tier's datasets — the checks run on the CPU
+    (``device`` is ignored) and every matrix is held as the float64 host
+    array the JAX package's datasets hold (:func:`_host_float64`); nothing
+    is narrowed and nothing reaches a card."""
+    device = torch.device("cpu") if host64 else resolve_device(device)
     nets = _normalize_collection(network)
     if not nets:
         raise ValueError("network must be provided (matrix, list, or dict)")
@@ -331,11 +352,14 @@ def build_datasets(network, data=None, correlation=None,
     out: dict[str, Dataset] = {}
     for name, net_raw in nets.items():
         net_src, _nr, net_names = _as_matrix(net_raw, "network", name)
-        net, _ = _check_square_symmetric(net_src, "network", name, tiles)
+        net, _ = _check_square_symmetric(net_src, "network", name, tiles,
+                                         not host64)
         corr_src, _cr, corr_names = _as_matrix(corrs[name], "correlation",
                                                name)
         corr, top = _check_square_symmetric(corr_src, "correlation", name,
-                                            tiles)
+                                            tiles, not host64)
+        if host64:
+            net, corr = _host_float64(net_src), _host_float64(corr_src)
         if top > 1 + 1e-6:
             raise ValueError(
                 f"correlation for dataset {name!r} has entries outside [-1, 1]"
@@ -350,7 +374,9 @@ def build_datasets(network, data=None, correlation=None,
         if name in datas:
             dat_src, samp_names, dat_names = _as_matrix(datas[name], "data",
                                                         name)
-            dat = _check_data(dat_src, name, tiles)
+            dat = _check_data(dat_src, name, tiles, not host64)
+            if host64:
+                dat = _host_float64(dat_src)
             if dat.shape[1] != net.shape[0]:
                 raise ValueError(
                     f"data for dataset {name!r} has {dat.shape[1]} nodes "

@@ -66,12 +66,6 @@ from .results import PreservationResult, shape_results
 
 logger = logging.getLogger("netrep_tpu_torch")
 
-#: arguments of the JAX entry point that belong to later slices of the
-#: port, with the ROADMAP.md Queue 1 item that brings each
-_LATER = {
-    "n_threads": "item 16 (device-touching utils and CLI)",
-}
-
 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
@@ -344,25 +338,24 @@ def module_preservation(
       for its kernels inside the retry scope; ``None`` (the default)
       leaves the loops as they are.
 
-    ``n_threads`` and ``backend='native'`` belong to a later slice: any
-    value but the JAX package's default raises ``NotImplementedError``
-    naming the item.
+    - ``backend`` — ``'torch'`` (the default: the engines above, on
+      ``device``) or ``'native'``: the threaded C++ host tier
+      (:mod:`netrep_tpu_torch.native`), the JAX package's
+      ``backend='native'`` — the same nulls, counts and p-values as that
+      tier for the same seed, bit for bit. It runs on the host and needs
+      no card: ``device`` must be None or ``"cpu"`` (a CUDA device raises
+      ``ValueError``), the inputs are checked on the CPU and held as
+      float64 host arrays (a float64 C-contiguous input is adopted without
+      a copy), and it refuses ``adaptive=True``, ``store_nulls=False`` and
+      ``data_only`` with the JAX package's texts; ``mesh`` is ignored and
+      ``vmap_tests`` runs the pairs one by one, as there.
+    - ``n_threads`` — the native tier's thread count (None: every core);
+      accepted and ignored by ``backend='torch'``, as the JAX package
+      ignores it on its default backend.
 
     Returns ``{discovery: {test: PreservationResult}}``, collapsed by
     ``simplify``.
     """
-    if n_threads is not None:
-        raise NotImplementedError(
-            "n_threads= is not ported yet: ROADMAP.md Queue 1 "
-            f"{_LATER['n_threads']}"
-        )
-    if backend == "native":
-        raise NotImplementedError(
-            "backend='native' (the threaded C++ tier) is not ported yet: "
-            "ROADMAP.md Queue 1 item 16"
-        )
-    if backend != "torch":
-        raise ValueError(f"backend must be 'torch', got {backend!r}")
     if null not in ("overlap", "all"):
         raise ValueError(f"null must be 'overlap' or 'all', got {null!r}")
     if alternative not in ("greater", "less", "two.sided"):
@@ -370,10 +363,29 @@ def module_preservation(
             "alternative must be one of 'greater', 'less', 'two.sided', "
             f"got {alternative!r}"
         )
+    if backend not in ("torch", "native"):
+        raise ValueError(
+            f"backend must be 'torch' or 'native', got {backend!r}")
+    native = backend == "native"
+    if adaptive and native:
+        raise ValueError(
+            "adaptive=True requires backend='torch' (the native C++ tier has "
+            "no retirement re-bucketing); run it fixed-n or switch backends"
+        )
+    if not store_nulls and native:
+        raise ValueError(
+            "store_nulls=False requires backend='torch' (the streaming "
+            "tallies are folded on device inside the scan-fused dispatch); "
+            "run the native backend with store_nulls=True"
+        )
     if data_only is not None:
         config = _data_only_config(network, data, correlation, data_only,
-                                   config)
-    dev = tmesh.resolve_device(mesh, device)
+                                   config, backend)
+    if native:
+        # the host tier the caller asked for by name: no card, no mesh
+        dev, mesh = _native_device(device), None
+    else:
+        dev = tmesh.resolve_device(mesh, device)
     config = config or EngineConfig()
     # pin the null precision once for the whole analysis, as the JAX
     # package does; 'auto' gives the screen only on a TPU, so here it is
@@ -387,7 +399,7 @@ def module_preservation(
         ds.build_data_only_datasets(data, device=dev)
         if data_only is not None
         else ds.build_datasets(network, data=data, correlation=correlation,
-                               device=dev)
+                               device=dev, host64=native)
     )
     _sync(dev)
     input_s = time.perf_counter() - t0
@@ -398,7 +410,7 @@ def module_preservation(
                 "adaptive_priors seeds the sequential stop monitor; it "
                 "requires adaptive=True"
             )
-        if not store_nulls:
+        if native or not store_nulls:
             raise ValueError(
                 "adaptive_priors requires the default backend='torch' with "
                 "store_nulls=True (the materialized adaptive path)"
@@ -456,7 +468,8 @@ def module_preservation(
             alternative, n_perm, auto_n_perm, config, mesh, vmap_tests,
             data_only, dev, seed, progress, verbose, store_nulls, adaptive,
             adaptive_rule, adaptive_priors, checkpoint_dir,
-            checkpoint_every, sources, input_s, tel, ft, trace_dir)
+            checkpoint_every, sources, input_s, tel, ft, trace_dir,
+            native, n_threads)
         if tel is not None:
             tel.end_span(run_sid, "run_end",
                          pairs_done=sum(len(v) for v in results.values()))
@@ -467,11 +480,17 @@ def _run_groups(by_disc, datasets, assign, modules, background_label, null,
                 alternative, n_perm, auto_n_perm, config, mesh, vmap_tests,
                 data_only, dev, seed, progress, verbose, store_nulls,
                 adaptive, adaptive_rule, adaptive_priors, checkpoint_dir,
-                checkpoint_every, sources, input_s, tel, ft, trace_dir):
+                checkpoint_every, sources, input_s, tel, ft, trace_dir,
+                native=False, n_threads=None):
     """The pair loop of :func:`module_preservation`: every group's
     discovery side first, then each group's engine, observed statistics
     and null (under the fault ladder when ``ft`` is set). Returns
-    ``{discovery: {test: PreservationResult}}``."""
+    ``{discovery: {test: PreservationResult}}``.
+
+    ``native`` runs each pair on the native tier (:class:`~netrep_tpu_torch.
+    native.NativePermutationEngine`) with ``n_threads`` threads, from the
+    host float64 datasets: no discovery side is built ahead, no matrix
+    moves, and pairs never share an engine."""
     # every group's discovery side first, while every dataset is still on
     # the device (one multi-test engine for a group of cohorts, or one
     # engine a pair): after it no discovery matrix is read again
@@ -480,6 +499,7 @@ def _run_groups(by_disc, datasets, assign, modules, background_label, null,
         disc_ds = datasets[d_name]
         can_vmap = (
             vmap_tests
+            and not native
             and len(t_names) > 1
             # data-only pairs run one by one: the multi-test engine stacks
             # the cohorts' matrices, which data-only datasets do not hold
@@ -507,7 +527,7 @@ def _run_groups(by_disc, datasets, assign, modules, background_label, null,
             setup = _overlap_setup(disc_ds, test_ds, assign[d_name], modules,
                                    background_label, null)
             t1 = time.perf_counter()
-            buckets = build_discovery(
+            buckets = None if native else build_discovery(
                 disc_ds.correlation, disc_ds.network,
                 disc_ds.data if with_data else None, setup[1], setup[3],
                 config, dev, mesh,
@@ -521,7 +541,7 @@ def _run_groups(by_disc, datasets, assign, modules, background_label, null,
                 _identity(sources, d_name, group, with_data),
                 # the ladder's rebuilds read the discovery side from the
                 # host: a lost card's copy is gone
-                None if ft is None else _host_buckets(buckets)))
+                None if ft is None or native else _host_buckets(buckets)))
     results: dict[str, dict[str, PreservationResult]] = {}
     #: the ladder's CPU rung, once taken: the rest of the analysis runs
     #: on the CPU, and every later result carries the same mark
@@ -547,7 +567,9 @@ def _run_groups(by_disc, datasets, assign, modules, background_label, null,
         def build_engine(m, at_dev, g=g, multi=multi):
             """The group's engine over mesh ``m`` on ``at_dev`` from the
             host inputs and the host copy of the discovery side — the
-            ladder's rebuild."""
+            ladder's rebuild (the native tier's from its host datasets)."""
+            if native:
+                return _native_engine(datasets, g, config, n_threads)
             cfg = config
             if m is None and cfg.matrix_sharding == "row":
                 cfg = dataclasses.replace(cfg, matrix_sharding="replicated")
@@ -575,7 +597,7 @@ def _run_groups(by_disc, datasets, assign, modules, background_label, null,
                 tests[0]["correlation"], tests[0]["network"], dT(tests[0]),
                 *parts, mesh=m, modules=g.setup[1], digest=g.digests[0])
 
-        if on_cpu is not None:
+        if native or on_cpu is not None:
             engine = build_engine(None, torch.device("cpu"))
         else:
             ds.place(datasets, {t: g.fields for t in group}, later, dev)
@@ -824,8 +846,33 @@ def _run_guarded(null_of, engine, build_engine, ft, mesh, ck, d_name,
                 return null_of(engine), engine, degraded
 
 
+def _native_device(device) -> torch.device:
+    """The native tier's device: the host, for ``device`` None or
+    ``"cpu"``; anything else raises ``ValueError`` (the tier runs no
+    kernel, and the caller named it)."""
+    if device is None or torch.device(device).type == "cpu":
+        return torch.device("cpu")
+    raise ValueError(
+        "backend='native' is the threaded C++ host tier: device must be "
+        f"None or 'cpu', got {device!r}; use backend='torch' on a card")
+
+
+def _native_engine(datasets, g, config, n_threads):
+    """Group ``g``'s :class:`~netrep_tpu_torch.native.
+    NativePermutationEngine` from its host float64 datasets: the arrays
+    the JAX package hands its native engine, in the same dtype."""
+    from ..native import NativePermutationEngine
+
+    d, t = datasets[g.d_name], datasets[g.group[0]]
+    _labels, specs, _counts, pool = g.setup
+    return NativePermutationEngine(
+        d.correlation, d.network, d.data, t.correlation, t.network, t.data,
+        specs, pool, config=config, n_threads=n_threads or 0)
+
+
 def _data_only_config(network, data, correlation, data_only,
-                      config: EngineConfig | None) -> EngineConfig:
+                      config: EngineConfig | None,
+                      backend: str = "torch") -> EngineConfig:
     """The JAX package's argument rules of ``data_only``, with its texts;
     returns ``config`` with ``network_from_correlation`` set to the
     derivation spec."""
@@ -837,6 +884,11 @@ def _data_only_config(network, data, correlation, data_only,
         )
     if data is None:
         raise ValueError("data_only runs need data")
+    if backend != "torch":
+        raise ValueError(
+            "data_only requires backend='torch' (the native C++ tier "
+            "slices materialized host matrices)"
+        )
     cfg0 = config or EngineConfig()
     if (cfg0.network_from_correlation is not None
             and cfg0.network_from_correlation != data_only):

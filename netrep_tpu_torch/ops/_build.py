@@ -142,7 +142,7 @@ def load(name: str) -> ctypes.CDLL:
                 aot.quarantine(name, path, f"{type(e).__name__}: {e}")
                 BUILD_INFO.pop(name, None)
         aot.touch(path)
-        aot.record(name, BUILD_INFO[name]["source"])
+        aot.record(name, BUILD_INFO[name]["source"], path)
         _LIBS[name] = lib
     return lib
 

@@ -317,8 +317,7 @@ def _gpd_cell(y: np.ndarray, obs: float) -> tuple[float, bool]:
         if obs > t and exc[-1] > 0.0:
             try:
                 xi, _loc, scale = _sstats.genpareto.fit(exc, floc=0.0)
-            # the MLE may fail inside scipy on a pathological tail; a
-            # failed fit only rejects this threshold candidate
+            # netrep: allow(exception-taxonomy) — MLE on a pathological tail may fail inside scipy; a failed fit only rejects this threshold candidate (the search steps down, p_tail stays NaN), never a wrong p-value
             except Exception:
                 xi, scale = np.nan, 0.0
             if np.isfinite(xi) and np.isfinite(scale) and scale > 0.0:

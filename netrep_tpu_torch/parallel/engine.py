@@ -209,6 +209,7 @@ def check_derived_network(corr, net, net_beta, what: str) -> None:
     size = int(np.prod(np.shape(corr)))
     ii = None
     if size > 65536:
+        # netrep: allow(rng-discipline) — fixed-seed sample positions of the derived-network input check (the JAX package's); never touches null results
         ii = np.random.default_rng(0).integers(0, size, size=65536)
     c, m = _flat_sample(corr, ii), _flat_sample(net, ii)
     want = tstats.derived_net(torch.as_tensor(c, dtype=torch.float32),
@@ -765,7 +766,8 @@ def run_checkpointed_chunks(key, n_perm: int, C: int, chunk: Callable,
                             progress=None, ck: Checkpointer | None = None,
                             perm_axis: int = 0, full: bool = False,
                             fault_policy=None, telemetry=None, profile=None,
-                            device=None, run_key: str = "", engine=None
+                            device=None, run_key: str = "", engine=None,
+                            perm_keys: Callable | None = None
                             ) -> tuple[np.ndarray, int]:
     """The materialized null loop: ``chunk(keys)`` for permutations
     ``[start, start + C)``, ``write(nulls, outs, start, take)`` once they
@@ -797,9 +799,15 @@ def run_checkpointed_chunks(key, n_perm: int, C: int, chunk: Callable,
     cost model prices) telemetry also gets each chunk's cost fields, the
     run's ``roofline`` event and its perf-ledger entry (:func:`_finish_run`),
     and ``profile`` the cost totals. With all of them None the loop is as
-    it was."""
+    it was.
+
+    ``perm_keys(key, start, count)`` gives a chunk's ``keys`` (default
+    :func:`~netrep_tpu_torch.random.perm_keys`): the native tier passes
+    its own, whose key is an integer seed and whose chunk is the triple
+    ``(seed, start, count)`` of its counter-based stream."""
     telemetry, profile, ft, mem, tracker = _run_hooks(
         telemetry, profile, fault_policy, ck, device, engine)
+    perm_keys = perm_keys or trandom.perm_keys
     nulls, start = None, 0
     if ck is not None:
         loaded = ck.load()
@@ -835,7 +843,7 @@ def run_checkpointed_chunks(key, n_perm: int, C: int, chunk: Callable,
             nxt = None
             if dispatched < n_perm:
                 take = min(C, n_perm - dispatched)
-                keys = trandom.perm_keys(key, dispatched, C if full else take)
+                keys = perm_keys(key, dispatched, C if full else take)
                 sid_c = None
                 if telemetry is not None:
                     sid_c = telemetry.new_span_id()
@@ -897,7 +905,8 @@ def run_checkpointed_chunks(key, n_perm: int, C: int, chunk: Callable,
                 outs, at, take_p, _sid = pending
                 write(nulls, outs, at, take_p)
                 completed = at + take_p
-            except Exception:  # the original error re-raises below
+            # netrep: allow(exception-taxonomy) — failure-unwind flush of already-computed work on a possibly-dead device; the original error re-raises just below
+            except Exception:
                 pass
         if ck is not None:
             if completed > last_saved:
@@ -1389,6 +1398,7 @@ def root_key(key, device) -> trandom.ThreefryKey:
     an integer seed or a key."""
     if isinstance(key, trandom.ThreefryKey):
         return key.to(device)
+    # netrep: allow(rng-discipline) — THE seeding contract's root-key site: every fold_in stream derives from exactly this key
     return trandom.key(int(key), device=device)
 
 
@@ -1581,6 +1591,7 @@ class PermutationEngine:
         of the six original inputs) make the problem's checkpoint
         identity; without them the engine takes no checkpoint."""
         self = cls.__new__(cls)
+        self._lib_mark = aot.mark()
         dev = tmesh.resolve_device(mesh, device)
 
         def f32(a):
@@ -2237,12 +2248,19 @@ class PermutationEngine:
 
     def run_key(self) -> str:
         """The problem shape's key on ``compile_span`` events, in the JAX
-        package's layout: card × statistics path × bucket caps × chunk."""
+        package's layout: card × statistics path × bucket caps × chunk.
+        The path is ``data-only`` for a data-only engine (as the JAX key's
+        mode), and a storage type other than float32 suffixes it
+        (``fused+bfloat16``): each runs other kernels or instantiations,
+        so its history never mixes with another's."""
         caps = ",".join(f"{b.cap}x{len(b.module_pos)}"
                         for b in self._buckets_full)
         card = (torch.cuda.get_device_name(self.device)
                 if self.device.type == "cuda" else self.device.type)
-        return (f"{card}|{self.stat_mode}|caps:{caps}"
+        mode = "data-only" if self.data_only else self.stat_mode
+        if self.config.dtype != "float32":
+            mode += f"+{self.config.dtype}"
+        return (f"{card}|{mode}|caps:{caps}"
                 f"|chunk:{int(self.effective_chunk())}")
 
     def _hooks(self, fault_policy, telemetry, profile=None) -> dict:

@@ -117,6 +117,7 @@ class MultiTestEngine:
         inputs) make the checkpoint identity; without them the engine
         takes no checkpoint."""
         self = cls.__new__(cls)
+        self._lib_mark = aot.mark()
         T = len(test_corrs)
         self.T = T
         self._setup([

@@ -15,7 +15,12 @@ between processes:
   card's compute capability and name). A library whose sidecar names
   another environment, or that has none, is rebuilt from the same source
   in place, with an ``aot_store_miss`` event (``reason="env-mismatch"``)
-  and one warning a process.
+  and one warning a process. The native tier's host library
+  (:mod:`netrep_tpu_torch.native.build`, ``libnetstats_<digest>.so``,
+  built by ``g++``) lives here too, keyed by its source, compiler and
+  flags; its sidecar records :func:`host_env_signature` (the compiler's
+  ``--version`` line, the flags, the ``-march`` level), which needs
+  neither ``nvcc`` nor a card.
 - **Quarantine.** A library that :class:`ctypes.CDLL` cannot load is
   renamed ``*.bad``, fires the ``aot_refused`` detector, emits
   ``aot_store_miss`` (``reason="corrupt"``) and is rebuilt. A rebuild that
@@ -76,6 +81,8 @@ _LOCK = threading.Lock()
 _NVCC_RELEASE: dict[str, str] = {}
 #: this process's acquisitions, in order: ``(library name, source)``
 ACQUIRED: list[tuple[str, str]] = []
+#: file names of the libraries this process loaded (kept by :func:`gc`)
+_IN_USE: set[str] = set()
 #: counters of this process (``stats()``; the warmup report)
 COUNTS = {"loads": 0, "builds": 0, "misses": 0, "quarantined": 0,
           "removed": 0}
@@ -149,6 +156,41 @@ def env_signature(nvcc: str) -> str:
             f"|card:{card_signature()}")
 
 
+def cxx_release(cxx: str) -> str | None:
+    """The first line of ``<cxx> --version`` (``"g++ (Debian 12.2.0-14)
+    12.2.0"``), or None when the compiler does not run."""
+    try:
+        proc = subprocess.run([cxx, "--version"], capture_output=True,
+                              text=True, timeout=30, check=True)
+    except (OSError, subprocess.SubprocessError):
+        return None
+    lines = proc.stdout.splitlines()
+    return lines[0].strip() if lines else ""
+
+
+def host_env_signature(release: str | None, flags, march: str) -> str:
+    """The environment a host library (one built by a C++ compiler, no
+    card involved) is valid in: the compiler's ``--version`` line, its
+    flags and its ``-march`` level. It needs neither ``nvcc`` nor a card.
+    ``release`` None (no compiler) gives the signature's tail alone,
+    which :func:`host_entry_ok` matches against any compiler's."""
+    tail = f"|flags:{' '.join(flags)}|march:{march or '-'}"
+    return tail if release is None else f"cxx:{release}{tail}"
+
+
+def host_entry_ok(lib: Path, env: str) -> bool:
+    """Whether ``lib`` exists with a sidecar of ``env`` — or, for a
+    compiler-less ``env`` (only the flags and march tail), of any
+    compiler with that tail."""
+    if not lib.exists():
+        return False
+    meta = read_meta(lib) or {}
+    got = meta.get("env")
+    if meta.get("format") != META_FORMAT or not isinstance(got, str):
+        return False
+    return got == env or (env.startswith("|") and got.endswith(env))
+
+
 # ---------------------------------------------------------------------------
 # entries
 # ---------------------------------------------------------------------------
@@ -170,7 +212,7 @@ def read_meta(lib: Path) -> dict | None:
 
 def write_meta(lib: Path, name: str, env: str, seconds: float) -> None:
     meta = {"format": META_FORMAT, "name": name, "env": env,
-            "created": time.time(), "nvcc_s": seconds,
+            "created": time.time(), "build_s": seconds,
             "bytes": lib.stat().st_size}
     tmp = meta_path(lib).with_suffix(f".{os.getpid()}.tmp")
     with open(tmp, "w", encoding="utf-8") as f:
@@ -233,11 +275,14 @@ def build_lock(lib: Path):
         os.close(fd)
 
 
-def record(name: str, source: str) -> None:
-    """Log one acquisition of library ``name``: ``jit`` or ``aot``."""
+def record(name: str, source: str, lib: Path | None = None) -> None:
+    """Log one acquisition of library ``name``: ``jit`` or ``aot``; its
+    file ``lib`` is then never removed by :func:`gc` in this process."""
     with _LOCK:
         ACQUIRED.append((name, source))
         COUNTS["builds" if source == "jit" else "loads"] += 1
+        if lib is not None:
+            _IN_USE.add(Path(lib).name)
 
 
 def mark() -> int:
@@ -277,7 +322,7 @@ def gc(keep=()) -> int:
             with contextlib.suppress(OSError):
                 os.unlink(root / n)
                 removed += 1
-    keep = {Path(k).name for k in keep}
+    keep = {Path(k).name for k in keep} | _IN_USE
     libs = []
     total = 0
     for n in names:

@@ -493,6 +493,7 @@ class FaultRuntime:
             try:
                 if rescue is not None:
                     rescue()
+            # netrep: allow(exception-taxonomy) — best-effort emergency checkpoint; the watchdog still abandons the hung dispatch either way
             except Exception:
                 logger.warning(
                     "emergency checkpoint from the stall watchdog failed",
@@ -672,6 +673,7 @@ class FaultRuntime:
                         box["out"] = target()
                 else:
                     box["out"] = target()
+            # netrep: allow(exception-taxonomy) — not swallowed: captured verbatim (BaseException included) and re-raised on the loop thread by the done.wait consumer
             except BaseException as e:  # delivered to the loop thread below
                 box["err"] = e
             finally:
@@ -707,6 +709,7 @@ class FaultRuntime:
                 # the watchdog path already checkpointed from its thread
                 try:
                     rescue()
+                # netrep: allow(exception-taxonomy) — best-effort emergency checkpoint; the abandon raises DispatchAbandonedError regardless
                 except Exception:
                     logger.warning(
                         "emergency checkpoint on abandon failed",

@@ -323,6 +323,29 @@ def test_cpu_runs_acquire_nothing(tmp_path, monkeypatch):
     assert fp.endswith("|src:memo") and fp.startswith("cpu|")
 
 
+def test_a_run_counts_only_acquisitions_since_its_engine(tmp_path,
+                                                        monkeypatch):
+    # module_preservation's engines are built from parts: an acquisition
+    # earlier in the process (here another library's build) is not theirs
+    from netrep_tpu_torch.data import make_example_pair, pair_frames
+    from netrep_tpu_torch.models.preservation import module_preservation
+    from netrep_tpu_torch.utils.config import EngineConfig
+    import numpy as np
+
+    monkeypatch.setattr(aot, "ACQUIRED", list(aot.ACQUIRED))
+    monkeypatch.setattr(aot, "COUNTS", dict(aot.COUNTS))
+    aot.record("netstats", "jit")
+    pair = make_example_pair(np.random.default_rng(3))
+    d, t = pair_frames(pair)
+    path = tmp_path / "run.jsonl"
+    module_preservation(
+        network={"d": d["network"], "t": t["network"]},
+        correlation={"d": d["correlation"], "t": t["correlation"]},
+        module_assignments=pair["labels"], n_perm=64, device="cpu",
+        config=EngineConfig(chunk_size=16), telemetry=str(path))
+    assert [s["source"] for s in _events(path, "compile_span")] == ["memo"]
+
+
 def test_the_bundle_names_the_store_without_touching_a_card(store):
     from netrep_tpu_torch.utils import bundle
 

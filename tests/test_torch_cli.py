@@ -5,9 +5,10 @@ JAX package's (``python -m netrep_tpu``): the offline commands —
 (table, ``--check``) and ``bundle`` — give the same output and exit codes
 on the same files; the drift gates fire ``perf_drift`` and
 ``roofline_drift`` on exit 2; the device commands refuse to run without a
-card unless ``--device cpu`` is named; ``lint`` names the item that will
-port it; ``version`` and ``selftest --device cpu --json`` run in a fresh
-interpreter that never imports JAX."""
+card unless ``--device cpu`` is named; ``lint`` gives the JAX CLI's exit
+codes, JSON keys and findings on the same fixture files; ``version`` and
+``selftest --device cpu --json`` run in a fresh interpreter that never
+imports JAX."""
 
 import glob
 import json
@@ -267,9 +268,51 @@ def test_bundle_collect_and_render(capsys, tmp_path):
         assert port_out[0] == jax_out[0] == 1
 
 
-def test_lint_names_its_item(capsys):
-    assert tcli.main(["lint"]) == 2
-    assert "ROADMAP.md Queue 1 item 16b.6" in capsys.readouterr().err
+LINT_BAD = """\
+def f(work):
+    try:
+        work()
+    except Exception:
+        pass
+"""
+LINT_CLEAN = "VALUE = 1\n"
+
+
+@pytest.mark.parametrize("case", ["clean", "bad", "bad_human", "filtered",
+                                  "unknown_rule", "both_files"])
+def test_lint_equals_jax(capsys, tmp_path, case):
+    """``lint`` on the same fixture files: the exit code, the JSON keys
+    and the findings (rule, file, line) of the JAX CLI's."""
+    bad, clean = tmp_path / "bad.py", tmp_path / "clean.py"
+    bad.write_text(LINT_BAD)
+    clean.write_text(LINT_CLEAN)
+    argv = {
+        "clean": ["--json", str(clean)],
+        "bad": ["--json", str(bad)],
+        "bad_human": [str(bad)],
+        "filtered": ["--json", "--rule", "span-pairing", str(bad)],
+        "unknown_rule": ["--json", "--rule", "not-a-rule", str(bad)],
+        "both_files": ["--json", str(clean), str(bad)],
+    }[case]
+
+    def run(cli):
+        rc = cli.main(["lint", *argv])
+        return rc, capsys.readouterr()
+
+    (trc, tout), (jrc, jout) = run(tcli), run(jcli)
+    assert trc == jrc == (0 if case in ("clean", "filtered") else 2)
+    if case == "unknown_rule":
+        assert "unknown rule" in tout.err and "unknown rule" in jout.err
+        return
+    if case == "bad_human":
+        assert "exception-taxonomy" in tout.out
+        assert tout.out.splitlines()[0] == jout.out.splitlines()[0]
+        return
+    trow, jrow = json.loads(tout.out), json.loads(jout.out)
+    assert trow.keys() == jrow.keys() and trow["lint_v"] == jrow["lint_v"]
+    assert trow["ok"] == jrow["ok"] and trow["files"] == jrow["files"]
+    assert ([(f["rule"], f["path"], f["line"]) for f in trow["findings"]]
+            == [(f["rule"], f["path"], f["line"]) for f in jrow["findings"]])
 
 
 @pytest.mark.parametrize("argv", [

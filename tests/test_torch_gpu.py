@@ -16,7 +16,9 @@ statistics at the same 1e-4 with counts equal to their own values). The
 sparse path
 and the data-only plane launch none of the kernels; their card runs are
 held to the CPU run of the same call at the same 1e-4, with counts,
-p-values and retirements equal.
+p-values and retirements equal. The native C++ host tier
+(``backend='native'``) launches none either; its observed statistics are
+held to the card's on the same call within ``tolerance_for('cuda')``.
 """
 
 import collections
@@ -1516,3 +1518,24 @@ def test_chaos_fleet_drill_on_the_card(cuda, capsys, tmp_path, monkeypatch):
     summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert summary["ok"] and summary["bit_identical"]
     assert summary["respawned"] == summary["killed_replica"] + ".g1"
+
+
+def test_native_observed_equals_the_card(cuda):
+    """The native C++ host tier (``backend='native'``) and the card on the
+    same call: the same modules, and observed statistics within
+    ``tolerance_for('cuda')`` (the native tier in float64, the card's
+    fused path in float32)."""
+    from netrep_tpu_torch.utils.selftest import tolerance_for
+
+    pair = make_example_pair(np.random.default_rng(3))
+    d, t = pair_frames(pair)
+    kw = dict(network={"d": d["network"], "t": t["network"]},
+              data={"d": d["data"], "t": t["data"]},
+              correlation={"d": d["correlation"], "t": t["correlation"]},
+              module_assignments=pair["labels"], n_perm=64, seed=4)
+    card = module_preservation(**kw)
+    native = module_preservation(**kw, backend="native", n_threads=4)
+    assert native.module_labels == card.module_labels
+    assert native.completed == card.completed == 64
+    err = float(np.abs(native.observed - card.observed).max())
+    assert err <= tolerance_for("cuda"), err

@@ -184,7 +184,7 @@ def test_input_errors_match_jax(frames, case):
 #: keywords a later slice brought: they now behave as the JAX package's
 PORTED = {"adaptive", "checkpoint_dir", "checkpoint_every", "adaptive_rule",
           "adaptive_priors", "data_only", "telemetry", "fault_policy",
-          "profile"}
+          "profile", "n_threads", "backend"}
 
 
 def _as_jax_does(frames, tmp_path, arg, value):
@@ -221,8 +221,8 @@ def _as_jax_does(frames, tmp_path, arg, value):
 ])
 def test_later_slice_arguments_raise(frames, tmp_path, arg, value):
     """The keywords of later slices raise ``NotImplementedError``; those
-    ported since (checkpoints, adaptive nulls, the data-only plane) behave
-    as the JAX package's."""
+    ported since (checkpoints, adaptive nulls, the data-only plane, the
+    native tier and its ``n_threads``) behave as the JAX package's."""
     if arg in PORTED:
         _as_jax_does(frames, tmp_path, arg, value)
         return

@@ -1,7 +1,8 @@
 """Standing rules of the PyTorch/CUDA port: it imports nothing of JAX or of
 the JAX package, its entry points refuse to run without a card unless the
-CPU is asked for, its package top stays a namespace package, and its CUDA
-sources ship as package data."""
+CPU is asked for (the native host tier, named by ``backend='native'``,
+needs none and refuses a card), its package top stays a namespace package,
+and its CUDA and C++ sources ship as package data."""
 
 import ast
 import os
@@ -67,6 +68,9 @@ import netrep_tpu_torch.serve.fleet, netrep_tpu_torch.serve.lifecycle
 import netrep_tpu_torch.utils.perfledger
 import netrep_tpu_torch.__main__, netrep_tpu_torch.warmup
 import netrep_tpu_torch.utils.aot, netrep_tpu_torch.version
+import netrep_tpu_torch.native, netrep_tpu_torch.native.build
+import netrep_tpu_torch.analysis, netrep_tpu_torch.analysis.rules
+import netrep_tpu_torch.analysis.linter
 bad = [m for m in set(sys.modules) - before
        if m in ("jax", "jaxlib", "netrep_tpu") or m.startswith(("jax.", "jaxlib.", "netrep_tpu."))]
 print(",".join(sorted(bad)))
@@ -89,6 +93,28 @@ def test_no_card_means_no_run(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
         resolve_device("meta")
+
+
+def test_native_backend_is_the_host_tier(monkeypatch):
+    # backend='native' is the host tier the caller named: it needs no card
+    # with device None or "cpu", and refuses a CUDA device
+    import numpy as np
+
+    from netrep_tpu_torch.data import make_example_pair, pair_frames
+    from netrep_tpu_torch.models.preservation import module_preservation
+
+    pair = make_example_pair(np.random.default_rng(3))
+    d, t = pair_frames(pair)
+    kw = dict(network={"d": d["network"], "t": t["network"]},
+              correlation={"d": d["correlation"], "t": t["correlation"]},
+              module_assignments=pair["labels"], n_perm=16,
+              backend="native")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for device in (None, "cpu", torch.device("cpu")):
+        assert module_preservation(**kw, device=device).completed == 16
+    for device in ("cuda", torch.device("cuda", 0)):
+        with pytest.raises(ValueError, match="host tier"):
+            module_preservation(**kw, device=device)
 
 
 @pytest.mark.parametrize("entry", ["build_datasets", "key", "key_from_data",
@@ -206,7 +232,8 @@ def test_precision_pinned():
 
 def test_package_top_is_a_namespace():
     assert not os.path.exists(os.path.join(PKG, "__init__.py"))
-    for sub in ("models", "ops", "parallel", "serve", "utils"):
+    for sub in ("models", "ops", "parallel", "serve", "utils", "native",
+                "analysis"):
         assert os.path.exists(os.path.join(PKG, sub, "__init__.py")), sub
 
 
@@ -215,6 +242,8 @@ def test_cuda_sources_are_package_data():
         project = tomllib.load(f)
     data = project["tool"]["setuptools"]["package-data"]
     assert "*.cu" in data["netrep_tpu_torch.csrc"]
+    assert "*.cpp" in data["netrep_tpu_torch.native"]
+    assert os.path.exists(os.path.join(PKG, "native", "netstats.cpp"))
     from netrep_tpu_torch.ops import _build as build
 
     for src in build.SOURCES:
