@@ -54,6 +54,25 @@ launch count set to 0 just before a path and read just after:
 - ``multi_test``: ``vmap_tests=True`` against two test cohorts on one
   shared permutation draw, materialized (fused statistics) and streaming
   (composed);
+- ``multi_test_mesh``: the same two cohorts with ``vmap_tests=True`` on
+  meshes (``multi_test_mesh_phase``): on ``make_mesh(2, 1, devices=[cuda:0]
+  * 2)`` fused materialized and streaming and composed materialized, on
+  ``make_mesh(1, 4, devices=[cuda:0] * 4)`` with
+  ``matrix_sharding='row'`` the psum gather, streaming, an adaptive run
+  (ceiling 10,000) on 2×1 beside the same run unsplit, and a 2×1 run
+  interrupted after three chunks and resumed unsplit: counts, p-values and
+  ``n_perm_used`` equal to the unsplit runs', fused nulls bit for bit,
+  composed within 1e-4, every launch count exact (the fused kernel once
+  per chunk, bucket, shard and cohort; the gather once per chunk, shard,
+  matrix and cohort, on the row mesh once per row block, matrix and
+  cohort), null seconds and held GiB beside the unsplit runs';
+- ``multi_process``: two processes on the card joined over ``gloo`` on
+  127.0.0.1 (``multi_process_phase``; 10,000 genes, the first two
+  cohorts): a 2×1 perm mesh across them runs the fused null materialized
+  and streaming; each rank's null, counts and p-values equal the
+  single-process 2×1 run's bit for bit, each rank launches the fused
+  kernel for its own shard only; each process's start-up seconds, the
+  allgather seconds and bytes;
 - ``sequential_tests``: the same two cohorts without ``vmap_tests``, one
   pair after another (a matrix a later pair needs waits on the host
   meanwhile), with each pair's phase seconds and the time of one matrix's
@@ -198,7 +217,8 @@ a user holds them, so its input phase includes the copy to the card.
 Right after the build, ``lint`` runs ``python -m netrep_tpu_torch lint
 --json`` on the checkout and requires exit 0 with no finding.
 
-Prints one JSON object per phase, then the ``{"kernels": [...]}`` summary,
+Prints one JSON object per phase, the whole run's seconds (``total``),
+then the ``{"kernels": [...]}`` summary,
 the card's ``name, power.limit`` line, and as its last line
 ``{"ok": true, "device": {...}}``. Any failed phase raises and the script
 exits non-zero; without a CUDA device it exits non-zero before printing
@@ -270,7 +290,13 @@ in-process server on the same fixture), and
 
     python3 chip_smoke.py --native
 
-only ``lint``, the main path's fused materialized run and ``native``.
+only ``lint``, the main path's fused materialized run and ``native``, and
+
+    python3 chip_smoke.py --multi-test-mesh
+    python3 chip_smoke.py --multi-process
+
+only the unsplit ``multi_test`` runs and ``multi_test_mesh``, or only
+``multi_process``.
 Each mode runs
 through the ``netrep_tpu_torch`` beside the script: copied into another checkout,
 it measures that checkout's version on the same inputs.
@@ -5005,6 +5031,427 @@ def serve_only() -> int:
     return 0
 
 
+#: the multi_process phase: the drill fixture's genes (the first two
+#: cohorts of ``make_cohorts``), and its two ranks' time limit
+MP_GENES, MP_TIMEOUT_S = 10_000, 300
+
+
+def multi_test_mesh_phase(np, pv, drive, cfg, composed_cfg, multi, ref_mem,
+                          launches, chunks, card, dev) -> dict:
+    """``vmap_tests=True`` against the two cohorts on meshes of the one
+    card, each held to the unsplit ``multi_test`` runs ``multi`` (``True``:
+    fused materialized, its memory ``ref_mem``; ``False``: composed
+    streaming), whose launches are ``launches``: fused materialized and streaming and composed
+    materialized on 2×1, the psum gather (``matrix_sharding='row'``,
+    ``stat_mode='auto'``, which the multi-test engine resolves to the
+    composed statistics) streaming on 1×4, an adaptive run on 2×1 beside
+    the same run unsplit, and a 2×1 run interrupted after STOP_AFTER
+    chunks and resumed unsplit. Launch counts exact: B buckets (from the
+    fixture's module sizes), T = 2 cohorts, P perm shards, R row blocks,
+    two stored matrices. Returns the launches by path."""
+    import os
+    import shutil
+    import tempfile
+
+    from netrep_tpu_torch.parallel.mesh import make_mesh
+    from netrep_tpu_torch.utils.config import EngineConfig
+
+    many = "gather_submatrix_fused_many"
+    T, C = 2, cfg.chunk_size
+    ref_mat, ref_stream = multi[True], multi[False]
+    caps = [cfg.rounded_cap(int(s)) for s in ref_mat["test"].n_vars_present]
+    B = len(set(caps))
+    unsplit_fused = launches[("multi", True)]["fused_stats_values"]
+    if unsplit_fused != chunks * B * T:
+        raise RuntimeError(f"multi_test: {unsplit_fused} fused launches, "
+                           f"expected {chunks} chunks x {B} buckets x {T}")
+    perm2 = make_mesh(2, 1, devices=[dev] * 2)
+    row4 = make_mesh(1, 4, devices=[dev] * 4)
+    zero = {"fused_stats_values": 0, "fused_stats_counts": 0,
+            "ring_shift_dma": 0}
+
+    def same(what, got, want, nulls="bits"):
+        for t in ("test", "test2"):
+            a, b = got[t], want[t]
+            if not np.array_equal(a.p_values, b.p_values):
+                raise RuntimeError(f"multi_test_mesh {what}: {t} p-values "
+                                   "differ from the unsplit run's")
+            if (a.n_perm_used is not None or b.n_perm_used is not None) \
+                    and not np.array_equal(a.n_perm_used, b.n_perm_used):
+                raise RuntimeError(f"multi_test_mesh {what}: {t} "
+                                   "n_perm_used differs")
+            if nulls == "bits" and a.nulls is not None and not \
+                    np.array_equal(a.nulls, b.nulls, equal_nan=True):
+                raise RuntimeError(f"multi_test_mesh {what}: {t} null "
+                                   "differs from the unsplit run's")
+
+    def counts_of(res, t):
+        if res[t].nulls is not None:
+            return pv.tail_counts(res[t].observed, res[t].nulls)
+        return res[t].counts_hi, res[t].counts_lo, res[t].counts_eff
+
+    def same_counts(what, got, want):
+        for t in ("test", "test2"):
+            if not all(np.array_equal(a, b) for a, b in
+                       zip(counts_of(got, t), counts_of(want, t))):
+                raise RuntimeError(f"multi_test_mesh {what}: {t} counts "
+                                   "differ from the unsplit run's")
+
+    mt = dict(vmap_tests=True)
+    out, used_by, report = {}, {}, {}
+    runs = (
+        ("perm2x1 fused materialized", perm2, cfg, True, "fused_stats_values",
+         {"fused_stats_values": chunks * B * 2 * T, many: 0}),
+        ("perm2x1 fused streaming", perm2, cfg, False, "fused_stats_counts",
+         {"fused_stats_counts": chunks * B * 2 * T, many: 0}),
+        ("perm2x1 composed materialized", perm2, composed_cfg, True, many,
+         {many: chunks * 2 * T * 2, **zero}),
+        # per chunk one launch per block, matrix and cohort; the discovery
+        # build and each cohort's observed pass one per block and matrix
+        ("row1x4 psum streaming", row4, EngineConfig(matrix_sharding="row"),
+         False, many, {many: 4 * 2 * (chunks * T + 1 + T), **zero}))
+    for name, mesh, config, store, kernel, expect in runs:
+        res, used, mem = drive("multi_test_mesh", [kernel], expect,
+                               config=config, store_nulls=store, mesh=mesh,
+                               **mt)
+        out[name], used_by[name] = res, used
+        report[name] = {"null_s": res["test"].profile["null_s"],
+                        "held_gib": mem["null_held_gib"],
+                        "peak_gib": mem["peak_gib"],
+                        "launches": {kernel: used[kernel]}}
+    same("perm2x1 fused materialized", out["perm2x1 fused materialized"],
+         ref_mat)
+    same_counts("perm2x1 fused materialized",
+                out["perm2x1 fused materialized"], ref_mat)
+    same("perm2x1 fused streaming", out["perm2x1 fused streaming"], ref_mat)
+    same_counts("perm2x1 fused streaming", out["perm2x1 fused streaming"],
+                ref_mat)
+    comp = out["perm2x1 composed materialized"]
+    same("perm2x1 composed materialized", comp, ref_stream, nulls=None)
+    same_counts("perm2x1 composed materialized", comp, ref_stream)
+    comp_err = max(nulls_err(np, comp[t].nulls, ref_mat[t].nulls)
+                   for t in ("test", "test2"))
+    if comp_err > TOL:
+        raise RuntimeError(f"multi_test_mesh composed null differs from "
+                           f"the unsplit fused null by {comp_err}")
+    same("row1x4 psum streaming", out["row1x4 psum streaming"], ref_stream)
+    same_counts("row1x4 psum streaming", out["row1x4 psum streaming"],
+                ref_stream)
+    # adaptive: the 2x1 run against the same run unsplit
+    ad = dict(adaptive=True, n_perm=ADAPTIVE_PERM, completed=None, **mt)
+    ad_ref, used_ref, mem_ref = drive("multi_test_mesh", [
+        "fused_stats_values"], config=cfg, **ad)
+    ad_mesh, used_ad, mem_ad = drive("multi_test_mesh", [
+        "fused_stats_values"], config=cfg, mesh=perm2, **ad)
+    same("perm2x1 adaptive", ad_mesh, ad_ref)
+    n_used = np.asarray(ad_mesh["test"].n_perm_used)
+    want = adaptive_launches(np, n_used, caps, C) * T
+    if used_ref["fused_stats_values"] != want or \
+            used_ad["fused_stats_values"] != 2 * want:
+        raise RuntimeError(
+            f"multi_test_mesh adaptive: {used_ref['fused_stats_values']} / "
+            f"{used_ad['fused_stats_values']} fused launches unsplit / "
+            f"2x1, expected {want} / {2 * want}")
+    used_by["perm2x1 adaptive"] = used_ad
+    for name, res, mem, used in (("unsplit adaptive", ad_ref, mem_ref,
+                                  used_ref),
+                                 ("perm2x1 adaptive", ad_mesh, mem_ad,
+                                  used_ad)):
+        report[name] = {"null_s": res["test"].profile["null_s"],
+                        "held_gib": mem["null_held_gib"],
+                        "peak_gib": mem["peak_gib"],
+                        "sum_n_perm_used": int(sum(
+                            np.asarray(res[t].n_perm_used).sum()
+                            for t in ("test", "test2"))),
+                        "launches": {"fused_stats_values":
+                                     used["fused_stats_values"]}}
+    # written on 2x1, resumed unsplit
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    top = tempfile.mkdtemp(prefix="multi_test_mesh_", dir=root)
+    try:
+        calls = []
+
+        def stop(done, total):
+            calls.append(done)
+            if len(calls) == STOP_AFTER:
+                raise KeyboardInterrupt
+
+        ck = dict(checkpoint_dir=top, checkpoint_every=C, **mt)
+        part, used_w, _ = drive(
+            "multi_test_mesh", ["fused_stats_values"], completed=None,
+            config=cfg, mesh=perm2, progress=stop, **ck)
+        res, used_r, _ = drive("multi_test_mesh", ["fused_stats_values"],
+                               config=cfg, **ck)
+    finally:
+        shutil.rmtree(top, ignore_errors=True)
+    at = int(part["test"].completed)
+    if not 0 < at < N_PERM:
+        raise RuntimeError(f"multi_test_mesh: the interrupted run stopped "
+                           f"at {at}")
+    same("checkpoint 2x1 -> unsplit", res, ref_mat)
+    left = -(-(N_PERM - at) // C)
+    if used_r["fused_stats_values"] != left * B * T:
+        raise RuntimeError(f"multi_test_mesh resume: "
+                           f"{used_r['fused_stats_values']} fused launches, "
+                           f"expected {left} chunks x {B} x {T}")
+    used_by["checkpoint written on 2x1"] = used_w
+    used_by["checkpoint resumed unsplit"] = used_r
+    ref_report = {"unsplit fused materialized": {
+        "null_s": ref_mat["test"].profile["null_s"],
+        "held_gib": ref_mem["null_held_gib"],
+        "peak_gib": ref_mem["peak_gib"]},
+        "unsplit composed streaming": {
+            "null_s": ref_stream["test"].profile["null_s"]}}
+    emit({"phase": "multi_test_mesh_check", "cohorts": T, "buckets": B,
+          "chunks": chunks, "meshes": {"perm": perm2.shape,
+                                       "row": row4.shape},
+          "runs": report, "unsplit": ref_report,
+          "fused_nulls_bit_equal": True, "composed_max_abs_null": comp_err,
+          "tolerance": TOL, "counts_p_n_perm_used_equal": True,
+          "checkpoint": {"interrupted_at": at, "resumed_to": int(
+              res["test"].completed), "launches_after": used_r[
+              "fused_stats_values"]},
+          "card": card})
+    return used_by
+
+
+def mp_inputs(np, host, labels) -> dict:
+    """``module_preservation``'s data arguments of the multi_process
+    phase: the discovery and the test cohort, host float32."""
+    (dd, dc, dn), (td, tc, tn) = host
+    return dict(network={"disc": dn, "test": tn},
+                data={"disc": dd, "test": td},
+                correlation={"disc": dc, "test": tc},
+                module_assignments=list(labels), discovery="disc",
+                test="test", n_perm=N_PERM, seed=SEED, device="cuda")
+
+
+MP_FILES = ("dd", "dc", "dn", "td", "tc", "tn")
+
+
+def mp_worker(rank: int, port: int, top: str) -> int:
+    """One rank of the multi_process phase, in a fresh interpreter: joins
+    the two-process ``gloo`` group on 127.0.0.1:``port``, runs the fused
+    null materialized and streaming on a 2×1 perm mesh across the two
+    processes (its own perm row on ``cuda:0``) from the inputs in
+    ``top``, and writes its results to ``top/rank<rank>.npz`` and its
+    timings to ``top/rank<rank>.json``."""
+    t0 = time.time()
+    import numpy as np
+    import torch
+
+    t_torch = time.time()
+    from netrep_tpu_torch import ops as tops
+    from netrep_tpu_torch.models.preservation import module_preservation
+    from netrep_tpu_torch.parallel import distributed
+    from netrep_tpu_torch.parallel.mesh import make_mesh
+    from netrep_tpu_torch.utils.config import EngineConfig, resolve_device
+    from netrep_tpu_torch.utils.telemetry import Telemetry
+
+    t_imports = time.time()
+    info = distributed.initialize(f"127.0.0.1:{port}", 2, rank)
+    t_joined = time.time()
+    host = [np.load(os.path.join(top, f"{k}.npy")) for k in MP_FILES]
+    labels = np.load(os.path.join(top, "labels.npy"), allow_pickle=True)
+    kw = mp_inputs(np, (host[:3], host[3:]), labels)
+    mesh = make_mesh(2, 1, devices=[resolve_device(None)])  # the card
+    bus = Telemetry(watchdog_poll_s=0)
+    events = []
+    bus.subscribe(lambda r: events.append(r) if r["ev"] in (
+        "allgather", "compile_span") else None)
+    out, timing = {}, {"rank": rank, "info": info, "t_start": t0,
+                       "import_torch_s": t_torch - t0,
+                       "imports_s": t_imports - t_torch,
+                       "join_s": t_joined - t_imports,
+                       "t_joined": t_joined, "ranks": mesh.ranks.tolist()}
+    with bus.activate():
+        for store in (True, False):
+            tops.reset_launches()
+            events.clear()
+            t1 = time.perf_counter()
+            res = module_preservation(**kw, store_nulls=store,
+                                      config=EngineConfig(), mesh=mesh)
+            torch.cuda.synchronize()
+            mode = "materialized" if store else "streaming"
+            gathers = [r["data"] for r in events if r["ev"] == "allgather"]
+            timing[mode] = {
+                "wall_s": time.perf_counter() - t1,
+                "null_s": res.profile["null_s"],
+                "launches": {fn.__name__: fn.launches
+                             for fn in tops.kernels()},
+                "allgathers": len(gathers),
+                "allgather_s": sum(g["s"] for g in gathers),
+                "allgather_bytes": sum(g["bytes"] for g in gathers),
+                "source": [r["data"].get("source") for r in events
+                           if r["ev"] == "compile_span"]}
+            out[f"{mode}_p"] = res.p_values
+            if store:
+                out["nulls"] = res.nulls
+            else:
+                out["counts"] = np.stack([res.counts_hi, res.counts_lo,
+                                          res.counts_eff])
+    np.savez(os.path.join(top, f"rank{rank}.npz"), **out)
+    with open(os.path.join(top, f"rank{rank}.json"), "w") as f:
+        json.dump(timing, f)
+    distributed.shutdown()
+    return 0
+
+
+def multi_process_phase(torch, np, module_preservation, card, dev) -> dict:
+    """Two processes on the card, joined over ``gloo`` on 127.0.0.1: the
+    fused null, materialized and streaming, on a 2×1 perm mesh across them
+    (``mp_worker``) against the same call on a 2×1 mesh in this process.
+    Fails unless each rank's null, counts and p-values equal the
+    single-process run's bit for bit and each rank launched the fused
+    kernel for its own shard only (one launch per chunk and bucket).
+    Prints each process's start-up seconds (spawn to joined, split into
+    ``import torch``, the port's imports and the join), the allgather
+    seconds and bytes and the null seconds. Returns the launches by
+    path."""
+    import shutil
+    import socket
+    import tempfile
+
+    from netrep_tpu_torch.parallel.mesh import make_mesh
+    from netrep_tpu_torch.utils.config import EngineConfig
+
+    cfg = EngineConfig()
+    sizes, labels, (xd, xt, _x2) = make_cohorts(np, genes=MP_GENES)
+    host = [[m.to(torch.float32).cpu().numpy() for m in mats(torch, x, dev)]
+            for x in (xd, xt)]
+    torch.cuda.empty_cache()
+    kw = mp_inputs(np, host, labels)
+    perm2 = make_mesh(2, 1, devices=[dev] * 2)
+    ref = {store: module_preservation(**kw, store_nulls=store, config=cfg,
+                                      mesh=perm2)
+           for store in (True, False)}
+    caps = [cfg.rounded_cap(int(s)) for s in ref[True].n_vars_present]
+    B, chunks = len(set(caps)), -(-N_PERM // cfg.chunk_size)
+    root = os.path.join(here(), "build")
+    os.makedirs(root, exist_ok=True)
+    top = tempfile.mkdtemp(prefix="multi_process_", dir=root)
+    try:
+        for k, a in zip(MP_FILES, host[0] + host[1]):
+            np.save(os.path.join(top, f"{k}.npy"), a)
+        np.save(os.path.join(top, "labels.npy"), labels)
+        del host
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        t_spawn = time.time()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c",
+             f"import sys; sys.path.insert(0, {here()!r}); import chip_smoke; "
+             f"sys.exit(chip_smoke.mp_worker({rank}, {port}, {top!r}))"],
+            cwd=here(), env=cli_env(), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for rank in (0, 1)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=max(
+                    1.0, MP_TIMEOUT_S - (time.time() - t_spawn))))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.time() - t_spawn
+        for rank, (p, (_o, err)) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                raise RuntimeError(f"multi_process rank {rank} exited "
+                                   f"{p.returncode}: {err[-2000:]}")
+        ranks = []
+        for rank in (0, 1):
+            got = dict(np.load(os.path.join(top, f"rank{rank}.npz")))
+            with open(os.path.join(top, f"rank{rank}.json")) as f:
+                timing = json.load(f)
+            ok = (np.array_equal(got["nulls"], ref[True].nulls)
+                  and np.array_equal(got["materialized_p"],
+                                     ref[True].p_values)
+                  and np.array_equal(got["streaming_p"],
+                                     ref[False].p_values)
+                  and np.array_equal(got["counts"], np.stack([
+                      ref[False].counts_hi, ref[False].counts_lo,
+                      ref[False].counts_eff])))
+            if not ok:
+                raise RuntimeError(f"multi_process rank {rank}: results "
+                                   "differ from the single-process run's")
+            for mode, kernel in (("materialized", "fused_stats_values"),
+                                 ("streaming", "fused_stats_counts")):
+                n = timing[mode]["launches"][kernel]
+                if n != chunks * B:
+                    raise RuntimeError(
+                        f"multi_process rank {rank} {mode}: {n} launches of "
+                        f"{kernel}, expected {chunks} chunks x {B} buckets "
+                        "(its own shard)")
+            if timing["materialized"]["allgathers"] != chunks:
+                raise RuntimeError(f"multi_process rank {rank}: "
+                                   f"{timing['materialized']['allgathers']}"
+                                   f" allgathers, expected {chunks}")
+            timing["startup_s"] = timing["t_joined"] - t_spawn
+            ranks.append(timing)
+    finally:
+        shutil.rmtree(top, ignore_errors=True)
+    emit({"phase": "multi_process", "processes": 2, "backend": "gloo",
+          "genes": MP_GENES, "mesh": perm2.shape, "buckets": B,
+          "chunks": chunks, "equal_single_process": True,
+          "single_process_null_s": {
+              "materialized": ref[True].profile["null_s"],
+              "streaming": ref[False].profile["null_s"]},
+          "ranks": [{k: t[k] for k in (
+              "rank", "startup_s", "import_torch_s", "imports_s", "join_s",
+              "materialized", "streaming", "ranks")} for t in ranks],
+          "wall_s": wall, "card": card})
+    return {("multi_process", f"rank{t['rank']}", mode): t[mode]["launches"]
+            for t in ranks for mode in ("materialized", "streaming")}
+
+
+def multi_test_mesh_only() -> int:
+    """``--multi-test-mesh``: the unsplit ``multi_test`` runs (fused
+    materialized, composed streaming) on the three cohorts, then
+    ``multi_test_mesh``."""
+    ready = mode_setup()
+    if ready is None:
+        return 1
+    torch, np, dev, card = ready
+    from netrep_tpu_torch import ops as tops
+    from netrep_tpu_torch.models.preservation import module_preservation
+    from netrep_tpu_torch.ops import pvalues as pv
+    from netrep_tpu_torch.utils.config import EngineConfig
+
+    _sizes, labels, cohorts = make_cohorts(np)
+    kw = host_kw(torch, np, dev, cohorts, labels)
+    drive = make_drive(torch, np, tops, module_preservation, kw, card)
+    cfg = EngineConfig()
+    composed_cfg = EngineConfig(stat_mode="xla", gather_mode="fused")
+    chunks = -(-N_PERM // cfg.chunk_size)
+    many = "gather_submatrix_fused_many"
+    multi, launches = {}, {}
+    multi[True], launches[("multi", True)], mem = drive(
+        "multi_test", ["fused_stats_values"], config=cfg, vmap_tests=True)
+    multi[False], launches[("multi", False)], _ = drive(
+        "multi_test", [many], {many: chunks * 2 * 2}, config=composed_cfg,
+        vmap_tests=True, store_nulls=False)
+    multi_test_mesh_phase(np, pv, drive, cfg, composed_cfg, multi, mem,
+                          launches, chunks, card, dev)
+    print(card_line(), flush=True)
+    return 0
+
+
+def multi_process_only() -> int:
+    """``--multi-process``: ``multi_process`` alone."""
+    ready = mode_setup()
+    if ready is None:
+        return 1
+    torch, np, dev, card = ready
+    from netrep_tpu_torch.models.preservation import module_preservation
+
+    multi_process_phase(torch, np, module_preservation, card, dev)
+    print(card_line(), flush=True)
+    return 0
+
+
 def make_drive(torch, np, tops, module_preservation, kw, card):
     """``drive(phase, needs, expect=None, completed=N_PERM, **call)``:
     one ``module_preservation`` call on ``kw`` (read at call time) with
@@ -6867,6 +7314,7 @@ def main() -> int:
     multi[True], launches[("multi", True)], mem = drive(
         "multi_test", ["fused_stats_values"], config=cfg, vmap_tests=True)
     f32_ref["multi_test/materialized"] = (multi[True], mem)
+    multi_mem = mem
     multi[False], launches[("multi", False)], _ = drive(
         "multi_test", [many], {many: chunks * 2 * 2, **single},
         config=composed_cfg, vmap_tests=True, store_nulls=False)
@@ -6886,6 +7334,11 @@ def main() -> int:
           "cohort2_modules_preserved": int(
               (multi[True]["test2"].p_values.max(axis=1)
                < 0.05 / MODULES).sum())})
+    # ---- the two cohorts on meshes of the card, held to the runs above --
+    launches.update({("multi_mesh", k): used for k, used in
+                     multi_test_mesh_phase(
+                         np, pv, drive, cfg, composed_cfg, multi, multi_mem,
+                         launches, chunks, card, dev).items()})
     # ---- the same two cohorts one pair after another -------------------
     seq = sequential_tests(torch, np, module_preservation, tops, kw, cfg,
                            card, dev)
@@ -6927,6 +7380,9 @@ def main() -> int:
     daemon_results_check(np, daemon_got, results_b, card)
     # ---- the forensic chain: the dump op's bundle, a refused checkpoint -
     forensics_phase(np, module_preservation, card)
+    # ---- two processes on the card over gloo, one perm row each --------
+    launches.update(multi_process_phase(torch, np, module_preservation, card,
+                                        dev))
     del kw, runs, a, b, comp, der, multi, fused_run, res, seq, f32_ref
     del composed_adaptive
     del dd, dc, dn, td, tc, tn, t2d, t2c, t2n
@@ -7058,11 +7514,20 @@ def main() -> int:
         "fleet failover, the peer's resumed pack": ("fleet",
                                                     "failover_peer"),
         "fleet eviction, the peer's resumed pack": ("fleet", "evict_peer"),
+        **{f"multi_test_mesh {k}": ("multi_mesh", k) for k in (
+            "perm2x1 fused materialized", "perm2x1 fused streaming",
+            "perm2x1 composed materialized", "row1x4 psum streaming",
+            "perm2x1 adaptive", "checkpoint written on 2x1",
+            "checkpoint resumed unsplit")},
+        **{f"multi_process rank {r} {m}": ("multi_process", f"rank{r}", m)
+           for r in (0, 1) for m in ("materialized", "streaming")},
     }
-    ring_paths = {"checkpoint written on the ring mesh"}
+    ring_paths = {"checkpoint written on the ring mesh",
+                  "multi_test_mesh row1x4 psum streaming"}
     for row in rows:
-        # the gather's one counter serves both entries: the ring path's
-        # launches are the out= entry's, every other path's the plain one's
+        # the gather's one counter serves both entries: the row-sharded
+        # paths' launches (the ring's local part, the psum's blocks) are
+        # the out= entry's, every other path's the plain one's
         name, local = row["name"].split("(")[0], "(out=)" in row["name"]
         by_path = {p: launches[k][name] for p, k in new_paths.items()
                    if launches[k][name] and (
@@ -7098,6 +7563,7 @@ def main() -> int:
                                  "bound_ms", "bound_by", "library_ms",
                                  "f32_ms", "sector_floor_ms") if f in k},
             "path": f"bf16_storage {path}"})
+    emit({"phase": "total", "seconds": time.perf_counter() - T_START})
     emit({"kernels": rows})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
@@ -7118,7 +7584,9 @@ if __name__ == "__main__":
              "--faults": faults_only, "--grid": grid_only,
              "--serve": serve_only, "--fleet": fleet_only,
              "--tooling": tooling_only, "--startup": startup_only,
-             "--native": native_only}
+             "--native": native_only,
+             "--multi-test-mesh": multi_test_mesh_only,
+             "--multi-process": multi_process_only}
     args = sys.argv[1:]
     if len(args) > 1 or (args and args[0] not in modes):
         sys.exit(f"usage: {sys.argv[0]} [{' | '.join(modes)}]")

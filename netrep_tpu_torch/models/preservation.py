@@ -47,6 +47,7 @@ import torch
 
 from ..ops import pvalues as pv
 from ..ops import stats as tstats
+from ..parallel import distributed
 from ..parallel import mesh as tmesh
 from ..parallel.engine import (
     ModuleSpec, PermutationEngine, build_discovery, check_derived_network,
@@ -233,9 +234,10 @@ def module_preservation(
       share one node universe and agree on data presence runs them in one
       multi-test engine on one shared permutation draw; each pair's result
       is the one its own run gives with the same seed. Otherwise the pairs
-      run one after another, with a warning. With a ``mesh`` it raises
-      ``NotImplementedError`` for a group of several cohorts (the
-      multi-test engine on a mesh is a later slice);
+      run one after another, with a warning. With a ``mesh`` every cohort
+      is split over it as a single test would be, on the shared draw
+      (row-sharded: the composed statistics, ``stat_mode='fused'``
+      raises);
     - ``mesh`` — optional :class:`~netrep_tpu_torch.parallel.mesh.Mesh`
       (:func:`~netrep_tpu_torch.parallel.mesh.make_mesh`); permutation
       chunks are split across the mesh's ``perm`` axis, and with
@@ -508,12 +510,6 @@ def _run_groups(by_disc, datasets, assign, modules, background_label, null,
                     for t in t_names)
             and len({datasets[t].data is not None for t in t_names}) == 1
         )
-        if can_vmap and mesh is not None:
-            raise NotImplementedError(
-                "vmap_tests=True with a mesh is not ported yet: ROADMAP.md "
-                "Queue 1 item 14 (the multi-test engine on a mesh); run the "
-                "cohorts without vmap_tests or without a mesh"
-            )
         if vmap_tests and not can_vmap and len(t_names) > 1:
             logger.warning(
                 "vmap_tests requested but unavailable (requires the default "
@@ -592,7 +588,7 @@ def _run_groups(by_disc, datasets, assign, modules, background_label, null,
                     [t["network"] for t in tests],
                     [dT(t) for t in tests] if g.with_data else None, *parts,
                     modules=g.setup[1], digest=g.digests[0],
-                    test_digest=g.digests[1])
+                    test_digest=g.digests[1], mesh=m)
             return PermutationEngine.from_parts(
                 tests[0]["correlation"], tests[0]["network"], dT(tests[0]),
                 *parts, mesh=m, modules=g.setup[1], digest=g.digests[0])
@@ -614,7 +610,7 @@ def _run_groups(by_disc, datasets, assign, modules, background_label, null,
                     [t.correlation for t in tests], [t.network for t in tests],
                     [t.data.T for t in tests] if g.with_data else None,
                     *parts, modules=mod_specs, digest=g.digests[0],
-                    test_digest=g.digests[1],
+                    test_digest=g.digests[1], mesh=mesh,
                 )
             else:
                 engine = PermutationEngine.from_parts(
@@ -819,7 +815,7 @@ def _run_guarded(null_of, engine, build_engine, ft, mesh, ck, d_name,
             reason = getattr(e, "reason", "device_lost")
             cause = e.__cause__ if e.__cause__ is not None else e
             survivors, lost = be.enumerate_survivors(cur_mesh, e)
-            survivors = tmesh.filter_addressable(survivors)
+            survivors = distributed.filter_addressable(survivors)
             if survivors and ft.mesh_rebuilds < ft.policy.max_mesh_rebuilds:
                 be.announce_mesh_shrunk(
                     reason, survivors, lost, discovery=str(d_name),

@@ -74,8 +74,18 @@ Every loop takes the fault ladder (``fault_policy``,
 :mod:`netrep_tpu_torch.utils.faults`), the event bus (``telemetry``,
 :mod:`netrep_tpu_torch.utils.telemetry`) and the dispatch accounting
 (``profile``); with all three off a loop runs as it did without them and
-pays one ``None`` check per run. The multi-test engine on a mesh is a
-later slice (ROADMAP.md, Queue 1 item 14).
+pays one ``None`` check per run. The multi-test engine
+(:mod:`netrep_tpu_torch.parallel.multitest`) composes T of these engines'
+shard plans over the same mesh.
+
+A mesh whose ``perm`` axis spans processes
+(:mod:`netrep_tpu_torch.parallel.distributed`) runs in each process only
+the shards it drives: the materialized null is allgathered in chunk order
+(:func:`~netrep_tpu_torch.parallel.distributed.gather_to_host`), the
+streaming tallies are summed across processes in int64, and the adaptive
+loops fold the same gathered values everywhere, so every process returns
+the whole result and retires the same modules. Process 0 alone writes the
+checkpoint; every process resumes from what it read.
 
 A pack of requests (:mod:`netrep_tpu_torch.serve.packer`) is this engine
 over the union of their modules through four hooks: where each module
@@ -117,6 +127,7 @@ from ..utils import perfledger
 from ..utils import telemetry as tm
 from ..utils.config import EngineConfig
 from ..utils.profiling import NullProfile, make_memory_probe
+from . import distributed
 from . import mesh as tmesh
 from . import screened as scr
 from .mesh import PERM_AXIS, ROW_AXIS, Mesh
@@ -522,14 +533,32 @@ class Checkpointer:
     extra_state: object | None = None
     #: background writer of the run (under a fault policy), else None
     writer: ckpt.AsyncCheckpointWriter | None = None
+    #: the run's mesh spans processes: process 0 alone writes, and every
+    #: process resumes from what process 0 read
+    shared: bool = False
 
     def load(self) -> dict | None:
-        loaded = ckpt.load_null_checkpoint(self.path)
+        if self.shared:
+            got, err = None, None
+            if distributed.process_index() == 0:
+                try:
+                    got = ckpt.load_null_checkpoint(self.path)
+                # netrep: allow(exception-taxonomy) — process 0's refusal is handed to every process and re-raised in each
+                except Exception as e:
+                    err = e
+            got, err = distributed.broadcast_object((got, err))
+            if err is not None:
+                raise err
+            loaded = got
+        else:
+            loaded = ckpt.load_null_checkpoint(self.path)
         if loaded is not None and self.extra_state is not None:
             self.extra_state.restore_state(loaded.get("extras") or {})
         return loaded
 
     def save(self, nulls, done: int, extra: dict | None = None) -> None:
+        if self.shared and distributed.process_index() != 0:
+            return
         if self.extra_state is not None:
             extra = {**(extra or {}), **self.extra_state.state_arrays()}
         ckpt.save_null_checkpoint(self.path, nulls, done, self.key_data,
@@ -563,7 +592,8 @@ def checkpointer(engine, key: trandom.ThreefryKey, path: str | None,
     the same problem and seed (``netrep_tpu/parallel/engine.py::
     _checkpoint_identity``): the key's words and the engine's fingerprint
     with ``fingerprint_extra`` appended. As there, the storage type is not
-    part of it."""
+    part of it, nor is the mesh. On a mesh that spans processes the
+    checkpoint is shared (:attr:`Checkpointer.shared`)."""
     if path is None:
         return None
     engine.fingerprint_digest()  # raises without a checkpoint identity
@@ -571,7 +601,9 @@ def checkpointer(engine, key: trandom.ThreefryKey, path: str | None,
     if fingerprint_extra:
         fp = np.concatenate(
             [fp, np.frombuffer(fingerprint_extra, dtype=np.uint8)])
-    return Checkpointer(str(path), int(every), key.data(), fp, extra_state)
+    mesh = getattr(engine, "mesh", None)
+    return Checkpointer(str(path), int(every), key.data(), fp, extra_state,
+                        shared=mesh is not None and mesh.spans_processes)
 
 
 def chunk_counts(stream_parts: Callable, monitor,
@@ -752,7 +784,7 @@ def _finish_run(telemetry, run_sid, t_marks, t_run0, start, mode,
         roofline = tracker.roofline_block(rate)
         telemetry.emit("roofline", parent=run_sid, mode=mode, **roofline)
         costmodel.record_run_note(roofline, bus=telemetry)
-    if _flight_only(telemetry):
+    if _flight_only(telemetry) or distributed.process_index() != 0:
         return
     perfledger.maybe_record_run(
         f"{run_key}|src:{src}" if run_key else run_key, rate, mode,
@@ -1648,6 +1680,11 @@ class PermutationEngine:
                     "row-sharded ring path; use matrix_sharding="
                     "'replicated' or null_precision='f32'"
                 )
+            if mesh is not None and mesh.spans_processes:
+                raise ValueError(
+                    "null_precision='bf16_rescue' is not taught a mesh "
+                    "that spans processes; use null_precision='f32'"
+                )
         #: max |test operand| of the screen's cushions (computed once)
         self._screen_amp = None
         #: the last screened run's RescueState (None before one)
@@ -1773,7 +1810,8 @@ class PermutationEngine:
         return rep
 
     def _shard_plan(self) -> list:
-        """``(p, r, slice, engine view)`` per shard, in chunk order
+        """``(p, r, slice, engine view)`` per shard this process drives,
+        in chunk order
         (:func:`~netrep_tpu_torch.parallel.sharded.chunk_shards`)."""
         if self._shards is None:
             placed: dict = {}
@@ -1782,6 +1820,7 @@ class PermutationEngine:
                 for p, r, sl in chunk_shards(
                     self.mesh, self.effective_chunk(),
                     self._stat_fused_ring())
+                if self.mesh.is_local(p, r)
             ]
         return self._shards
 
@@ -1986,12 +2025,18 @@ class PermutationEngine:
         _add_tallies(tallies, deltas)
 
     def _chunk(self, keys: trandom.ThreefryKey,
-               screened: bool = False) -> list[torch.Tensor]:
+               screened: bool = False) -> list:
+        """Per-bucket ``(C, K, 7)`` null statistics of a chunk's keys; on a
+        mesh that spans processes, host arrays allgathered from every
+        process's shards."""
         if self.mesh is None:
             return self._values(self._draw(keys), screened)
         shards = self._shard_values(keys, screened)
-        return [torch.cat([s[i].to(self.device) for s in shards])
+        outs = [torch.cat([s[i].to(self.device) for s in shards])
                 for i in range(len(self.buckets))]
+        if self.mesh.spans_processes:
+            return distributed.gather_to_host(outs)
+        return outs
 
     def _obs_buckets(self, observed) -> list[torch.Tensor]:
         return [
@@ -2052,7 +2097,10 @@ class PermutationEngine:
 
         def pull(acc):
             parts = [eng._pull(t) for (*_, eng), t in zip(plan, acc.dev)]
-            return tuple(sum(x) for x in zip(*parts))
+            total = np.stack([sum(x) for x in zip(*parts)])
+            if self.mesh.spans_processes:
+                total = distributed.sum_to_host(total)
+            return tuple(total)
 
         return count, pull, Tallies([eng._zero_tallies()
                                      for *_, eng in plan])
@@ -2072,7 +2120,8 @@ class PermutationEngine:
         if cfg.resolved_null_precision(self.device.type) != "bf16_rescue":
             return "f32"
         if (self.stat_mode == "fused" or cfg.gather_mode == "fused"
-                or self.row_sharded):
+                or self.row_sharded
+                or (self.mesh is not None and self.mesh.spans_processes)):
             return "f32"
         if observed is None:
             if cfg.null_precision == "bf16_rescue":

@@ -23,12 +23,25 @@ is decided in every cohort. Each cohort stores its test side in
 ``config.dtype`` (float32 or bfloat16), as the single-test engine does.
 The screened null runs on the single-test engine only: an explicit
 ``null_precision='bf16_rescue'`` raises the JAX package's error, and
-``'auto'`` resolves to ``'f32'``. The mesh and row-sharded compositions
-are a later slice (ROADMAP.md, Queue 1 item 14).
+``'auto'`` resolves to ``'f32'``.
+
+On a mesh (``mesh=``) each cohort's engine is built over it and the
+engine composes their shard plans: each perm shard draws its slice of the
+chunk's keys once and hands that draw to every cohort's view on the same
+device (the JAX package's T axis inside one ``shard_map``). Replicated
+matrices run each cohort's fused or composed body per shard; row-sharded
+matrices (``matrix_sharding='row'``) hold each cohort's row blocks on
+their own and assemble each cohort's submatrices by the psum gather, one
+launch per row block, matrix and cohort. The row-sharded composition never
+takes the single-test ring: ``stat_mode='auto'`` resolves to ``'xla'``
+there and an explicit ``'fused'`` raises the JAX package's error. A mesh
+whose perm axis spans processes runs each process's shards only, as the
+single-test engine does (:mod:`netrep_tpu_torch.parallel.distributed`).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Sequence
 
 import numpy as np
@@ -39,13 +52,34 @@ from ..ops.oracle import N_STATS
 from ..ops.sequential import StopMonitor, StopRule
 from ..utils import aot
 from ..utils import checkpoint as ckpt
-from ..utils.config import EngineConfig, resolve_device
+from ..utils.config import EngineConfig
+from . import distributed
+from . import mesh as tmesh
 from .engine import (
     _STREAM_FP, ModuleSpec, PermutationEngine, StreamCounts, _as_f32,
-    build_discovery, check_derived_network, checkpointer, chunk_counts,
-    pull_tallies, root_key, run_adaptive_chunks, run_adaptive_stream_chunks,
-    run_checkpointed_chunks, run_stream_superchunks, Tallies,
+    _check_sharding, build_discovery, check_derived_network, checkpointer,
+    chunk_counts, pull_tallies, root_key, run_adaptive_chunks,
+    run_adaptive_stream_chunks, run_checkpointed_chunks,
+    run_stream_superchunks, Tallies,
 )
+from .mesh import Mesh
+
+
+def _mesh_config(config: EngineConfig, mesh: Mesh | None) -> EngineConfig:
+    """``config`` for the cohorts' engines: on row-sharded matrices the
+    fused statistics (whose row-sharded form is the single-test ring)
+    become the composed ones, and an explicit ``stat_mode='fused'``
+    raises the JAX package's error."""
+    if (_check_sharding(config, mesh)
+            and config.resolved_stat_mode() == "fused"):
+        if config.stat_mode == "fused":
+            raise ValueError(
+                "stat_mode='fused' with matrix_sharding='row' is not "
+                "supported on the multi-test engine; use the single-"
+                "test engine's ring path or stat_mode='xla'"
+            )
+        return dataclasses.replace(config, stat_mode="xla")
+    return config
 
 
 class MultiTestEngine:
@@ -60,13 +94,16 @@ class MultiTestEngine:
         stacked ``(T, n, n)`` array).
     test_datas : T ``(samples_t, n)`` data matrices (ragged sample counts
         allowed), or None (data-less).
-    modules, pool, config, device : as for ``PermutationEngine``.
+    modules, pool, config, device, mesh : as for ``PermutationEngine``
+        (on row-sharded matrices ``stat_mode='auto'`` is ``'xla'``).
     """
 
     def __init__(self, disc_corr, disc_net, disc_data, test_corrs, test_nets,
                  test_datas, modules: Sequence[ModuleSpec], pool,
-                 config: EngineConfig = EngineConfig(), device=None):
-        dev = resolve_device(device)
+                 config: EngineConfig = EngineConfig(), device=None,
+                 mesh: Mesh | None = None):
+        dev = tmesh.resolve_device(mesh, device)
+        config = _mesh_config(config, mesh)
         self._lib_mark = aot.mark()
         modules = list(modules)
         self.T = len(test_corrs)
@@ -74,7 +111,7 @@ class MultiTestEngine:
         pool = np.asarray(pool, dtype=np.int32)
         buckets = build_discovery(
             disc_corr, disc_net, disc_data if test_datas is not None else None,
-            modules, pool, config, dev,
+            modules, pool, config, dev, mesh,
         )
         if net_beta is not None:
             for t in range(self.T):
@@ -86,7 +123,7 @@ class MultiTestEngine:
                 None if net_beta is not None else _as_f32(test_nets[t], dev),
                 None if test_datas is None
                 else _as_f32(test_datas[t], dev).T,
-                pool, buckets, len(modules), config, dev,
+                pool, buckets, len(modules), config, dev, mesh,
             )
             for t in range(self.T)
         ])
@@ -107,15 +144,18 @@ class MultiTestEngine:
                    n_modules: int, config: EngineConfig = EngineConfig(),
                    device=None, modules: Sequence[ModuleSpec] | None = None,
                    digest: str | None = None,
-                   test_digest: str | None = None) -> "MultiTestEngine":
+                   test_digest: str | None = None,
+                   mesh: Mesh | None = None) -> "MultiTestEngine":
         """An engine from its device operands directly (see
         :func:`netrep_tpu_torch.state.multitest_state_from_numpy`): T test
         correlations, networks (or None) and transposed data ``(n,
         samples_t)`` (or None), with the discovery buckets of
-        :meth:`PermutationEngine.from_parts`. ``modules``, ``digest`` (of
-        the discovery inputs) and ``test_digest`` (of the stacked test
-        inputs) make the checkpoint identity; without them the engine
-        takes no checkpoint."""
+        :meth:`PermutationEngine.from_parts` (on a row-sharded ``mesh``,
+        built through its perm row 0). ``modules``, ``digest`` (of the
+        discovery inputs) and ``test_digest`` (of the stacked test inputs)
+        make the checkpoint identity; without them the engine takes no
+        checkpoint."""
+        config = _mesh_config(config, mesh)
         self = cls.__new__(cls)
         self._lib_mark = aot.mark()
         T = len(test_corrs)
@@ -124,7 +164,7 @@ class MultiTestEngine:
             PermutationEngine.from_parts(
                 test_corrs[t], None if test_nets is None else test_nets[t],
                 None if test_dataTs is None else test_dataTs[t],
-                pool, buckets, n_modules, config, device,
+                pool, buckets, n_modules, config, device, mesh,
             )
             for t in range(T)
         ])
@@ -143,11 +183,11 @@ class MultiTestEngine:
                 "multi-test engine (vmap_tests=True); use 'auto' or 'f32', "
                 "or run tests sequentially"
             )
-        self.config, self.device = c0.config, c0.device
+        self.config, self.device, self.mesh = c0.config, c0.device, c0.mesh
         self.n_modules, self.has_data = c0.n_modules, c0.has_data
         self.stat_mode = c0.stat_mode
         self.net_beta = c0.net_beta
-        self.pool, self._pool_dev = c0.pool, c0._pool_dev
+        self.pool = c0.pool
 
     @property
     def buckets(self):
@@ -158,12 +198,49 @@ class MultiTestEngine:
         """(T, n_modules, 7) observed statistics, exact ``eigh``."""
         return np.stack([c.observed() for c in self.cohorts])
 
-    def _chunk(self, keys: trandom.ThreefryKey) -> list[torch.Tensor]:
+    def effective_chunk(self) -> int:
+        """Chunk size, rounded to a multiple of the mesh's perm axis
+        (:meth:`PermutationEngine.effective_chunk`; never over the row axis:
+        no cohort takes the ring)."""
+        return self.cohorts[0].effective_chunk()
+
+    def _plans(self) -> list:
+        """``(slice of the chunk, [view of each cohort])`` per shard this
+        process drives, in chunk order: on a mesh the cohorts' shard plans
+        side by side (the same positions and devices, each cohort's own
+        operands), else the whole chunk on the cohorts themselves."""
+        if self.mesh is None:
+            return [(slice(None), self.cohorts)]
+        plans = [c._shard_plan() for c in self.cohorts]
+        return [(shards[0][2], [s[3] for s in shards])
+                for shards in zip(*plans)]
+
+    def _spans_processes(self) -> bool:
+        return self.mesh is not None and self.mesh.spans_processes
+
+    @staticmethod
+    def _shard_draw(keys: trandom.ThreefryKey, sl: slice,
+                    view: PermutationEngine) -> torch.Tensor:
+        """The permutations of a shard's slice of ``keys``, drawn once on
+        its device for every cohort."""
+        return trandom.permutation(
+            trandom.ThreefryKey(keys.words[sl]).to(view.device),
+            view._pool_dev)
+
+    def _chunk(self, keys: trandom.ThreefryKey) -> list:
         """Per-bucket ``(T, C, K, 7)`` null statistics: one permutation
-        draw, every cohort's null body over the shared index blocks."""
-        perm = trandom.permutation(keys, self._pool_dev)
-        per_t = [c._values(perm) for c in self.cohorts]
-        return [torch.stack(outs) for outs in zip(*per_t)]
+        draw per shard, every cohort's null body over the shared index
+        blocks; on a mesh that spans processes, host arrays allgathered
+        from every process's shards."""
+        shards = []
+        for sl, views in self._plans():
+            perm = self._shard_draw(keys, sl, views[0])
+            shards.append([torch.stack(outs).to(self.device) for outs in
+                           zip(*(v._values(perm) for v in views))])
+        outs = [torch.cat(per_b, dim=1) for per_b in zip(*shards)]
+        if self._spans_processes():
+            return distributed.gather_to_host(outs, axis=1)
+        return outs
 
     # ------------------------------------------------------------------
     # Checkpoint identity and retirement
@@ -188,7 +265,9 @@ class MultiTestEngine:
 
     def rebucket(self, active) -> None:
         """Restrict every cohort to the modules at ``active``
-        (:meth:`PermutationEngine.rebucket`)."""
+        (:meth:`PermutationEngine.rebucket`; each cohort drops its shard
+        views with its buckets, so the next chunk's plans hold only the
+        survivors)."""
         for c in self.cohorts:
             c.rebucket(active)
 
@@ -204,14 +283,14 @@ class MultiTestEngine:
         afterwards."""
         for c in self.cohorts:
             c.release()
-        self._pool_dev = None
 
     def _null_write(self) -> Callable:
         def write(nulls, outs, done, take):
             for b, o in zip(self.buckets, outs):
+                if isinstance(o, torch.Tensor):
+                    o = o[:, :take].cpu().numpy()
                 nulls[:, done: done + take, b.module_pos] = (
-                    o[:, :take].cpu().numpy().astype(np.float64)
-                )
+                    o[:, :take].astype(np.float64))
 
         return write
 
@@ -234,38 +313,50 @@ class MultiTestEngine:
         del observed
         key = root_key(key, self.device)
         return run_checkpointed_chunks(
-            key, n_perm, self.config.chunk_size, self._chunk,
+            key, n_perm, self.effective_chunk(), self._chunk,
             self._null_write(), (self.T, n_perm, self.n_modules, N_STATS),
             progress,
             checkpointer(self, key, checkpoint_path, checkpoint_every,
                          self._fingerprint_extra()),
-            perm_axis=1, **self._hooks(fault_policy, telemetry, profile),
+            perm_axis=1, full=self.mesh is not None,
+            **self._hooks(fault_policy, telemetry, profile),
         )
 
     def _stream_parts(self, observed):
         """``(count(keys, valid, acc), pull(acc), tallies)`` over the shared
-        draw (:meth:`PermutationEngine._stream_parts`): each cohort's
-        tallies on the device, all of them read in one copy."""
+        draw (:meth:`PermutationEngine._stream_parts`): each shard keeps
+        every cohort's tallies on its device, gated by the validity mask
+        offset by its slice's first column, and ``pull`` reads each
+        shard's in one copy and sums them (across processes too, in
+        int64)."""
         observed = np.asarray(observed, dtype=np.float64).reshape(
             self.T, self.n_modules, N_STATS
         )
-        obs = [c._obs_buckets(observed[t]) for t, c in
-               enumerate(self.cohorts)]
+        plans = self._plans()
+        obs = [[v._obs_buckets(observed[t]) for t, v in enumerate(views)]
+               for _sl, views in plans]
 
         def count(keys, valid, acc):
-            perm = trandom.permutation(keys, self._pool_dev)
-            for c, ob, t in zip(self.cohorts, obs, acc.dev):
-                c._count(perm, valid, ob, t)
+            for s, (sl, views) in enumerate(plans):
+                start, stop, _ = sl.indices(keys.words.shape[0])
+                own = max(0, min(stop, valid) - start)
+                perm = self._shard_draw(keys, sl, views[0])
+                for v, ob, t in zip(views, obs[s], acc.dev[s]):
+                    v._count(perm, own, ob, t)
             return acc
 
         def pull(acc):
-            per_t = pull_tallies(
-                [(c.buckets, t) for c, t in zip(self.cohorts, acc.dev)],
-                self.n_modules)
-            return tuple(np.stack(per_t, axis=1))
+            total = sum(
+                np.stack(pull_tallies(
+                    [(v.buckets, t) for v, t in zip(views, tal)],
+                    self.n_modules), axis=1)
+                for (_sl, views), tal in zip(plans, acc.dev))
+            if self._spans_processes():
+                total = distributed.sum_to_host(total)
+            return tuple(total)
 
-        return count, pull, Tallies([c._zero_tallies()
-                                     for c in self.cohorts])
+        return count, pull, Tallies([[v._zero_tallies() for v in views]
+                                     for _sl, views in plans])
 
     def run_null_streaming(self, n_perm: int, observed, key=0,
                            progress: Callable[[int, int], None] | None = None,
@@ -281,7 +372,7 @@ class MultiTestEngine:
         key = root_key(key, self.device)
         count, pull, tallies = self._stream_parts(observed)
         (hi, lo, eff), completed = run_stream_superchunks(
-            key, n_perm, self.config.chunk_size,
+            key, n_perm, self.effective_chunk(),
             self.config.resolved_superchunk, count, pull, tallies, progress,
             checkpointer(self, key, checkpoint_path, checkpoint_every,
                          _STREAM_FP + self._fingerprint_extra()),
@@ -329,13 +420,14 @@ class MultiTestEngine:
 
         try:
             return run_adaptive_chunks(
-                key, n_perm, self.config.chunk_size, self._chunk,
+                key, n_perm, self.effective_chunk(), self._chunk,
                 self._null_write(),
                 (self.T, n_perm, self.n_modules, N_STATS), slice_vals,
                 monitor, self.rebucket, progress,
                 checkpointer(self, key, checkpoint_path, checkpoint_every,
                              self._fingerprint_extra()),
-                perm_axis=1, **self._hooks(fault_policy, telemetry),
+                perm_axis=1, full=self.mesh is not None,
+                **self._hooks(fault_policy, telemetry),
             )
         finally:
             if self.cohorts[0]._buckets_full:
@@ -360,7 +452,7 @@ class MultiTestEngine:
 
         try:
             completed, finished = run_adaptive_stream_chunks(
-                key, n_perm, self.config.chunk_size,
+                key, n_perm, self.effective_chunk(),
                 chunk_counts(lambda: self._stream_parts(observed), monitor,
                              to_cells), monitor,
                 self.rebucket, progress,

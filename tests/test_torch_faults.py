@@ -29,9 +29,8 @@ by the card's run.
 
 The shrink and grow-back rungs run on an 8-device mesh: the JAX tests'
 virtual CPU mesh (``tests/conftest.py``) and the port's ``devices=[cpu] *
-8``. The multi-test engine takes no mesh in the port (ROADMAP.md item
-14.1), so the two-cohort case runs the partial loss without one, where
-both packages take the CPU rung.
+8``, the two-cohort case on the multi-test engine over the same mesh,
+held to the JAX ladder's shrink and grow-back.
 """
 
 import threading
@@ -52,6 +51,7 @@ from netrep_tpu.utils.config import EngineConfig as JConfig  # noqa: E402
 from netrep_tpu.utils.config import FaultPolicy as JPolicy  # noqa: E402
 from netrep_tpu.utils.telemetry import Telemetry as JBus  # noqa: E402
 from netrep_tpu_torch.models.preservation import module_preservation  # noqa: E402
+from netrep_tpu_torch.parallel import distributed  # noqa: E402
 from netrep_tpu_torch.parallel import mesh as tmesh  # noqa: E402
 from netrep_tpu_torch.utils import backend as be  # noqa: E402
 from netrep_tpu_torch.utils import checkpoint as ckpt  # noqa: E402
@@ -251,7 +251,7 @@ def baseline(target: str, tmp_path):
 @pytest.mark.parametrize("target", TARGETS)
 def test_fault_kind_matches_jax(target, kind, tmp_path):
     base = baseline(target, tmp_path)
-    mesh = kind == "partial_and_restored" and not target.startswith("vmap")
+    mesh = kind == "partial_and_restored"
     rt, et, evt = run("port", target, kind, tmp_path, mesh=mesh)
     rj, ej, evj = run("jax", target, kind, tmp_path, mesh=mesh)
     assert_no_threads_left()
@@ -281,8 +281,7 @@ def test_fault_kind_matches_jax(target, kind, tmp_path):
         return
     assert_same(rt, rj, base)
     first = next(iter(per_test(rt).values()))
-    if kind == "device_lost" or (
-            kind == "partial_and_restored" and not mesh):
+    if kind == "device_lost":
         deg = first.profile["degraded"]
         # the permutations committed before the loss (a streaming null's
         # first superchunk commits nothing before it lands)
@@ -676,7 +675,7 @@ def test_mesh_spec_round_trip_and_shrink():
         assert dict(got) == dict(want), n
     with pytest.raises(ValueError, match="at least one surviving"):
         tmesh.shrink_mesh([], like=m)
-    assert tmesh.filter_addressable(cpu) == cpu
+    assert distributed.filter_addressable(cpu) == cpu
 
 
 def test_enumerate_survivors_and_inventory():

@@ -373,14 +373,38 @@ def test_module_preservation_mesh_equals_jax(frames, sharding, stat_mode,
 
 
 def test_mesh_with_vmap_tests_raises(frames):
+    """``vmap_tests=True`` with a mesh runs the multi-test engine over it
+    (the JAX package's p-values, each cohort's as its single-test run's);
+    only an explicit ``stat_mode='fused'`` on row-sharded matrices raises,
+    with the JAX package's text."""
     kw = dict(frames)
     for key in ("network", "data", "correlation"):
         kw[key] = dict(kw[key], t2=kw[key]["t"])
     kw["test"] = ["t", "t2"]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item "
-                                                  "14"):
+    rt = module_preservation(**kw, device="cpu", vmap_tests=True,
+                             mesh=cpu_mesh(2, 1))
+    rj = netrep_tpu.module_preservation(
+        **kw, vmap_tests=True, config=JConfig(autotune=False),
+        mesh=jmesh.make_mesh(2, 1))
+    single = module_preservation(**frames, device="cpu")
+    for t in ("t", "t2"):
+        np.testing.assert_allclose(rt[t].observed, rj[t].observed, rtol=0,
+                                   atol=ATOL)
+        np.testing.assert_array_equal(rt[t].p_values, rj[t].p_values)
+        np.testing.assert_array_equal(rt[t].nulls, single.nulls)
+    row = dict(matrix_sharding="row", stat_mode="fused")
+    with pytest.raises(ValueError) as want:
+        netrep_tpu.module_preservation(
+            **kw, vmap_tests=True, config=JConfig(autotune=False, **row),
+            mesh=jmesh.make_mesh(1, 2))
+    with pytest.raises(ValueError) as got:
         module_preservation(**kw, device="cpu", vmap_tests=True,
-                            mesh=cpu_mesh(2, 1))
+                            config=EngineConfig(**row), mesh=cpu_mesh(1, 2))
+    assert str(got.value) == str(want.value)
+    # the raised errors' tracebacks hold the calls' frames in reference
+    # cycles: collect them, so no later test finds their tensors alive
+    del want, got
+    gc.collect()
 
 
 def _live_equal(target: torch.Tensor, mine) -> int:
