@@ -30,21 +30,22 @@ launch count set to 0 just before a path and read just after:
 
 - ``main_path``: the fused-statistics null, materialized and streaming;
 - ``native``: ``backend='native'``, the threaded C++ host tier, on the
-  same host inputs and seed with no device named — one thread on 32
-  permutations, every core on 256 (``native_phase``): its observed
+  same host inputs and seed with no device named — one thread on 16
+  permutations, every core on 128 (``native_phase``): its observed
   statistics within ``tolerance_for('cuda')`` of the card's fused ones,
   the two nulls equal on their common prefix, and its rates beside the
   card's fused materialized rate, with the host's CPU model and cores;
 - ``autotune`` (after ``native``): the measured autotune store
   (``autotune_phase``) on a fresh temporary store: the main path's fused
   streaming null at 4,096 permutations with an explicit superchunk of 1,
-  2, 4, 8, 16 and 32, each twice in alternated order, then a default run
-  that must resolve to the setting with the best median rate, counts and
-  p-values bit-equal across every run; then the ``--atlas-build``
-  100,000-gene top-k 16 build at tile edges 512, 1,024 and 2,048 and
-  screened with super-tile factors 4, 8 and 16, and a default build of
-  each kind that must resolve to the best, with how many selected edges
-  differ from the 1,024-edge build's;
+  2, 4, 8, 16 and 32 (``--autotune``: each twice, in alternated order),
+  then a default run that must resolve to the setting with the best
+  median rate, counts and p-values bit-equal across every run; then the
+  ``--atlas-build`` 100,000-gene top-k 16 build at tile edges 1,024 and
+  2,048 and screened with super-tile factors 8 and 16 (``--autotune``:
+  also edge 512 and factor 4), and a default build of each kind that
+  must resolve to the best, with how many selected edges differ from
+  the 1,024-edge build's;
 - ``composed_path``: ``stat_mode='xla', gather_mode='fused'`` (the gather
   kernel, one launch per chunk and matrix, then the composed statistics),
   both null modes;
@@ -77,12 +78,23 @@ launch count set to 0 just before a path and read just after:
   matrix and cohort, on the row mesh once per row block, matrix and
   cohort), null seconds and held GiB beside the unsplit runs';
 - ``multi_process``: two processes on the card joined over ``gloo`` on
-  127.0.0.1 (``multi_process_phase``; 10,000 genes, the first two
-  cohorts): a 2×1 perm mesh across them runs the fused null materialized
-  and streaming; each rank's null, counts and p-values equal the
-  single-process 2×1 run's bit for bit, each rank launches the fused
-  kernel for its own shard only; each process's start-up seconds, the
-  allgather seconds and bytes;
+  127.0.0.1 (``multi_process_phase``): a 2×1 perm mesh across them runs
+  the fused null materialized and streaming (10,000 genes, the first two
+  cohorts), the sparse null of Config E at full width with data, and the
+  screened null (``null_precision='bf16_rescue'``) materialized and
+  streaming at 20,000 genes, every permutation rescued and, with
+  observed values that let the screen decide some, mixed; each rank's
+  nulls, counts, p-values and rescue counters equal the single-process
+  2×1 run's bit for bit, each rank launches the fused and the gather
+  kernel for its own shard and its own rescue dispatches exactly (the
+  sparse path none); then the fault drill in two more processes
+  (started beside the first two, idle until those are done): a partial
+  device loss in rank 1 ends both with their errors
+  (``CrossProcessRungError``, ``PeerLostError``) within the group's
+  timeout, and the first pair, launched apart from them, resumes from
+  process 0's checkpoint to the unbroken run bit for bit;
+  each path's null seconds per rank beside the single process's, each
+  process's start-up seconds, the allgather seconds and bytes;
 - ``sequential_tests``: the same two cohorts without ``vmap_tests``, one
   pair after another (a matrix a later pair needs waits on the host
   meanwhile), with each pair's phase seconds and the time of one matrix's
@@ -180,9 +192,9 @@ launch count set to 0 just before a path and read just after:
   permutation, speed of light, achieved rate, utilisation, which must lie
   in (0, 1] — fused and composed costing the same, every family's span
   sums equal to its ``null_run_end`` totals, a perf-ledger entry with a
-  ``roofline`` block for each run; then ``flightrec_ab``: the fused and
-  composed nulls (materialized, streaming) with the flight recorder on,
-  off, off, on, each null's seconds, results bit-equal
+  ``roofline`` block for each run; then ``flightrec_ab``: the fused
+  streaming and the composed materialized null with the flight recorder
+  on, off, off, on, each null's seconds, results bit-equal
   (``flightrec_ab_phase``); then ``selftest``:
   ``selftest(device="cuda")`` on both shapes against the float64 oracle;
 - ``forensics`` (after ``fleet``): a journaled server's ``dump`` op
@@ -224,8 +236,9 @@ generated from a fixed seed (data with numpy on the host, correlation and
 network on the card) and handed to the entry point as host numpy arrays, as
 a user holds them, so its input phase includes the copy to the card.
 
-Right after the build, ``lint`` runs ``python -m netrep_tpu_torch lint
---json`` on the checkout and requires exit 0 with no finding.
+``lint`` runs ``python -m netrep_tpu_torch lint --json`` on the checkout
+in the background while the kernels are held to their plain versions,
+and requires exit 0 with no finding.
 
 Every mode starts from a fresh, empty autotune store
 (``NETREP_AUTOTUNE_STORE``, :func:`fresh_autotune_store`). Prints one JSON
@@ -312,7 +325,12 @@ only ``autotune``, and
     python3 chip_smoke.py --multi-process
 
 only the unsplit ``multi_test`` runs and ``multi_test_mesh``, or only
-``multi_process``.
+``multi_process``, and
+
+    python3 chip_smoke.py --screened-mesh
+
+only the 2×1 screened streaming null of one process, a warm-up run and
+four timed ones (``screened_mesh``).
 Each mode runs
 through the ``netrep_tpu_torch`` beside the script: copied into another checkout,
 it measures that checkout's version on the same inputs.
@@ -1298,6 +1316,11 @@ def no_kernel(tops, phase) -> dict:
     return launches
 
 
+#: sparse_problem's results by arguments: the multi_process and sparse
+#: phases draw Config E's full-width inputs once between them
+_SPARSE_MADE: dict = {}
+
+
 def sparse_problem(np, n, k, samples, modules, sizes, plant=0.0, seed=0):
     """Config E's inputs as ``bench.py``'s ``bench_e`` draws them from
     ``default_rng(seed)``: ``k`` random neighbours per node, weights uniform
@@ -1305,7 +1328,16 @@ def sparse_problem(np, n, k, samples, modules, sizes, plant=0.0, seed=0):
     ``modules`` contiguous modules of log-uniform size. ``plant`` adds a
     shared factor of that scale to each module's data (0: pure noise, as
     the bench). Also a precomputed sparse correlation on the graph's edge
-    pattern: each edge's Pearson correlation of the data."""
+    pattern: each edge's Pearson correlation of the data. Drawn once per
+    arguments in a process (the callers only read them)."""
+    args = (n, k, samples, modules, tuple(sizes), plant, seed)
+    if args not in _SPARSE_MADE:
+        _SPARSE_MADE[args] = _draw_sparse_problem(np, *args)
+    return _SPARSE_MADE[args]
+
+
+def _draw_sparse_problem(np, n, k, samples, modules, sizes, plant, seed):
+    """:func:`sparse_problem`'s draw."""
     from netrep_tpu_torch.ops.sparse import SparseAdjacency
 
     rng = np.random.default_rng(seed)
@@ -2019,6 +2051,10 @@ AUTOTUNE_PERM = 4096
 AUTOTUNE_SUPERCHUNKS = (1, 2, 4, 8, 16, 32)
 AUTOTUNE_EDGES = (512, 1024, 2048)
 AUTOTUNE_SUPERTILES = (4, 8, 16)
+#: the whole script's shorter sweep (``--autotune`` runs the one above):
+#: the edges and super-tile factors without 512 and 4, which ran 49–53%
+#: and 11–20% below the best in every earlier sweep (PERF.md §5)
+WHOLE_EDGES, WHOLE_SUPERTILES = (1024, 2048), (8, 16)
 
 
 def best_median(entries: dict):
@@ -2029,13 +2065,16 @@ def best_median(entries: dict):
     return best, med[best]
 
 
-def autotune_phase(torch, np, tops, module_preservation, kw, card) -> None:
+def autotune_phase(torch, np, tops, module_preservation, kw, card,
+                   full: bool = True) -> None:
     """``autotune``: the measured autotune store
     (``netrep_tpu_torch.utils.autotune``) on a fresh temporary store.
 
     (a) The main path's fused streaming null, ``AUTOTUNE_PERM``
     permutations, with an explicit superchunk of each of
-    ``AUTOTUNE_SUPERCHUNKS``, each twice with the order alternated; then a
+    ``AUTOTUNE_SUPERCHUNKS`` (``full``: each twice with the order
+    alternated; the whole script runs one pass, and (b) over WHOLE_EDGES
+    and WHOLE_SUPERTILES, to keep its time); then a
     default run, which must resolve (its ``autotune_hit`` event) to the
     setting with the best median rate in the store's file. Counts and
     p-values of every run equal each other bit for bit, and each run
@@ -2065,7 +2104,8 @@ def autotune_phase(torch, np, tops, module_preservation, kw, card) -> None:
     t_phase = time.perf_counter()
     try:
         # ---- (a) the streaming null's superchunk --------------------------
-        order = AUTOTUNE_SUPERCHUNKS + AUTOTUNE_SUPERCHUNKS[::-1]
+        order = AUTOTUNE_SUPERCHUNKS + (AUTOTUNE_SUPERCHUNKS[::-1]
+                                        if full else ())
         runs, ref = [], None
 
         def stream(config, telemetry=None):
@@ -2158,8 +2198,9 @@ def autotune_phase(torch, np, tops, module_preservation, kw, card) -> None:
                              "selected_edges": b.selected_edges}
             return b
 
-        base = {e: build(f"edge {e}", tile_edge=e) for e in AUTOTUNE_EDGES}
-        for st in AUTOTUNE_SUPERTILES:
+        base = {e: build(f"edge {e}", tile_edge=e)
+                for e in (AUTOTUNE_EDGES if full else WHOLE_EDGES)}
+        for st in AUTOTUNE_SUPERTILES if full else WHOLE_SUPERTILES:
             b = build(f"screened supertile {st}", tile_edge=1024,
                       screen=True, supertile=st)
             if not same_build(np, b, base[1024]):
@@ -3810,7 +3851,10 @@ def screened_phase(np, pv, drive, composed, composed_adaptive, fused_run,
     adaptive at a ceiling of ADAPTIVE_PERM against ``composed_adaptive``
     (retirements, counts and p-values equal) and on the 2×1 perm mesh
     (tallies equal). Reports each run's rescued fraction and null seconds
-    beside the float32 composed null's. Then the GPD tail fit on the
+    beside the float32 composed null's; on the perm mesh each shard
+    rescues its own rows, so ``rescue.dispatches`` counts one per shard
+    and chunk with a rescue (16 there, where a rescue of the whole chunk
+    counted 8 before the per-shard rescue). Then the GPD tail fit on the
     float32 main-path null (``fused_run.tail_pvalues``): seconds, fitted
     cells. Returns the launches by run."""
     from netrep_tpu_torch.utils.config import EngineConfig
@@ -5245,8 +5289,13 @@ def serve_only() -> int:
 
 
 #: the multi_process phase: the drill fixture's genes (the first two
-#: cohorts of ``make_cohorts``), and its two ranks' time limit
+#: cohorts of ``make_cohorts``), and each pair of ranks' time limit; the
+#: fault drill's group timeout and rank 1's plan (a partial device loss
+#: in the fourth chunk of 128)
 MP_GENES, MP_TIMEOUT_S = 10_000, 300
+MP_GROUP_TIMEOUT_S, MP_FAULT_PLAN = 30.0, "device_lost_partial@400"
+#: the screened null's configuration there (the composed statistics)
+MP_SCREEN = dict(stat_mode="xla", null_precision="bf16_rescue")
 
 
 def multi_test_mesh_phase(np, pv, drive, cfg, composed_cfg, multi, ref_mem,
@@ -5441,15 +5490,124 @@ def mp_inputs(np, host, labels) -> dict:
 
 
 MP_FILES = ("dd", "dc", "dn", "td", "tc", "tn")
+#: the sparse run's inputs, handed to the ranks as .npy files
+MP_SPARSE_FILES = ("sp_nbr", "sp_wgt", "sp_data", "sp_labels")
 
 
-def mp_worker(rank: int, port: int, top: str) -> int:
+def mp_sparse_call(np, sparse_module_preservation, got: dict, mesh):
+    """The multi_process phase's sparse run: Config E at full width with
+    data (``SPARSE_NODES`` nodes, ``SPARSE_PERM`` permutations, chunk 128,
+    ``SPARSE_ITERS`` power iterations) on ``mesh``, from the arrays
+    ``got`` (``MP_SPARSE_FILES``)."""
+    from netrep_tpu_torch.ops.sparse import SparseAdjacency
+    from netrep_tpu_torch.utils.config import EngineConfig
+
+    adj = SparseAdjacency.from_arrays(got["sp_nbr"], got["sp_wgt"],
+                                      SPARSE_NODES)
+    return sparse_module_preservation(
+        adj, adj, got["sp_labels"], discovery_data=got["sp_data"],
+        test_data=got["sp_data"], n_perm=SPARSE_PERM, seed=SEED,
+        config=EngineConfig(chunk_size=128, power_iters=SPARSE_ITERS),
+        mesh=mesh)
+
+
+def mp_screened_kw(torch, np, dev) -> dict:
+    """The screened runs' data arguments: the discovery and the test
+    cohort at the north star's GENES, host float32, from SEED (each rank
+    builds them itself)."""
+    _sizes, labels, (xd, xt, _x2) = make_cohorts(np)
+    kw = host_kw(torch, np, dev, (xd, xt), labels)
+    kw["test"] = "test"
+    return kw
+
+
+class RescueSpy:
+    """Counts the screened null's rescue dispatches in this process: each
+    calls ``screened.take_keys`` once (the materialized rescue through the
+    collective chunk, the streaming one per shard this process drives).
+    ``n`` since the last :meth:`reset`; :meth:`close` unwraps."""
+
+    def __init__(self):
+        from netrep_tpu_torch.parallel import screened
+
+        self.mod, self.orig, self.n = screened, screened.take_keys, 0
+        screened.take_keys = self._take
+
+    def _take(self, *args, **kwargs):
+        self.n += 1
+        return self.orig(*args, **kwargs)
+
+    def reset(self) -> None:
+        self.n = 0
+
+    def close(self) -> None:
+        self.mod.take_keys = self.orig
+
+
+def mp_mixed_engine(np, kw20, dev, mesh):
+    """The engine of the mixed screened runs: ``kw20``'s discovery and
+    test cohorts under ``MP_SCREEN`` on ``mesh``."""
+    from netrep_tpu_torch.utils.config import EngineConfig
+
+    def side(name):
+        return tuple(kw20[f][name] for f in ("data", "correlation",
+                                             "network"))
+
+    return make_engine(np, np.asarray(kw20["module_assignments"]),
+                       side("disc"), side("test"), EngineConfig(**MP_SCREEN),
+                       dev, mesh)
+
+
+def mp_mixed_observed(np, engine, ref):
+    """Observed values of the mixed screened runs: NaN (a cell that never
+    tallies and is never rescued) but for the first module's first
+    statistic, set one cushion above the median of that cell's float32
+    null (from ``ref``, the all-rescued screened null, whose rows are the
+    float32 run's): about half the permutations land inside its band and
+    are rescued, the rest are decided."""
+    from netrep_tpu_torch.parallel import screened as scr
+
+    mine = [str(m.label) for m in engine.modules]
+    first = min(mine, key=int)
+    col = ref.nulls[:, list(map(str, ref.module_labels)).index(first), 0]
+    mid = float(np.nanmedian(col))
+    obs = np.full((engine.n_modules, 7), np.nan)
+    obs[mine.index(first), 0] = mid + float(scr.null_cushions(
+        np.array([[mid]]), engine._screen_amplitude())[0, 0])
+    return obs
+
+
+def mp_wait(paths, what: str) -> None:
+    """Wait until every file of ``paths`` exists (another process's
+    signal), at most MP_TIMEOUT_S."""
+    deadline = time.time() + MP_TIMEOUT_S
+    while not all(os.path.exists(p) for p in paths):
+        if time.time() > deadline:
+            raise RuntimeError(f"multi_process: no {what} within "
+                               f"{MP_TIMEOUT_S} s")
+        time.sleep(0.05)
+
+
+def mp_worker(rank: int, port: int, top: str, job: str = "main") -> int:
     """One rank of the multi_process phase, in a fresh interpreter: joins
-    the two-process ``gloo`` group on 127.0.0.1:``port``, runs the fused
-    null materialized and streaming on a 2×1 perm mesh across the two
-    processes (its own perm row on ``cuda:0``) from the inputs in
-    ``top``, and writes its results to ``top/rank<rank>.npz`` and its
-    timings to ``top/rank<rank>.json``."""
+    the two-process ``gloo`` group on 127.0.0.1:``port`` and runs on a 2×1
+    perm mesh across the two processes (its own perm row on ``cuda:0``).
+
+    Job ``main``: once ``top/go`` exists, the fused null materialized and
+    streaming from the 10,000-gene inputs in ``top``, the sparse run from
+    its files there,
+    then the screened null materialized and streaming on the 20,000-gene
+    cohorts it builds from SEED, and the mixed screened runs
+    (``mp_mixed_engine``, the observed values ``top/mixed_obs.npy``), the
+    rescue dispatches of each screened run counted (``RescueSpy``);
+    then, once ``top/fault_done`` exists, the
+    drill's ``resume``: the fused materialized null under a fault policy
+    resuming from the checkpoint in ``top/ckpt<rank>``. Job ``fault``
+    (its group's timeout MP_GROUP_TIMEOUT_S; rank 1 is given
+    MP_FAULT_PLAN): once both ranks of ``main`` saved their results, the
+    same drill call, whose error is recorded, not raised. Writes each
+    job's results to ``top/<job>_rank<rank>.npz`` and its timings to
+    ``.json``."""
     t0 = time.time()
     import numpy as np
     import torch
@@ -5457,78 +5615,264 @@ def mp_worker(rank: int, port: int, top: str) -> int:
     t_torch = time.time()
     from netrep_tpu_torch import ops as tops
     from netrep_tpu_torch.models.preservation import module_preservation
+    from netrep_tpu_torch.models.sparse_api import sparse_module_preservation
+    from netrep_tpu_torch.ops import pvalues as pv
     from netrep_tpu_torch.parallel import distributed
     from netrep_tpu_torch.parallel.mesh import make_mesh
-    from netrep_tpu_torch.utils.config import EngineConfig, resolve_device
+    from netrep_tpu_torch.utils.config import (
+        EngineConfig, FaultPolicy, resolve_device,
+    )
     from netrep_tpu_torch.utils.telemetry import Telemetry
 
     t_imports = time.time()
-    info = distributed.initialize(f"127.0.0.1:{port}", 2, rank)
+    info = distributed.initialize(
+        f"127.0.0.1:{port}", 2, rank, timeout_s=(
+            MP_GROUP_TIMEOUT_S if job == "fault"
+            else distributed.DEFAULT_TIMEOUT_S))
     t_joined = time.time()
+    if job == "fault":  # the card stays the main job's until it is done
+        mp_wait([os.path.join(top, f"main_rank{r}.json") for r in (0, 1)],
+                "main results")
     host = [np.load(os.path.join(top, f"{k}.npy")) for k in MP_FILES]
     labels = np.load(os.path.join(top, "labels.npy"), allow_pickle=True)
     kw = mp_inputs(np, (host[:3], host[3:]), labels)
-    mesh = make_mesh(2, 1, devices=[resolve_device(None)])  # the card
+    del host
+    if job == "main":  # the card stays the parent's until its references
+        mp_wait([os.path.join(top, "go")], "the parent's references")
+    t_go = time.time()
+    dev = resolve_device(None)  # the card
+    mesh = make_mesh(2, 1, devices=[dev])
     bus = Telemetry(watchdog_poll_s=0)
     events = []
     bus.subscribe(lambda r: events.append(r) if r["ev"] in (
-        "allgather", "compile_span") else None)
+        "allgather", "compile_span", "null_run_start") else None)
     out, timing = {}, {"rank": rank, "info": info, "t_start": t0,
                        "import_torch_s": t_torch - t0,
                        "imports_s": t_imports - t_torch,
                        "join_s": t_joined - t_imports,
-                       "t_joined": t_joined, "ranks": mesh.ranks.tolist()}
-    with bus.activate():
-        for store in (True, False):
-            tops.reset_launches()
-            events.clear()
-            t1 = time.perf_counter()
-            res = module_preservation(**kw, store_nulls=store,
-                                      config=EngineConfig(), mesh=mesh)
+                       "t_joined": t_joined, "waited_s": t_go - t_joined,
+                       "ranks": mesh.ranks.tolist()}
+
+    spy = RescueSpy()
+
+    def measured(name, call):
+        tops.reset_launches()
+        events.clear()
+        spy.reset()
+        t1 = time.perf_counter()
+        try:
+            return call()
+        finally:
             torch.cuda.synchronize()
-            mode = "materialized" if store else "streaming"
             gathers = [r["data"] for r in events if r["ev"] == "allgather"]
-            timing[mode] = {
+            timing[name] = {
                 "wall_s": time.perf_counter() - t1,
-                "null_s": res.profile["null_s"],
+                "rescue_dispatches_own": spy.n,
                 "launches": {fn.__name__: fn.launches
                              for fn in tops.kernels()},
                 "allgathers": len(gathers),
                 "allgather_s": sum(g["s"] for g in gathers),
                 "allgather_bytes": sum(g["bytes"] for g in gathers),
+                "start_perm": [r["data"]["start_perm"] for r in events
+                               if r["ev"] == "null_run_start"],
                 "source": [r["data"].get("source") for r in events
                            if r["ev"] == "compile_span"]}
-            out[f"{mode}_p"] = res.p_values
-            if store:
-                out["nulls"] = res.nulls
-            else:
-                out["counts"] = np.stack([res.counts_hi, res.counts_lo,
-                                          res.counts_eff])
-    np.savez(os.path.join(top, f"rank{rank}.npz"), **out)
-    with open(os.path.join(top, f"rank{rank}.json"), "w") as f:
-        json.dump(timing, f)
+
+    def save(name):
+        np.savez(os.path.join(top, f"{name}_rank{rank}.npz"), **out)
+        with open(os.path.join(top, f"{name}_rank{rank}.json"), "w") as f:
+            json.dump(timing, f)
+        out.clear()
+
+    def drill(name):
+        t1 = time.time()
+        try:
+            res = measured(name, lambda: module_preservation(
+                **kw, store_nulls=True, config=EngineConfig(), mesh=mesh,
+                checkpoint_dir=os.path.join(top, f"ckpt{rank}"),
+                checkpoint_every=128,
+                fault_policy=FaultPolicy(backoff_base_s=0.0)))
+            timing[name]["null_s"] = res.profile["null_s"]
+            out["nulls"], out["p"] = res.nulls, res.p_values
+        # netrep: allow(exception-taxonomy) — the drill records each rank's error for the parent to check
+        except Exception as e:
+            timing[name].update(
+                error=type(e).__name__, message=str(e)[:600],
+                rung=getattr(e, "rung", None), error_s=time.time() - t1,
+                t_error=time.time())
+        save(name)
+
+    with bus.activate():
+        if job == "fault":
+            drill("fault")
+        else:
+            for store in (True, False):
+                mode = "materialized" if store else "streaming"
+                res = measured(mode, lambda: module_preservation(
+                    **kw, store_nulls=store, config=EngineConfig(),
+                    mesh=mesh))
+                timing[mode]["null_s"] = res.profile["null_s"]
+                out[f"{mode}_p"] = res.p_values
+                if store:
+                    out["nulls"] = res.nulls
+                else:
+                    out["counts"] = np.stack([res.counts_hi, res.counts_lo,
+                                              res.counts_eff])
+            sp = {k: np.load(os.path.join(top, f"{k}.npy"),
+                             allow_pickle=True) for k in MP_SPARSE_FILES}
+            res = measured("sparse", lambda: mp_sparse_call(
+                np, sparse_module_preservation, sp, mesh))
+            timing["sparse"]["null_s"] = res.profile["null_s"]
+            out["sparse_nulls"], out["sparse_p"] = res.nulls, res.p_values
+            del sp, res
+            t1 = time.perf_counter()
+            kw20 = mp_screened_kw(torch, np, dev)
+            timing["screened_inputs_s"] = time.perf_counter() - t1
+            for store in (True, False):
+                mode = f"screened_{'materialized' if store else 'streaming'}"
+                res = measured(mode, lambda: module_preservation(
+                    **kw20, store_nulls=store,
+                    config=EngineConfig(**MP_SCREEN), mesh=mesh))
+                timing[mode]["null_s"] = res.profile["null_s"]
+                timing[mode]["rescue"] = res.profile["rescue"]
+                out[f"{mode}_p"] = res.p_values
+                out[f"{mode}_counts"] = np.stack(tallies_of(pv, res))
+                if store:
+                    out["screened_nulls"] = res.nulls
+            eng = mp_mixed_engine(np, kw20, dev, mesh)
+            obs = np.load(os.path.join(top, "mixed_obs.npy"))
+            out["mixed_nulls"] = measured(
+                "mixed_materialized",
+                lambda: eng.run_null(N_PERM, key=SEED, observed=obs))[0]
+            timing["mixed_materialized"]["rescue"] = dict(
+                vars(eng.last_rescue))
+            sc = measured("mixed_streaming", lambda: eng.run_null_streaming(
+                N_PERM, obs, key=SEED))
+            out["mixed_counts"] = np.stack([sc.hi, sc.lo, sc.eff])
+            timing["mixed_streaming"]["rescue"] = dict(vars(eng.last_rescue))
+            eng.release()
+            del kw20, res, eng
+            save("main")
+            mp_wait([os.path.join(top, "fault_done")], "fault drill")
+            drill("resume")
     distributed.shutdown()
     return 0
 
 
-def multi_process_phase(torch, np, module_preservation, card, dev) -> dict:
-    """Two processes on the card, joined over ``gloo`` on 127.0.0.1: the
-    fused null, materialized and streaming, on a 2×1 perm mesh across them
-    (``mp_worker``) against the same call on a 2×1 mesh in this process.
-    Fails unless each rank's null, counts and p-values equal the
-    single-process run's bit for bit and each rank launched the fused
-    kernel for its own shard only (one launch per chunk and bucket).
-    Prints each process's start-up seconds (spawn to joined, split into
-    ``import torch``, the port's imports and the join), the allgather
-    seconds and bytes and the null seconds. Returns the launches by
-    path."""
-    import shutil
+def mp_spawn(top: str, job: str, rank1_env=None) -> tuple[list, float]:
+    """``mp_worker`` of ``job`` started as ranks 0 and 1 on a free port
+    (``rank1_env``: more environment for rank 1): the processes and the
+    spawn time."""
     import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t_spawn = time.time()
+    return [subprocess.Popen(
+        [sys.executable, "-c",
+         f"import sys; sys.path.insert(0, {here()!r}); import chip_smoke; "
+         f"sys.exit(chip_smoke.mp_worker({rank}, {port}, {top!r}, "
+         f"{job!r}))"],
+        cwd=here(), env=cli_env(**(rank1_env or {}) if rank else {}),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for rank in (0, 1)], t_spawn
+
+
+def mp_collect(np, top: str, procs, t_spawn: float, jobs) -> tuple:
+    """Wait for a pair from :func:`mp_spawn` (MP_TIMEOUT_S from its
+    spawn), kill what is left, fail unless both exited 0. Returns
+    ``({job: [(npz dict, timings) of rank 0, of rank 1]}, wall seconds)``,
+    each timing with ``startup_s`` (spawn to joined)."""
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=max(
+                1.0, MP_TIMEOUT_S - (time.time() - t_spawn))))
+    finally:
+        mp_kill(procs)
+    wall = time.time() - t_spawn
+    for rank, (p, (_o, err)) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise RuntimeError(f"multi_process {jobs[0]} rank {rank} exited "
+                               f"{p.returncode}: {err[-2000:]}")
+    got = {}
+    for job in jobs:
+        got[job] = []
+        for rank in (0, 1):
+            arrays = dict(np.load(os.path.join(top, f"{job}_rank{rank}.npz")))
+            with open(os.path.join(top, f"{job}_rank{rank}.json")) as f:
+                timing = json.load(f)
+            timing["startup_s"] = timing["t_joined"] - t_spawn
+            got[job].append((arrays, timing))
+    return got, wall
+
+
+def mp_kill(procs) -> None:
+    """Kill and reap the processes of ``procs`` still running."""
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def mp_equal(np, what: str, pairs) -> None:
+    """Fails unless every ``(got, want)`` array pair is equal bit for
+    bit."""
+    for name, got, want in pairs:
+        if not np.array_equal(got, want, equal_nan=True):
+            raise RuntimeError(f"multi_process {what}: {name} differs from "
+                               "the single-process 2x1 run's")
+
+
+def multi_process_phase(torch, np, module_preservation, card, dev,
+                        kw20=None) -> dict:
+    """Two processes on the card, joined over ``gloo`` on 127.0.0.1, a 2×1
+    perm mesh across them (``mp_worker``), against the same calls on a
+    2×1 mesh in this process, bit for bit on every rank:
+
+    - the fused null at MP_GENES, materialized and streaming (null,
+      counts, p-values; the fused kernel once per chunk and bucket of the
+      rank's own shard, one allgather a chunk);
+    - the sparse null of Config E at full width with data (null,
+      p-values; no kernel; one allgather a chunk);
+    - the screened null at GENES (``kw20``, built here when None),
+      materialized and streaming (null, counts, p-values, the rescue's
+      ``total`` and ``rescued``), every permutation rescued; and the
+      mixed screened runs (``mp_mixed_observed``: some permutations
+      decided, the others rescued), materialized and streaming (null,
+      counts, the rescue's ``total``, ``rescued`` and ``dispatches``);
+      in each, the gather kernel once per chunk and matrix of the rank's
+      own shard plus once per matrix and rescue dispatch the rank made
+      (``RescueSpy``): materialized the collective rescue's dispatches,
+      as many as this process's, streaming its own shard's, the ranks'
+      together this process's;
+    - the fault drill (``mp_fault_check``) in two more processes, started
+      with the first two so their start-up overlaps the first pair's
+      work, which they wait out before they touch the card: the fused
+      materialized null at MP_GENES under a policy with a checkpoint,
+      rank 1 given MP_FAULT_PLAN; then the first pair, launched apart
+      from the faulted one, resumes from process 0's checkpoint to the
+      unbroken 2×1 null and p-values, launching the fused kernel for the
+      remaining chunks only.
+
+    Both pairs start before this process computes its references, so
+    their start-up overlaps that work; the first pair touches the card
+    once the references are done (``top/go``). Prints each path's null
+    seconds per rank beside this process's, the allgather seconds and
+    bytes, each process's start-up seconds and the phase's. Returns the
+    launches by path."""
+    import shutil
     import tempfile
 
+    from netrep_tpu_torch import ops as tops
+    from netrep_tpu_torch.models.sparse_api import sparse_module_preservation
+    from netrep_tpu_torch.ops import pvalues as pv
     from netrep_tpu_torch.parallel.mesh import make_mesh
+    from netrep_tpu_torch.utils import checkpoint as ckpt
     from netrep_tpu_torch.utils.config import EngineConfig
 
+    t_phase = time.perf_counter()
     cfg = EngineConfig()
     sizes, labels, (xd, xt, _x2) = make_cohorts(np, genes=MP_GENES)
     host = [[m.to(torch.float32).cpu().numpy() for m in mats(torch, x, dev)]
@@ -5536,88 +5880,260 @@ def multi_process_phase(torch, np, module_preservation, card, dev) -> dict:
     torch.cuda.empty_cache()
     kw = mp_inputs(np, host, labels)
     perm2 = make_mesh(2, 1, devices=[dev] * 2)
-    ref = {store: module_preservation(**kw, store_nulls=store, config=cfg,
-                                      mesh=perm2)
-           for store in (True, False)}
-    caps = [cfg.rounded_cap(int(s)) for s in ref[True].n_vars_present]
-    B, chunks = len(set(caps)), -(-N_PERM // cfg.chunk_size)
+
+    def launched(call):
+        tops.reset_launches()
+        res = call()
+        torch.cuda.synchronize()
+        return res, {fn.__name__: fn.launches for fn in tops.kernels()}
+
+    adj, sp_data, _corr, sp_labels, _msz = sparse_problem(
+        np, SPARSE_NODES, SPARSE_K, SAMPLES, SPARSE_MODULES, SPARSE_SIZES)
+    sp = dict(sp_nbr=adj.nbr, sp_wgt=adj.wgt, sp_data=sp_data,
+              sp_labels=sp_labels.astype(str))
+    many = "gather_submatrix_fused_many"
     root = os.path.join(here(), "build")
     os.makedirs(root, exist_ok=True)
     top = tempfile.mkdtemp(prefix="multi_process_", dir=root)
+    pairs = []
     try:
         for k, a in zip(MP_FILES, host[0] + host[1]):
             np.save(os.path.join(top, f"{k}.npy"), a)
         np.save(os.path.join(top, "labels.npy"), labels)
+        for k, a in sp.items():
+            np.save(os.path.join(top, f"{k}.npy"), a)
         del host
-        with socket.socket() as s:
-            s.bind(("127.0.0.1", 0))
-            port = s.getsockname()[1]
-        t_spawn = time.time()
-        procs = [subprocess.Popen(
-            [sys.executable, "-c",
-             f"import sys; sys.path.insert(0, {here()!r}); import chip_smoke; "
-             f"sys.exit(chip_smoke.mp_worker({rank}, {port}, {top!r}))"],
-            cwd=here(), env=cli_env(), stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True) for rank in (0, 1)]
-        logs = []
-        try:
-            for p in procs:
-                logs.append(p.communicate(timeout=max(
-                    1.0, MP_TIMEOUT_S - (time.time() - t_spawn))))
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        wall = time.time() - t_spawn
-        for rank, (p, (_o, err)) in enumerate(zip(procs, logs)):
-            if p.returncode != 0:
-                raise RuntimeError(f"multi_process rank {rank} exited "
-                                   f"{p.returncode}: {err[-2000:]}")
-        ranks = []
-        for rank in (0, 1):
-            got = dict(np.load(os.path.join(top, f"rank{rank}.npz")))
-            with open(os.path.join(top, f"rank{rank}.json")) as f:
-                timing = json.load(f)
-            ok = (np.array_equal(got["nulls"], ref[True].nulls)
-                  and np.array_equal(got["materialized_p"],
-                                     ref[True].p_values)
-                  and np.array_equal(got["streaming_p"],
-                                     ref[False].p_values)
-                  and np.array_equal(got["counts"], np.stack([
-                      ref[False].counts_hi, ref[False].counts_lo,
-                      ref[False].counts_eff])))
-            if not ok:
-                raise RuntimeError(f"multi_process rank {rank}: results "
-                                   "differ from the single-process run's")
-            for mode, kernel in (("materialized", "fused_stats_values"),
-                                 ("streaming", "fused_stats_counts")):
-                n = timing[mode]["launches"][kernel]
-                if n != chunks * B:
-                    raise RuntimeError(
-                        f"multi_process rank {rank} {mode}: {n} launches of "
-                        f"{kernel}, expected {chunks} chunks x {B} buckets "
-                        "(its own shard)")
-            if timing["materialized"]["allgathers"] != chunks:
-                raise RuntimeError(f"multi_process rank {rank}: "
-                                   f"{timing['materialized']['allgathers']}"
-                                   f" allgathers, expected {chunks}")
-            timing["startup_s"] = timing["t_joined"] - t_spawn
-            ranks.append(timing)
+        # the ranks start (imports, the group, the files) while this
+        # process computes the references; they touch the card only once
+        # ``top/go`` exists
+        pairs = [mp_spawn(top, "main"),
+                 mp_spawn(top, "fault",
+                          rank1_env={"NETREP_FAULT_PLAN": MP_FAULT_PLAN})]
+        ref = {store: module_preservation(**kw, store_nulls=store,
+                                          config=cfg, mesh=perm2)
+               for store in (True, False)}
+        caps = [cfg.rounded_cap(int(s)) for s in ref[True].n_vars_present]
+        B, chunks = len(set(caps)), -(-N_PERM // cfg.chunk_size)
+        ref_sp, sp_used = launched(lambda: mp_sparse_call(
+            np, sparse_module_preservation, sp, perm2))
+        if any(sp_used.values()):
+            raise RuntimeError(f"multi_process sparse launched {sp_used}")
+        del sp
+        if kw20 is None:
+            kw20 = mp_screened_kw(torch, np, dev)
+        ref_scr, scr_used = {}, {}
+        for store in (True, False):
+            ref_scr[store], scr_used[store] = launched(
+                lambda: module_preservation(**kw20, store_nulls=store,
+                                            config=EngineConfig(**MP_SCREEN),
+                                            mesh=perm2))
+        eng = mp_mixed_engine(np, kw20, dev, perm2)
+        mixed_obs = mp_mixed_observed(np, eng, ref_scr[True])
+        ref_mix, mix_used, mix_rescue, mix_s = {}, {}, {}, {}
+        for store in (True, False):
+            t1 = time.perf_counter()
+            ref_mix[store], mix_used[store] = launched(
+                lambda: eng.run_null(N_PERM, key=SEED, observed=mixed_obs)[0]
+                if store else eng.run_null_streaming(N_PERM, mixed_obs,
+                                                     key=SEED))
+            mix_s[store] = time.perf_counter() - t1
+            mix_rescue[store] = dict(vars(eng.last_rescue))
+            r = mix_rescue[store]
+            # the materialized total counts every row of a padded last chunk
+            if not 0 < r["rescued"] < r["total"] or r["total"] < N_PERM:
+                raise RuntimeError(f"multi_process mixed screened: rescued "
+                                   f"{r}, not some of the permutations")
+        eng.release()
+        del eng
+        n_mats = 1 + (kw20.get("network") is not None)
+        np.save(os.path.join(top, "mixed_obs.npy"), mixed_obs)
+        open(os.path.join(top, "go"), "w").close()
+        faulted, wall_f = mp_collect(np, top, *pairs[1], ["fault"])
+        drill = mp_fault_check(np, ckpt, top, faulted["fault"], wall_f)
+        open(os.path.join(top, "fault_done"), "w").close()
+        got, wall = mp_collect(np, top, *pairs[0], ["main", "resume"])
     finally:
+        for procs, _t in pairs:
+            mp_kill(procs)
         shutil.rmtree(top, ignore_errors=True)
+    report = []
+    sp_chunks = -(-SPARSE_PERM // 128)
+    at = drill["checkpoint_completed"]
+    for rank, ((g, timing), (g_r, t_r)) in enumerate(zip(got["main"],
+                                                        got["resume"])):
+        mp_equal(np, f"rank {rank}", (
+            ("null", g["nulls"], ref[True].nulls),
+            ("materialized p-values", g["materialized_p"],
+             ref[True].p_values),
+            ("streaming p-values", g["streaming_p"], ref[False].p_values),
+            ("counts", g["counts"], np.stack(tallies_of(pv, ref[False]))),
+            ("sparse null", g["sparse_nulls"], ref_sp.nulls),
+            ("sparse p-values", g["sparse_p"], ref_sp.p_values),
+            ("resumed null", g_r["nulls"], ref[True].nulls),
+            ("resumed p-values", g_r["p"], ref[True].p_values)))
+        for store in (True, False):
+            mode = f"screened_{'materialized' if store else 'streaming'}"
+            want = ref_scr[store]
+            mp_equal(np, f"rank {rank} {mode}", (
+                ("p-values", g[f"{mode}_p"], want.p_values),
+                ("counts", g[f"{mode}_counts"],
+                 np.stack(tallies_of(pv, want))),
+                *((("null", g["screened_nulls"], want.nulls),)
+                  if store else ()),
+                ("rescue total, rescued",
+                 [timing[mode]["rescue"][k] for k in ("total", "rescued")],
+                 [want.profile["rescue"][k] for k in ("total",
+                                                      "rescued")])))
+        mp_equal(np, f"rank {rank} mixed screened", (
+            ("null", g["mixed_nulls"], ref_mix[True]),
+            ("counts", g["mixed_counts"], np.stack(
+                [ref_mix[False].hi, ref_mix[False].lo, ref_mix[False].eff])),
+            *((f"{mode} rescue", list(timing[f"mixed_{mode}"]["rescue"]
+                                      .values()),
+               list(mix_rescue[store].values()))
+              for mode, store in (("materialized", True),
+                                  ("streaming", False)))))
+        for mode, kernel, n_chunks in (
+                ("materialized", "fused_stats_values", chunks),
+                ("streaming", "fused_stats_counts", chunks),
+                ("resume", "fused_stats_values", chunks - at // 128)):
+            n = (t_r if mode == "resume" else timing)[mode]["launches"][kernel]
+            if n != n_chunks * B:
+                raise RuntimeError(
+                    f"multi_process rank {rank} {mode}: {n} launches of "
+                    f"{kernel}, expected {n_chunks} chunks x {B} buckets "
+                    "(its own shard)")
+        if t_r["resume"]["start_perm"] != [at]:
+            raise RuntimeError(f"multi_process rank {rank}: resumed at "
+                               f"{t_r['resume']['start_perm']}, not {at}")
+        for mode, n_chunks in (("materialized", chunks),
+                               ("sparse", sp_chunks)):
+            if timing[mode]["allgathers"] != n_chunks:
+                raise RuntimeError(
+                    f"multi_process rank {rank} {mode}: "
+                    f"{timing[mode]['allgathers']} allgathers, "
+                    f"expected {n_chunks}")
+        if any(timing["sparse"]["launches"].values()):
+            raise RuntimeError(f"multi_process rank {rank} sparse "
+                               f"launched {timing['sparse']['launches']}")
+        for mode, disp in (
+                ("screened_materialized",
+                 ref_scr[True].profile["rescue"]["dispatches"]),
+                ("screened_streaming", None),
+                ("mixed_materialized", mix_rescue[True]["dispatches"]),
+                ("mixed_streaming", None)):
+            n, own = (timing[mode]["launches"][many],
+                      timing[mode]["rescue_dispatches_own"])
+            if n != (chunks + own) * n_mats or disp not in (None, own):
+                raise RuntimeError(
+                    f"multi_process rank {rank} {mode}: {n} gather "
+                    f"launches, expected ({chunks} chunks + {own} rescue "
+                    f"dispatches of its own) x {n_mats} matrices; this "
+                    f"process's collective rescue made {disp}")
+        timing["resume"] = t_r["resume"]
+        report.append(timing)
+    for mode, used, disp in (
+            ("screened_streaming", scr_used[False][many],
+             ref_scr[False].profile["rescue"]["dispatches"]),
+            ("mixed_streaming", mix_used[False][many],
+             mix_rescue[False]["dispatches"])):
+        both = sum(t[mode]["launches"][many] for t in report)
+        own = [t[mode]["rescue_dispatches_own"] for t in report]
+        if both != used or sum(own) != disp:
+            raise RuntimeError(
+                f"multi_process {mode}: the ranks launched the gather "
+                f"{both} times and rescued {own}, this process {used} "
+                f"and {disp} (one per shard and chunk with a rescue)")
+    drill.update(resume_null_s=[t["resume"]["null_s"] for t in report],
+                 resumed_equal_unbroken=True)
+
+    def per_rank(key):
+        return [{k: t[key][k] for k in (
+            *(("null_s",) if "null_s" in t[key] else ()), "wall_s",
+            "launches", "allgathers", "allgather_s", "allgather_bytes",
+            *(("rescue", "rescue_dispatches_own") if "rescue" in t[key]
+              else ()))}
+            for t in report]
+
+    single = {"materialized": ref[True], "streaming": ref[False],
+              "sparse": ref_sp, "screened_materialized": ref_scr[True],
+              "screened_streaming": ref_scr[False]}
     emit({"phase": "multi_process", "processes": 2, "backend": "gloo",
-          "genes": MP_GENES, "mesh": perm2.shape, "buckets": B,
+          "genes": MP_GENES, "screened_genes": GENES,
+          "sparse_nodes": SPARSE_NODES, "mesh": perm2.shape, "buckets": B,
           "chunks": chunks, "equal_single_process": True,
-          "single_process_null_s": {
-              "materialized": ref[True].profile["null_s"],
-              "streaming": ref[False].profile["null_s"]},
+          "single_process_null_s": {k: r.profile["null_s"]
+                                    for k, r in single.items()},
+          "single_process_launches": {
+              "sparse": sp_used, "screened_materialized": scr_used[True],
+              "screened_streaming": scr_used[False]},
+          "single_process_rescue": {
+              k: ref_scr[s].profile["rescue"] for k, s in (
+                  ("materialized", True), ("streaming", False))},
+          "mixed_observed": "NaN but one cell, one cushion above its "
+                            "float32 null's median",
+          "single_process_mixed": {
+              k: {"wall_s": mix_s[s], "rescue": mix_rescue[s],
+                  "launches": mix_used[s]}
+              for k, s in (("materialized", True), ("streaming", False))},
           "ranks": [{k: t[k] for k in (
               "rank", "startup_s", "import_torch_s", "imports_s", "join_s",
-              "materialized", "streaming", "ranks")} for t in ranks],
-          "wall_s": wall, "card": card})
-    return {("multi_process", f"rank{t['rank']}", mode): t[mode]["launches"]
-            for t in ranks for mode in ("materialized", "streaming")}
+              "materialized", "streaming", "screened_inputs_s", "ranks")}
+              for t in report],
+          "per_rank": {k: per_rank(k) for k in (
+              "sparse", "screened_materialized", "screened_streaming",
+              "mixed_materialized", "mixed_streaming", "resume")},
+          "fault_drill": drill, "wall_s": wall,
+          "phase_s": time.perf_counter() - t_phase, "card": card})
+    used = {("multi_process", f"rank{t['rank']}", mode): t[mode]["launches"]
+            for t in report for mode in (
+                "materialized", "streaming", "sparse",
+                "screened_materialized", "screened_streaming",
+                "mixed_materialized", "mixed_streaming", "resume")}
+    used.update({("multi_process", f"rank{r}", "fault"): launches
+                 for r, launches in enumerate(drill.pop("launches"))})
+    return used
+
+
+def mp_fault_check(np, ckpt, top: str, ranks, wall: float) -> dict:
+    """The fault pair's outcome (see ``multi_process_phase``): rank 1
+    must raise ``CrossProcessRungError`` (the shrink rung), rank 0
+    ``PeerLostError``, each within the group's timeout of the other and
+    of its call's start, and process 0's checkpoint, alone, must hold the
+    chunks before the fault. Returns the report, with each rank's
+    launches under ``launches``."""
+    (_g0, t0), (_g1, t1) = ranks
+    f0, f1 = t0["fault"], t1["fault"]
+    if f1.get("error") != "CrossProcessRungError" or f1.get("rung") != \
+            "shrink" or f0.get("error") != "PeerLostError":
+        raise RuntimeError(f"multi_process fault drill: rank 0 {f0}, "
+                           f"rank 1 {f1}")
+    gap = abs(f0["t_error"] - f1["t_error"])
+    if gap > MP_GROUP_TIMEOUT_S or max(f0["error_s"], f1["error_s"]) > \
+            MP_GROUP_TIMEOUT_S:
+        raise RuntimeError(f"multi_process fault drill: errors {gap} s "
+                           "apart, or a rank waited past the group's "
+                           "timeout")
+    at = int(MP_FAULT_PLAN.rsplit("@", 1)[1]) // 128 * 128
+    name, other = (os.listdir(d) if os.path.isdir(d) else [] for d in (
+        os.path.join(top, "ckpt0"), os.path.join(top, "ckpt1")))
+    if len(name) != 1 or other:
+        raise RuntimeError(f"multi_process fault drill: checkpoint files "
+                           f"{name}, {other}")
+    saved = int(ckpt.load_null_checkpoint(os.path.join(
+        top, "ckpt0", name[0]))["completed"])
+    if saved != at:
+        raise RuntimeError(f"multi_process fault drill: process 0's "
+                           f"checkpoint holds {saved}, expected {at}")
+    return {"plan_rank1": MP_FAULT_PLAN,
+            "group_timeout_s": MP_GROUP_TIMEOUT_S,
+            "errors": [{k: f.get(k) for k in ("error", "rung", "error_s",
+                                              "message")} for f in (f0, f1)],
+            "errors_apart_s": gap, "checkpoint_completed": saved,
+            "fault_startup_s": [t0["startup_s"], t1["startup_s"]],
+            "fault_waited_s": [t0["waited_s"], t1["waited_s"]],
+            "fault_wall_s": wall,
+            "launches": [t0["fault"]["launches"], t1["fault"]["launches"]]}
 
 
 def multi_test_mesh_only() -> int:
@@ -5923,6 +6439,44 @@ def screened_only() -> int:
     return 0
 
 
+#: the 2×1 screened streaming null's timed runs (after one warm-up run)
+SCREENED_MESH_RUNS = 4
+
+
+def screened_mesh_only() -> int:
+    """``--screened-mesh``: the screened streaming null of
+    ``screened_phase`` on the 2×1 perm mesh of one process (the composed
+    statistics, every permutation rescued), a warm-up run and
+    SCREENED_MESH_RUNS timed ones: each run's null seconds and rescue
+    counters, their mean and median. The same script run from two
+    checkouts, alternately in one call, compares their per-shard rescue
+    on one card."""
+    setup = mode_setup()
+    if setup is None:
+        return 1
+    torch, np, dev, card = setup
+    from netrep_tpu_torch.models.preservation import module_preservation
+    from netrep_tpu_torch.parallel.mesh import make_mesh
+    from netrep_tpu_torch.utils.config import EngineConfig
+
+    _sizes, labels, cohorts = make_cohorts(np)
+    kw = dict(host_kw(torch, np, dev, cohorts[:2], labels), test="test")
+    mesh = make_mesh(2, 1, devices=[dev] * 2)
+    runs = []
+    for _ in range(SCREENED_MESH_RUNS + 1):
+        res = module_preservation(**kw, store_nulls=False, mesh=mesh,
+                                  config=EngineConfig(**MP_SCREEN))
+        runs.append({"null_s": res.profile["null_s"],
+                     "rescue": res.profile["rescue"]})
+    null_s = [r["null_s"] for r in runs[1:]]
+    emit({"phase": "screened_mesh", "genes": GENES, "n_perm": N_PERM,
+          "mesh": mesh.shape, "warmup": runs[0], "runs": runs[1:],
+          "mean_null_s": sum(null_s) / len(null_s),
+          "median_null_s": float(np.median(null_s)), "card": card})
+    print(card_line(), flush=True)
+    return 0
+
+
 #: the roofline phase: permutations of each run — 32 chunks of 128, so the
 #: streaming run's superchunks of 8 chunks give four marks, three steady
 #: intervals
@@ -6059,9 +6613,10 @@ def roofline_phase(np, drive, cfg, composed_cfg, card) -> dict:
 
 def flightrec_ab_phase(np, drive, cfg, composed_cfg, card) -> None:
     """``flightrec_ab``: the flight recorder's cost on the main path. The
-    fused and composed nulls, materialized and streaming, ``N_PERM``
-    permutations with ``telemetry=`` off, each run with the recorder on,
-    off, off, on (``flightrec.install``/``uninstall``): every null's
+    fused streaming and the composed materialized null (one run of each
+    kernel and mode), ``N_PERM`` permutations with ``telemetry=`` off,
+    each run with the recorder on, off, off, on
+    (``flightrec.install``/``uninstall``): every null's
     seconds, the means per arm and their ratio, and the host cost of one
     event through the flight bus times each run's events. Fails unless
     the ring took entries in the recorder-on runs and every run's
@@ -6075,11 +6630,8 @@ def flightrec_ab_phase(np, drive, cfg, composed_cfg, card) -> None:
     runs = {}
     try:
         for name, config, store, kernel in (
-                ("fused/materialized", cfg, True, "fused_stats_values"),
                 ("fused/streaming", cfg, False, "fused_stats_counts"),
                 ("composed/materialized", composed_cfg, True,
-                 "gather_submatrix_fused_many"),
-                ("composed/streaming", composed_cfg, False,
                  "gather_submatrix_fused_many")):
             null_s, ring, first = {"on": [], "off": []}, [], None
             for arm in ("on", "off", "off", "on"):
@@ -6825,9 +7377,10 @@ def fleet_daemon_phase(torch, np, card, refs=None) -> dict:
 
 
 #: the native phase: permutations of the C++ host tier at one thread and
-#: at every core of the card's host, on the main path's inputs (chosen so
-#: the phase stays well under 90 s there)
-NATIVE_PERM_1, NATIVE_PERM_ALL = 32, 256
+#: at every core of the card's host, on the main path's inputs (few, to
+#: keep the whole script's time: each call's input checks take 12–15 s
+#: on the card's host, these nulls 4–5 s)
+NATIVE_PERM_1, NATIVE_PERM_ALL = 16, 128
 
 
 def host_cpu() -> dict:
@@ -6964,10 +7517,31 @@ def native_phase(np, module_preservation, kw, fused_run, card) -> dict:
     return runs
 
 
-def lint_check(card) -> dict:
+def lint_start() -> tuple:
+    """``python -m netrep_tpu_torch lint --json`` started in the
+    background (it needs no card): ``(process, start time)`` for
+    :func:`lint_check`."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "netrep_tpu_torch", "lint", "--json"],
+        cwd=here(), env=cli_env(), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True), time.perf_counter()
+
+
+def lint_check(card, started=None) -> dict:
     """``python -m netrep_tpu_torch lint --json`` on the checkout beside
-    this script: exit 0, no finding, every suppression with its reason."""
-    rc, out, err, wall = run_cli("lint", "--json", timeout=300)
+    this script (or the run :func:`lint_start` began): exit 0, no
+    finding, every suppression with its reason."""
+    if started is None:
+        rc, out, err, wall = run_cli("lint", "--json", timeout=300)
+    else:
+        proc, t0 = started
+        try:
+            out, err = proc.communicate(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        rc, wall = proc.returncode, time.perf_counter() - t0
     if rc != 0:
         raise RuntimeError(f"lint exited {rc}:\n{out[-2000:]}{err[-2000:]}")
     row = last_json(out)
@@ -7095,8 +7669,6 @@ def main() -> int:
         }
     emit({"phase": "build", "total_s": time.perf_counter() - t0,
           "sources": built})
-    # ---- the invariant linter over the checkout's port ------------------
-    lint_check(card)
 
     # ---- the start-up path: traced starts, the CLI, the daemon fleet ----
     # first, while this process holds little host memory: two replica
@@ -7107,6 +7679,9 @@ def main() -> int:
     cli_phase(np, card)
     daemon_got = fleet_daemon_phase(torch, np, card)
 
+    # ---- the invariant linter over the checkout's port, in the background
+    # while the kernels are held to their plain versions (checked below)
+    lint = lint_start()
     # ---- inputs at the north-star width, from one seed -------------------
     t0 = time.perf_counter()
     sizes, labels, (xd, xt, x2) = make_cohorts(np)
@@ -7325,6 +7900,7 @@ def main() -> int:
          "ring_shift_dma": r_times["ms"]}, card, dev)
     del engine, chunk, obs, tc32, tn32, tdT, idx_list
     torch.cuda.empty_cache()
+    lint_check(card, lint)
 
     # ---- the main path, through the public entry point -------------------
     # a user hands over host arrays: the copy to the card is part of the call
@@ -7379,7 +7955,8 @@ def main() -> int:
     # ---- the native C++ host tier on the same inputs and seed -----------
     native_phase(np, module_preservation, kw, fused_run, card)
     # ---- the autotune store: superchunk, tile edge and super-tile sweeps -
-    autotune_phase(torch, np, tops, module_preservation, kw, card)
+    autotune_phase(torch, np, tops, module_preservation, kw, card,
+                   full=False)
     #: the float32 run and memory of each call the bf16 phase repeats
     f32_ref = {"main/materialized": (a, memory[True]),
                "main/streaming": (b, memory[False])}
@@ -7634,8 +8211,9 @@ def main() -> int:
     # ---- the forensic chain: the dump op's bundle, a refused checkpoint -
     forensics_phase(np, module_preservation, card)
     # ---- two processes on the card over gloo, one perm row each --------
-    launches.update(multi_process_phase(torch, np, module_preservation, card,
-                                        dev))
+    launches.update(multi_process_phase(
+        torch, np, module_preservation, card, dev,
+        kw20={**kw, **one_test, "test": "test"}))
     del kw, runs, a, b, comp, der, multi, fused_run, res, seq, f32_ref
     del composed_adaptive
     del dd, dc, dn, td, tc, tn, t2d, t2c, t2n
@@ -7773,7 +8351,10 @@ def main() -> int:
             "perm2x1 adaptive", "checkpoint written on 2x1",
             "checkpoint resumed unsplit")},
         **{f"multi_process rank {r} {m}": ("multi_process", f"rank{r}", m)
-           for r in (0, 1) for m in ("materialized", "streaming")},
+           for r in (0, 1) for m in (
+               "materialized", "streaming", "sparse",
+               "screened_materialized", "screened_streaming", "fault",
+               "resume")},
     }
     ring_paths = {"checkpoint written on the ring mesh",
                   "multi_test_mesh row1x4 psum streaming"}
@@ -7834,6 +8415,7 @@ if __name__ == "__main__":
              "--atlas-build": lambda: pr9_only(
                  lambda *a: atlas_build_phase(*a, headline=True)),
              "--bf16": bf16_only, "--screened": screened_only,
+             "--screened-mesh": screened_mesh_only,
              "--faults": faults_only, "--grid": grid_only,
              "--serve": serve_only, "--fleet": fleet_only,
              "--tooling": tooling_only, "--startup": startup_only,

@@ -779,7 +779,21 @@ def _run_guarded(null_of, engine, build_engine, ft, mesh, ck, d_name,
 
     Every resume equals the unfaulted run: keys depend only on (seed,
     index), the checkpoint fingerprint does not depend on the mesh, and
-    the shared injector never re-fires a consumed fault. Returns
+    the shared injector never re-fires a consumed fault.
+
+    On a mesh that spans processes no rung rebuilds the mesh: nothing
+    tells the other processes to rebuild with this one, and a rebuild
+    starts with a collective they would not enter. The faulted rank
+    raises :class:`~netrep_tpu_torch.utils.faults.CrossProcessRungError`
+    (the rung it would take, its rank, process 0's checkpoint) after the
+    loop's failure-save; its peers' next collective raises
+    :class:`~netrep_tpu_torch.utils.faults.PeerLostError` and
+    failure-saves too, and a fresh launch of every process resumes from
+    process 0's checkpoint. A retry of a failure raised before the
+    chunk's collective runs as in one process; an abandoned dispatch
+    raises ``CrossProcessRungError`` (rung ``'abandon'``) from the loop
+    (:meth:`~netrep_tpu_torch.utils.faults.FaultRuntime.run_dispatch`).
+    Returns
     ``(null_of's result, the engine that produced it, degraded)`` with
     ``degraded`` None, or after the CPU rung ``{"reason", "at_perm",
     "freed"}``."""
@@ -810,13 +824,21 @@ def _run_guarded(null_of, engine, build_engine, ft, mesh, ck, d_name,
             rebuild(grown)
             ft.mesh_shrunk = False
         except flt.DeviceLostError as e:
-            if ck is None:  # no checkpoint, nothing to resume from
-                raise
             reason = getattr(e, "reason", "device_lost")
             cause = e.__cause__ if e.__cause__ is not None else e
             survivors, lost = be.enumerate_survivors(cur_mesh, e)
             survivors = distributed.filter_addressable(survivors)
-            if survivors and ft.mesh_rebuilds < ft.policy.max_mesh_rebuilds:
+            shrink = (bool(survivors)
+                      and ft.mesh_rebuilds < ft.policy.max_mesh_rebuilds)
+            if cur_mesh is not None and cur_mesh.spans_processes:
+                rung = ("shrink" if shrink else
+                        "cpu" if ft.policy.degrade_to_cpu else "none")
+                raise flt.CrossProcessRungError(
+                    rung, distributed.process_index(),
+                    distributed.process_count(), ck, cause) from e
+            if ck is None:  # no checkpoint, nothing to resume from
+                raise
+            if shrink:
                 be.announce_mesh_shrunk(
                     reason, survivors, lost, discovery=str(d_name),
                     test=str(t_name), error=type(cause).__name__)

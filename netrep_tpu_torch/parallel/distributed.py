@@ -16,14 +16,18 @@ Usage, the same program in every process::
     module_preservation(..., mesh=m)
 
 Each process runs only its own shards of a chunk (the SPMD contract: the
-same seed gives the same keys in every process); :func:`gather_to_host`
+same seed gives the same keys in every process) — the dense, multi-test
+and sparse engines, and the screened null; :func:`gather_to_host`
 allgathers the materialized null in chunk order and :func:`sum_to_host`
-sums the streaming tallies, so every process returns the whole result.
+sums the streaming tallies (the screened null's rescue counters with
+them), so every process returns the whole result.
 
 ``gloo`` carries host tensors, so a card's share is copied to the host
 before it crosses (NCCL also refuses two processes on one card). The group
 has a timeout (:data:`DEFAULT_TIMEOUT_S`): a collective whose peer died
-raises instead of waiting for it.
+raises instead of waiting for it, and every collective here turns the
+backend's error into :class:`~netrep_tpu_torch.utils.faults.PeerLostError`,
+which the fault ladder never retries: the group is broken.
 
 Process 0 alone writes a run's checkpoint, and every process resumes
 from what process 0 read (``engine.Checkpointer``); process 0 alone
@@ -34,6 +38,7 @@ engine path assembles a global array.
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import logging
 import os
@@ -44,6 +49,7 @@ import torch
 import torch.distributed as dist
 
 from ..utils import telemetry as tm
+from ..utils.faults import PeerLostError
 
 logger = logging.getLogger("netrep_tpu_torch")
 
@@ -190,17 +196,35 @@ def filter_addressable(devices) -> list:
             or (torch.device(d).index or 0) < cards]
 
 
+@contextlib.contextmanager
+def _collective(what: str):
+    """A collective's backend error (``gloo``'s read error when a peer
+    left, its timeout when a peer never came) as :class:`PeerLostError`."""
+    try:
+        yield
+    except RuntimeError as e:
+        raise PeerLostError(
+            f"rank {process_index()} of {process_count()}: the {what} of "
+            f"the process group failed ({type(e).__name__}: "
+            f"{str(e)[:300]}); a peer process left or faulted. Process 0 "
+            "keeps a run's completed permutations in its checkpoint, when "
+            "one was asked for: launch every process again to resume"
+        ) from e
+
+
 def all_gather_object(obj) -> list:
     """``obj`` of every process, in process order."""
     out = [None] * process_count()
-    dist.all_gather_object(out, obj)
+    with _collective("object allgather"):
+        dist.all_gather_object(out, obj)
     return out
 
 
 def broadcast_object(obj, src: int = 0):
     """Process ``src``'s ``obj`` in every process."""
     box = [obj]
-    dist.broadcast_object_list(box, src=src)
+    with _collective("object broadcast"):
+        dist.broadcast_object_list(box, src=src)
     return box[0]
 
 
@@ -223,7 +247,8 @@ def gather_to_host(x, axis: int = 0):
     t0 = time.perf_counter()
     flat = torch.cat([p.detach().reshape(-1).cpu() for p in parts])
     bufs = [torch.empty_like(flat) for _ in range(process_count())]
-    dist.all_gather(bufs, flat)
+    with _collective("allgather"):
+        dist.all_gather(bufs, flat)
     out, at = [], 0
     for p in parts:
         n = p.numel()
@@ -244,5 +269,6 @@ def sum_to_host(a: np.ndarray) -> np.ndarray:
     if process_count() == 1:
         return a
     t = torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64)).clone()
-    dist.all_reduce(t, op=dist.ReduceOp.SUM)
+    with _collective("tally sum"):
+        dist.all_reduce(t, op=dist.ReduceOp.SUM)
     return t.numpy()

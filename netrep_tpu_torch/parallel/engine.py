@@ -647,10 +647,11 @@ class Tallies(NamedTuple):
     """A streaming null's exceedance tallies: ``dev``, the per-bucket
     ``[hi, lo, eff]`` int32 device tensors (nested lists, per shard or per
     cohort first); ``host``, int64 host arrays beside them (the screened
-    null's rescued tallies); ``state``, the screened run's
-    :class:`~netrep_tpu_torch.parallel.screened.RescueState` counters, or
-    None. Under a fault policy each guarded dispatch folds into
-    :meth:`fresh` tallies that :meth:`add_` commits on the loop thread
+    null's rescued tallies and its rescue counters since the last
+    pull); ``state``, the screened run's :class:`~netrep_tpu_torch.
+    parallel.screened.RescueState` counters (which its ``pull``
+    advances), or None. Under a fault policy each guarded dispatch folds
+    into :meth:`fresh` tallies that :meth:`add_` commits on the loop thread
     once the dispatch has returned: a retried dispatch starts from zero,
     and an abandoned one that is still running writes only into tallies
     nobody reads (the JAX package rebuilds its donated tally carry
@@ -691,10 +692,12 @@ def _flat_tensors(tree) -> list:
 
 
 def _run_hooks(telemetry, profile, fault_policy, ck, device, engine=None,
-               counting=False):
+               counting=False, mesh=None):
     """Once per run: the telemetry bus (explicit or ambient), a
     :class:`~netrep_tpu_torch.utils.profiling.NullProfile` when telemetry
-    is on, the fault runtime, the checkpointer's background writer under a
+    is on, the fault runtime (told whether the run's ``mesh`` spans
+    processes: :attr:`~netrep_tpu_torch.utils.faults.FaultRuntime.
+    across`), the checkpointer's background writer under a
     policy, the per-chunk memory probe and ``engine``'s roofline cost
     tracker (:func:`~netrep_tpu_torch.utils.costmodel.tracker_for`;
     ``counting`` for the streaming loops). The flight recorder's bus
@@ -704,6 +707,11 @@ def _run_hooks(telemetry, profile, fault_policy, ck, device, engine=None,
     if telemetry is not None and profile is None:
         profile = NullProfile()
     ft = flt.resolve_runtime(fault_policy)
+    if ft is not None:
+        ft.across = ((distributed.process_index(),
+                      distributed.process_count(),
+                      None if ck is None else ck.path)
+                     if mesh is not None and mesh.spans_processes else None)
     if ck is not None and ft is not None and ft.policy.async_checkpoint:
         ck.writer = ckpt.AsyncCheckpointWriter(telemetry)
     live = telemetry is not None and not _flight_only(telemetry)
@@ -799,7 +807,7 @@ def run_checkpointed_chunks(key, n_perm: int, C: int, chunk: Callable,
                             perm_axis: int = 0, full: bool = False,
                             fault_policy=None, telemetry=None, profile=None,
                             device=None, run_key: str = "", engine=None,
-                            perm_keys: Callable | None = None
+                            perm_keys: Callable | None = None, mesh=None
                             ) -> tuple[np.ndarray, int]:
     """The materialized null loop: ``chunk(keys)`` for permutations
     ``[start, start + C)``, ``write(nulls, outs, start, take)`` once they
@@ -823,7 +831,10 @@ def run_checkpointed_chunks(key, n_perm: int, C: int, chunk: Callable,
     the chunk's kernels are waited on inside the retry scope, periodic
     saves go through a background writer, and at each chunk boundary a
     pending grow-back raises :class:`~netrep_tpu_torch.utils.faults.
-    CapacityRestoredError` past the failure-save. ``telemetry`` (or the
+    CapacityRestoredError` past the failure-save; on a ``mesh`` that
+    spans processes an abandoned dispatch raises :class:`~netrep_tpu_torch.
+    utils.faults.CrossProcessRungError` past it instead of re-dispatching
+    (the chunk ends in a collective). ``telemetry`` (or the
     ambient bus) gets the run span, one ``dispatch`` and one ``chunk``
     event per chunk (``device``'s memory gauges on a card), a
     ``compile_span`` and a stall watchdog; ``profile`` counts dispatches
@@ -838,7 +849,7 @@ def run_checkpointed_chunks(key, n_perm: int, C: int, chunk: Callable,
     its own, whose key is an integer seed and whose chunk is the triple
     ``(seed, start, count)`` of its counter-based stream."""
     telemetry, profile, ft, mem, tracker = _run_hooks(
-        telemetry, profile, fault_policy, ck, device, engine)
+        telemetry, profile, fault_policy, ck, device, engine, mesh=mesh)
     perm_keys = perm_keys or trandom.perm_keys
     nulls, start = None, 0
     if ck is not None:
@@ -972,7 +983,8 @@ def run_stream_superchunks(key, n_perm: int, C: int, K: int,
                            count: Callable, pull: Callable, tallies: Tallies,
                            progress=None, ck: Checkpointer | None = None,
                            fault_policy=None, telemetry=None, profile=None,
-                           device=None, run_key: str = "", engine=None):
+                           device=None, run_key: str = "", engine=None,
+                           mesh=None):
     """The streaming null loop: ``count(keys, valid, tallies)`` folds a
     chunk's tallies into ``tallies`` on the device; ``pull(tallies)``
     reads them to the host once per superchunk of ``K`` chunks. Chunk j
@@ -999,7 +1011,8 @@ def run_stream_superchunks(key, n_perm: int, C: int, K: int,
     mark to the last goes to ``engine.record_stream_throughput`` (the
     autotune store), as in the JAX package."""
     telemetry, profile, ft, mem, tracker = _run_hooks(
-        telemetry, profile, fault_policy, ck, device, engine, counting=True)
+        telemetry, profile, fault_policy, ck, device, engine, counting=True,
+        mesh=mesh)
     completed, base = 0, None
     if ck is not None:
         loaded = ck.load()
@@ -1166,7 +1179,7 @@ def run_adaptive_chunks(key, n_perm: int, C: int, chunk: Callable,
                         progress=None, ck: Checkpointer | None = None,
                         perm_axis: int = 0, full: bool = False,
                         fault_policy=None, telemetry=None, device=None,
-                        run_key: str = "", engine=None
+                        run_key: str = "", engine=None, mesh=None
                         ) -> tuple[np.ndarray, int, bool]:
     """The materialized adaptive (sequential early-stopping) loop: after
     each chunk the :class:`~netrep_tpu_torch.ops.sequential.StopMonitor`
@@ -1190,7 +1203,7 @@ def run_adaptive_chunks(key, n_perm: int, C: int, chunk: Callable,
     ``note_chunk_cost``) gets each chunk's dispatch and host-copy seconds
     after folding it."""
     telemetry, _profile, ft, mem, tracker = _run_hooks(
-        telemetry, None, fault_policy, ck, device, engine)
+        telemetry, None, fault_policy, ck, device, engine, mesh=mesh)
     monitor.telemetry = telemetry
     note_cost = (getattr(monitor, "note_chunk_cost", None)
                  if telemetry is not None else None)
@@ -1315,7 +1328,7 @@ def run_adaptive_stream_chunks(key, n_perm: int, C: int,
                                ck: Checkpointer | None = None,
                                fault_policy=None, telemetry=None,
                                profile=None, device=None, run_key: str = "",
-                               engine=None) -> tuple[int, bool]:
+                               engine=None, mesh=None) -> tuple[int, bool]:
     """The streaming adaptive loop: one chunk per dispatch, so decisions
     land at the chunk boundaries the materialized adaptive loop takes
     them at, but the dispatch returns each active module's ``(hi, lo,
@@ -1336,7 +1349,8 @@ def run_adaptive_stream_chunks(key, n_perm: int, C: int,
     ``telemetry`` and ``profile`` as in :func:`run_checkpointed_chunks`.
     Returns ``(completed, finished)``."""
     telemetry, profile, ft, mem, tracker = _run_hooks(
-        telemetry, profile, fault_policy, ck, device, engine, counting=True)
+        telemetry, profile, fault_policy, ck, device, engine, counting=True,
+        mesh=mesh)
     monitor.telemetry = telemetry
     completed = 0
     if ck is not None:
@@ -1712,11 +1726,6 @@ class PermutationEngine:
                     "null_precision='bf16_rescue' is not taught the "
                     "row-sharded ring path; use matrix_sharding="
                     "'replicated' or null_precision='f32'"
-                )
-            if mesh is not None and mesh.spans_processes:
-                raise ValueError(
-                    "null_precision='bf16_rescue' is not taught a mesh "
-                    "that spans processes; use null_precision='f32'"
                 )
         #: max |test operand| of the screen's cushions (computed once)
         self._screen_amp = None
@@ -2153,8 +2162,7 @@ class PermutationEngine:
         if cfg.resolved_null_precision(self.device.type) != "bf16_rescue":
             return "f32"
         if (self.stat_mode == "fused" or cfg.gather_mode == "fused"
-                or self.row_sharded
-                or (self.mesh is not None and self.mesh.spans_processes)):
+                or self.row_sharded):
             return "f32"
         if observed is None:
             if cfg.null_precision == "bf16_rescue":
@@ -2196,23 +2204,30 @@ class PermutationEngine:
         chunk ``keys``: the worklist padded to the chunk's length, so the
         rescue runs at the float32 run's batch shape and its rows are
         that run's bit for bit (the composed statistics of a row may round
-        differently at another batch count); per bucket on the host."""
+        differently at another batch count); per bucket on the host. On a
+        mesh that spans processes every process enters the rescue chunk's
+        allgather, with the same worklist."""
         pad = scr.pad_worklist(idx, keys.shape[0])
         outs = self._chunk(scr.take_keys(keys, pad))
-        return [o[: idx.size].cpu().numpy() for o in outs]
+        return [_host(o)[: idx.size] for o in outs]
 
     def _screened_chunk(self, observed, state: scr.RescueState) -> Callable:
         """``chunk(keys)`` of the screened materialized and adaptive loops:
         the fast pass, the ambiguous worklist read on the host, its rows
         replaced by the float32 rescue. Returns per-bucket host arrays
         whose rescued rows are the float32 run's; the worklist read
-        synchronises each chunk."""
+        synchronises each chunk. On a mesh that spans processes the fast
+        pass arrives allgathered, so every process reads the same
+        worklist, rescues it through the same collective chunk and keeps
+        the same ``state``."""
 
         def chunk(keys):
             obs_b, cush_b = self._screened_obs_cush(observed)
             outs = self._chunk(keys, screened=True)
-            amb = scr.ambiguous_perms(outs, obs_b, cush_b).cpu().numpy()
-            outs = [o.cpu().numpy() for o in outs]
+            amb = scr.ambiguous_perms(
+                [torch.as_tensor(o, device=self.device) for o in outs],
+                obs_b, cush_b).cpu().numpy()
+            outs = [_host(o) for o in outs]
             state.total += int(amb.size)
             idx = np.flatnonzero(amb)
             if idx.size:
@@ -2224,41 +2239,88 @@ class PermutationEngine:
 
         return chunk
 
+    def _screen_pass(self, keys, valid: int, obs_b, cush_b, tallies):
+        """The fast pass of one screened streaming chunk on this engine (or
+        shard view): the decided comparisons of the first ``valid``
+        permutations folded into the device ``tallies``. Returns the
+        ambiguous mask, on the device."""
+        outs = self._values(self._draw(keys), screened=True)
+        keep = torch.arange(keys.shape[0], device=self.device) < valid
+        amb = scr.ambiguous_perms(outs, obs_b, cush_b) & keep
+        _add_tallies(tallies, count_buckets(outs, obs_b, keep & ~amb))
+        return amb
+
     def _screened_stream_parts(self, observed, state: scr.RescueState):
         """``(count(keys, valid, acc), pull(acc), tallies)`` of the
-        screened streaming nulls:
-        the device tallies fold the decided comparisons of the fast pass,
-        each chunk's ambiguous permutations are rescued at once and their
-        exact host tallies (:func:`~netrep_tpu_torch.parallel.screened.
-        host_tail_counts`) kept beside and ``state``'s counters in the
-        :class:`Tallies`; ``pull`` adds the two, so the tallies equal the
-        float32 run's. A mesh computes the values shard
-        by shard and the tallies fold on the engine's device."""
+        screened streaming nulls. ``count`` runs :meth:`_screen_pass` on
+        the engine, or on a mesh on each shard this process drives (its
+        slice of the keys, the validity mask offset by the slice's first
+        column), then reads every shard's ambiguous mask at once; each
+        shard rescues its own ambiguous rows, the worklist padded to its
+        own batch length (the batch shape at which the float32 run on the
+        same mesh computes these rows, so they are its rows bit for bit),
+        and their exact host tallies (:func:`~netrep_tpu_torch.parallel.
+        screened.host_tail_counts`) go to ``acc.host[0]``, the counters
+        ``(total, rescued, dispatches)`` to ``acc.host[1]``: one dispatch
+        per shard and chunk with a rescue. ``pull`` adds the device
+        tallies and the rescued host tallies — on a mesh that spans
+        processes summed over them, with the counters, in one
+        :func:`~netrep_tpu_torch.parallel.distributed.sum_to_host` — so
+        the tallies equal the float32 run's, and moves the counters
+        gathered since the last pull into ``acc.state``: a pull is where
+        the processes agree on them."""
         obs_full = np.asarray(observed, dtype=np.float64).reshape(
             self.n_modules, N_STATS)
         obs_b, cush_b = self._screened_obs_cush(observed)
+        views = ([(None, self)] if self.mesh is None else
+                 [(sl, eng) for _p, _r, sl, eng in self._shard_plan()])
+        refs = [([o.to(eng.device) for o in obs_b],
+                 [c.to(eng.device) for c in cush_b]) for _sl, eng in views]
+        spans = self.mesh is not None and self.mesh.spans_processes
 
         def count(keys, valid, acc):
-            outs = self._chunk(keys, screened=True)
-            keep = torch.arange(keys.shape[0], device=self.device) < valid
-            amb = scr.ambiguous_perms(outs, obs_b, cush_b) & keep
-            _add_tallies(acc.dev, count_buckets(outs, obs_b, keep & ~amb))
-            acc.state.total += int(valid)
-            idx = np.flatnonzero(amb.cpu().numpy())
-            if idx.size:
-                for b, r in zip(self.buckets, self._screen_rescue(keys, idx)):
+            passes = []
+            for s, (sl, eng) in enumerate(views):
+                if sl is None:
+                    ks, own = keys, valid
+                else:
+                    ks = trandom.ThreefryKey(keys.words[sl]).to(eng.device)
+                    own = max(0, min(sl.stop, valid) - sl.start)
+                passes.append((eng, ks, eng._screen_pass(
+                    ks, own, *refs[s], acc.dev[s])))
+                acc.host[1][0] += own
+            # every shard's fast pass is queued before the first read, and
+            # every rescue before the first row read
+            work = [(eng, ks, np.flatnonzero(amb.cpu().numpy()))
+                    for eng, ks, amb in passes]
+            rescues = [(eng, idx, eng._values(eng._draw(scr.take_keys(
+                ks, scr.pad_worklist(idx, ks.shape[0])))))
+                for eng, ks, idx in work if idx.size]
+            for eng, idx, rows in rescues:
+                for b, r in zip(eng.buckets, rows):
                     acc.host[0][:, b.module_pos] += np.stack(
-                        scr.host_tail_counts(r, obs_full[b.module_pos]))
-                acc.state.rescued += int(idx.size)
-                acc.state.dispatches += 1
+                        scr.host_tail_counts(r[: idx.size].cpu().numpy(),
+                                             obs_full[b.module_pos]))
+                acc.host[1][1:] += (int(idx.size), 1)
             return acc
 
         def pull(acc):
-            return tuple(t + r for t, r in zip(self._pull(acc.dev),
-                                               acc.host[0]))
+            parts = [eng._pull(t) for (_sl, eng), t in zip(views, acc.dev)]
+            tal = np.stack([sum(x) for x in zip(*parts)]) + acc.host[0]
+            flat = np.concatenate([tal.ravel(), acc.host[1]])
+            if spans:
+                flat = distributed.sum_to_host(flat)
+            acc.host[1][:] = 0
+            got = flat[tal.size:]
+            acc.state.total += int(got[0])
+            acc.state.rescued += int(got[1])
+            acc.state.dispatches += int(got[2])
+            return tuple(flat[: tal.size].reshape(tal.shape))
 
-        rescued = np.zeros((3, self.n_modules, N_STATS), np.int64)
-        return count, pull, Tallies(self._zero_tallies(), (rescued,), state)
+        host = (np.zeros((3, self.n_modules, N_STATS), np.int64),
+                np.zeros(3, np.int64))
+        return count, pull, Tallies([eng._zero_tallies()
+                                     for _sl, eng in views], host, state)
 
     # ------------------------------------------------------------------
     # Null runs: fixed, checkpointed, adaptive
@@ -2321,9 +2383,7 @@ class PermutationEngine:
 
         def write(nulls, outs, at, take):
             for b, o in zip(self.buckets, outs):
-                if isinstance(o, torch.Tensor):
-                    o = o[:take].cpu().numpy()
-                nulls[at: at + take, b.module_pos] = o[:take].astype(
+                nulls[at: at + take, b.module_pos] = _host(o[:take]).astype(
                     np.float64)
 
         return write
@@ -2381,7 +2441,8 @@ class PermutationEngine:
     def _hooks(self, fault_policy, telemetry, profile=None) -> dict:
         """The loops' fault, telemetry and profile keywords of one run."""
         hooks = dict(fault_policy=fault_policy, telemetry=telemetry,
-                     device=self.device, run_key=self.run_key(), engine=self)
+                     device=self.device, run_key=self.run_key(), engine=self,
+                     mesh=self.mesh)
         if profile is not None:
             hooks["profile"] = profile
         return hooks
@@ -2616,6 +2677,12 @@ def pull_tallies(parts, n_modules: int) -> list[np.ndarray]:
                 at += n
         out.append(o)
     return out
+
+
+def _host(o) -> np.ndarray:
+    """A chunk output as a host array: a tensor copied to the host, an
+    allgathered host array as it is."""
+    return o.cpu().numpy() if isinstance(o, torch.Tensor) else o
 
 
 def _add_tallies(tallies, deltas) -> None:

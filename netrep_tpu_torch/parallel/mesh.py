@@ -27,7 +27,10 @@ position). A process runs only its own positions' shards.
 
 The elastic helpers of the fault ladder — :func:`mesh_spec`,
 :func:`mesh_from_spec` and :func:`shrink_mesh` — are the JAX package's,
-over this grid, for a mesh of one process.
+over this grid, for a mesh of one process: in a process group they start
+with :func:`make_mesh`'s collective, which the other processes would not
+enter, so the ladder never rebuilds a mesh that spans processes
+(:class:`~netrep_tpu_torch.utils.faults.CrossProcessRungError`).
 """
 
 from __future__ import annotations

@@ -37,9 +37,10 @@ from ..ops.oracle import N_STATS
 from ..ops.sparse import SparseAdjacency
 from ..utils import checkpoint as ckpt
 from ..utils.config import EngineConfig
+from . import distributed
 from . import mesh as tmesh
 from .engine import (
-    ModuleSpec, _as_f32, _block_positions, _Bucket, _take_blocks,
+    ModuleSpec, _as_f32, _block_positions, _Bucket, _host, _take_blocks,
     checkpointer, root_key, run_checkpointed_chunks,
 )
 from .mesh import PERM_AXIS, Mesh
@@ -75,7 +76,8 @@ class SparsePermutationEngine:
         (raises without a card).
     mesh : optional :class:`~netrep_tpu_torch.parallel.mesh.Mesh`; a
         chunk splits over its ``perm`` axis, the neighbour lists
-        (``O(n·k)``) replicated on each shard's device.
+        (``O(n·k)``) replicated on each shard's device. On a mesh that
+        spans processes each process computes only its own shards.
     disc_corr, test_corr : optional PRECOMPUTED sparse correlations in the
         same format; they feed the correlation statistics instead of the
         on-the-fly ``zᵀz``.
@@ -249,11 +251,14 @@ class SparsePermutationEngine:
         ]
         return view
 
-    def _chunk(self, keys: trandom.ThreefryKey) -> list[torch.Tensor]:
+    def _chunk(self, keys: trandom.ThreefryKey) -> list:
         """One chunk: the drawn permutations' statistics per bucket; on a
-        mesh each perm shard draws and computes its slice of ``keys`` on
-        its device (:func:`~netrep_tpu_torch.parallel.sharded.
-        chunk_shards`), gathered back in order."""
+        mesh each perm shard this process drives draws and computes its
+        slice of ``keys`` on its device (:func:`~netrep_tpu_torch.parallel.
+        sharded.chunk_shards`), gathered back in order; on a mesh that
+        spans processes, host arrays allgathered from every process's
+        shards in one hop (:func:`~netrep_tpu_torch.parallel.distributed.
+        gather_to_host`), as the dense engine's chunk."""
         if self.mesh is None:
             return self._values(trandom.permutation(keys, self._pool_dev))
         if self._shards is None:
@@ -262,6 +267,7 @@ class SparsePermutationEngine:
                 (sl, self._on(self.mesh.devices[p, r], placed))
                 for p, r, sl in chunk_shards(self.mesh,
                                              self.effective_chunk(), False)
+                if self.mesh.is_local(p, r)
             ]
         parts = [
             eng._values(trandom.permutation(
@@ -269,8 +275,11 @@ class SparsePermutationEngine:
                 eng._pool_dev))
             for sl, eng in self._shards
         ]
-        return [torch.cat([p[i].to(self.device) for p in parts])
+        outs = [torch.cat([p[i].to(self.device) for p in parts])
                 for i in range(len(self.buckets))]
+        if self.mesh.spans_processes:
+            return distributed.gather_to_host(outs)
+        return outs
 
     def run_null(self, n_perm: int, key=0,
                  progress: Callable[[int, int], None] | None = None,
@@ -287,8 +296,8 @@ class SparsePermutationEngine:
 
         def write(nulls, outs, at, take):
             for b, o in zip(self.buckets, outs):
-                nulls[at: at + take, b.module_pos] = (
-                    o[:take].cpu().numpy().astype(np.float64))
+                nulls[at: at + take, b.module_pos] = _host(o[:take]).astype(
+                    np.float64)
 
         return run_checkpointed_chunks(
             key, n_perm, self.effective_chunk(), self._chunk, write,
@@ -296,4 +305,5 @@ class SparsePermutationEngine:
             checkpointer(self, key, checkpoint_path, checkpoint_every),
             full=self.mesh is not None, fault_policy=fault_policy,
             telemetry=telemetry, profile=profile, device=self.device,
+            mesh=self.mesh,
         )

@@ -44,6 +44,21 @@ synchronise and pay one ``None`` check per run. A dispatch run on the
 abandon worker thread runs on the caller's current device and stream
 (both are per thread in CUDA).
 
+**Across processes.** On a mesh that spans processes
+(:mod:`netrep_tpu_torch.parallel.distributed`) a chunk's dispatch ends in
+a collective. A retry of a failure raised before the collective runs as
+in one process: the re-dispatched chunk reaches the collective late, and
+the peers wait for it there. An abandonment does not re-dispatch: the
+walked-away thread may still enter the collective, and a second one
+beside it, in this process alone, would no longer match the peers'
+collectives. Neither does a rung that rebuilds the mesh. The rank raises
+:class:`CrossProcessRungError` (rung ``'abandon'``, or the rebuild it
+would take) after the failure-save, its peers' next collective raises
+:class:`PeerLostError` (never retried) and failure-saves too, or a peer
+waiting past its own ``hang_timeout_s`` abandons in turn, and a fresh
+launch of every process resumes from process 0's checkpoint. The JAX
+package shrinks its global mesh instead.
+
 :func:`classify_error` keeps the JAX package's markers and adds the CUDA
 vocabulary of a lost card (an uncorrectable ECC error, a card fallen off
 the bus, every device busy or unavailable) as ``device_lost``. A kernel
@@ -89,6 +104,8 @@ __all__ = [
     "FaultSpec",
     "CapacityRestoredError",
     "DeviceLostError",
+    "PeerLostError",
+    "CrossProcessRungError",
     "SimulatedCrash",
     "DispatchAbandonedError",
     "InjectedTransientError",
@@ -160,7 +177,9 @@ class SimulatedCrash(BaseException):
 
 class DispatchAbandonedError(RuntimeError):
     """A hung dispatch was abandoned (timeout or watchdog escalation);
-    classified ``transient`` so the normal retry ladder re-dispatches."""
+    classified ``transient`` so the normal retry ladder re-dispatches —
+    except on a mesh that spans processes, where it becomes
+    :class:`CrossProcessRungError`."""
 
 
 class DeviceLostError(RuntimeError):
@@ -177,6 +196,49 @@ class DeviceLostError(RuntimeError):
     def __init__(self, msg: str, reason: str = "device_lost"):
         super().__init__(msg)
         self.reason = reason
+
+
+class PeerLostError(RuntimeError):
+    """A collective of a process group failed: a peer process left, died
+    or faulted outside the collective, or the group's timeout ran out.
+    Classified ``fatal`` whatever its cause's text says: the group is
+    broken, so a retry would only fail again or wait out another timeout.
+    The loop's failure-save runs before it reaches the caller."""
+
+
+class CrossProcessRungError(RuntimeError):
+    """A device-loss-class failure or an abandoned dispatch on a mesh that
+    spans processes. Every rung past a retry rebuilds the mesh (shrink,
+    grow back, CPU), and no rank rebuilds a mesh across processes alone;
+    an abandonment would re-dispatch beside a collective that may still
+    be entered. So the rank raises this after the failure-save instead:
+    ``rung`` names the rung the ladder would take (``'abandon'``,
+    ``'shrink'``, ``'cpu'`` or ``'none'``), ``rank`` this process and
+    ``checkpoint`` the file process 0 wrote (None without one). A fresh
+    launch of every process resumes from it. The peers' next collective
+    raises :class:`PeerLostError`. Classified ``fatal``: no layer above
+    retries or degrades it either."""
+
+    def __init__(self, rung: str, rank: int, world: int, checkpoint,
+                 cause: BaseException):
+        event = "dispatch abandoned" if rung == "abandon" else "device lost"
+        what = ("no rung is left (no surviving device, degrade_to_cpu="
+                "False)" if rung == "none" else
+                "the fault ladder's abandon rung would re-dispatch the "
+                "chunk while the abandoned dispatch may still enter its "
+                "collective" if rung == "abandon" else
+                f"the fault ladder's {rung} rung would rebuild the mesh")
+        resume = (
+            "Process 0 wrote every completed permutation to this call's "
+            f"checkpoint ({checkpoint!r} as this rank names it); launch "
+            "every process again with the same call to resume from it."
+            if checkpoint is not None else
+            "No checkpoint was asked for, so a new launch starts over.")
+        super().__init__(
+            f"rank {rank} of {world}: {event} ({type(cause).__name__}: "
+            f"{cause}); {what}, and this mesh spans {world} processes, "
+            f"whose collectives no rank changes alone. {resume}")
+        self.rung, self.rank, self.checkpoint = rung, rank, checkpoint
 
 
 #: lowercase substrings of ``"TypeName: message"`` that mark a failure as
@@ -244,6 +306,8 @@ def classify_error(exc: BaseException) -> str:
     then on the lowercased ``"TypeName: message"`` text, because CUDA
     failures surface as generic ``RuntimeError``\\ s (``"CUDA error:
     ..."``) with the runtime's message."""
+    if isinstance(exc, (PeerLostError, CrossProcessRungError)):
+        return "fatal"
     if isinstance(exc, (InjectedTransientError, DispatchAbandonedError)):
         return "transient"
     if isinstance(exc, InjectedDeviceLost):
@@ -448,6 +512,10 @@ class FaultRuntime:
         #: the API layer caps it at policy.max_mesh_rebuilds
         self.mesh_rebuilds = 0
         self._grow = threading.Event()
+        #: ``(rank, world, checkpoint)`` while a null loop on a mesh that
+        #: spans processes holds this runtime (the loop sets it at its
+        #: start, None otherwise): an abandonment there is terminal
+        self.across = None
 
     # -- elastic capacity signal -------------------------------------------
 
@@ -523,7 +591,9 @@ class FaultRuntime:
         loop state to restore: the streaming loops fold each attempt into
         fresh tallies (the JAX package's ``reset()`` rebuilds its donated
         tally carry instead). Raises :class:`DeviceLostError` for the
-        degradation ladder, re-raises fatal errors, and passes ``KeyboardInterrupt``
+        degradation ladder, :class:`CrossProcessRungError` for an
+        abandonment while :attr:`across` is set, re-raises fatal errors,
+        and passes ``KeyboardInterrupt``
         through untouched (the loops' clean-interrupt contract)."""
         pol = self.policy
         attempt = 0
@@ -625,6 +695,12 @@ class FaultRuntime:
                     ) from e
                 if kind != "transient":
                     raise
+                if (isinstance(e, DispatchAbandonedError)
+                        and self.across is not None):
+                    # the walked-away thread may still enter the chunk's
+                    # collective: no second dispatch beside it
+                    raise CrossProcessRungError("abandon", *self.across,
+                                                e) from e
                 if attempt >= pol.max_retries:
                     # retries exhausted: the last transient error
                     # propagates past the loop's failure-save; the card
