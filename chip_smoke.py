@@ -77,6 +77,23 @@ launch count set to 0 just before a path and read just after:
   per chunk, bucket, shard and cohort; the gather once per chunk, shard,
   matrix and cohort, on the row mesh once per row block, matrix and
   cohort), null seconds and held GiB beside the unsplit runs';
+- ``installed``: the port as a user installs it (``installed_start``,
+  ``installed_check``): a wheel of the checkout built offline and
+  installed with ``pip install --target`` into a temporary directory
+  outside the checkout (the phase fails where the wheel does not build
+  or install), then a fresh process with only that
+  directory on its path and its working directory outside the checkout
+  calls ``netrep_tpu_torch.api.module_preservation`` on the main path's
+  cohorts at full width: ``fused_stats.cu`` is compiled from the
+  installed source into the installed copy's default kernel-library store
+  (``source`` ``jit``), the fused kernel launches as often as in
+  ``main_path``'s materialized run, and the null equals that run's bit
+  for bit (counts, p-values and module sets equal); ``network_properties``
+  and ``required_perms`` equal this process's, ``plot_module`` raises the
+  ``plot`` extra's ``ImportError`` where matplotlib is absent, every other
+  block of ``docs/vignette_torch.md`` runs with ``DEVICE = "cuda"``, and
+  ``jax`` never loads; the wheel's size and entries, the child's import,
+  ``nvcc``, input, null and wall seconds, and where the store landed;
 - ``multi_process``: two processes on the card joined over ``gloo`` on
   127.0.0.1 (``multi_process_phase``): a 2×1 perm mesh across them runs
   the fused null materialized and streaming (10,000 genes, the first two
@@ -202,13 +219,17 @@ launch count set to 0 just before a path and read just after:
   libraries named, the journal's redacted tail) and a checkpoint refused
   for another seed firing ``checkpoint_refused``;
 - ``startup`` (right after the build, while this process holds little
-  host memory): where a fresh process's start goes
+  host memory; in the whole script beside ``fleet_daemon``,
+  ``multi_process`` and the ``installed`` child, each driven from its own
+  thread or process, so their seconds are those of a shared host): where
+  a fresh process's start goes
   (``startup_phase``): a replica daemon's boot cold (an empty
   kernel-library store, ``nvcc`` runs) and warm, split by its ready line
   into the interpreter, the imports, the CUDA context, each library's
   build or load with its ``source``, the journal and the rest; ``warmup
   --measure`` on ``FLEET_FIXTURE`` (the main path's widths in
-  ``--startup``, 10,000 genes in the whole script) cold and warm
+  ``--startup``, 10,000 genes in the whole script) cold and warm, each
+  beside the daemon of its temperature
   (``first_run_s``, ``compile_span_s``, ``source`` ``jit`` then
   ``aot``); ``warmup``'s first chunk of each engine in a fresh process;
 - ``cli``: the CLI's ``chaos`` on the card, then its ``selftest --json``,
@@ -219,8 +240,10 @@ launch count set to 0 just before a path and read just after:
   daemon processes on the card (``fleet_daemon_phase``): ``FLEET_FIXTURE``
   registered through its socket, a replica SIGKILLed mid-pack,
   failed over and respawned as ``.g1``, each replica's boot and
-  fused-kernel launches, the card's memory with two contexts, the
-  coordinator without one, and the drain to exit 0; after ``fleet``,
+  fused-kernel launches, the whole card's used memory around the spawn
+  (in the whole script with the other fresh processes' memory in it),
+  the coordinator without a CUDA context, and the drain to exit 0; after
+  ``fleet``,
   ``fleet_daemon_check`` holds every result bit-equal to the same
   request through the in-process fleet;
 
@@ -237,7 +260,7 @@ network on the card) and handed to the entry point as host numpy arrays, as
 a user holds them, so its input phase includes the copy to the card.
 
 ``lint`` runs ``python -m netrep_tpu_torch lint --json`` on the checkout
-in the background while the kernels are held to their plain versions,
+in the background from the script's start (read before the main path),
 and requires exit 0 with no finding.
 
 Every mode starts from a fresh, empty autotune store
@@ -327,6 +350,10 @@ only ``autotune``, and
 only the unsplit ``multi_test`` runs and ``multi_test_mesh``, or only
 ``multi_process``, and
 
+    python3 chip_smoke.py --installed
+
+only the main path's fused materialized run and ``installed``, and
+
     python3 chip_smoke.py --screened-mesh
 
 only the 2×1 screened streaming null of one process, a warm-up run and
@@ -346,6 +373,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 
@@ -354,10 +382,16 @@ import time
 T_START = time.perf_counter()
 
 
+#: one line at a time: the whole script drives some phases from threads
+_EMIT_LOCK = threading.Lock()
+
+
 def emit(obj: dict) -> None:
     if "phase" in obj:
         obj = {**obj, "at_s": time.perf_counter() - T_START}
-    print(json.dumps(obj, allow_nan=False), flush=True)
+    line = json.dumps(obj, allow_nan=False)
+    with _EMIT_LOCK:
+        print(line, flush=True)
 
 
 def card_line() -> str:
@@ -1740,6 +1774,10 @@ BUILD_GENES, BUILD_SAMPLES, BUILD_GROUPS, BUILD_EDGE, BUILD_K = (
     100_000, 64, 16, 1024, 16)
 BUILD_HEADLINE, BUILD_TAU, BUILD_TAU_GENES, BUILD_DENSE = (
     1_000_000, 0.3, 16_384, 4096)
+#: the whole script's cut of the τ pairs and of the autotune phase's tile
+#: sweep: half the genes (a quarter of the tiles); ``--atlas-build`` and
+#: ``--autotune`` keep the widths above
+WHOLE_TAU_GENES, WHOLE_TAU_PLANTED, WHOLE_SWEEP_GENES = 8192, 50_000, 50_000
 #: a selected r against the host float64 correlation, and the card's
 #: against the CPU's: float32 dot products of 64–128 terms err by ~1e-7
 BUILD_TOL = 1e-6
@@ -1863,7 +1901,9 @@ def atlas_build_phase(torch, np, card, headline=False) -> dict:
     3. τ pairs, equal bit for bit: BUILD_TAU_GENES grouped genes (one
        tile per sample group, so screening skips), and ATLAS_GENES of the
        atlas shape's planted data (128 samples: the grouped data would keep
-       ~4.7e8 edges at τ = 0.3, 4 samples per group);
+       ~4.7e8 edges at τ = 0.3, 4 samples per group); without
+       ``headline`` (the whole script) WHOLE_TAU_GENES grouped genes and
+       the first WHOLE_TAU_PLANTED planted ones;
     4. with ``headline`` (``--atlas-build`` only: ~140 s), the headline
        row: BUILD_HEADLINE grouped genes, screened top-k;
     5. the bridge (``bench_atlas``): ATLAS_GENES genes, ATLAS_MODULES
@@ -1983,10 +2023,12 @@ def atlas_build_phase(torch, np, card, headline=False) -> dict:
     xd, xt, labels, msz = atlas_inputs(np, ATLAS_GENES, ATLAS_MODULES,
                                        ATLAS_SIZES)
     planted = TiledNetwork.from_data(xd, BETA)
+    tau_genes = BUILD_TAU_GENES if headline else WHOLE_TAU_GENES
     for label, tn in (
             ("grouped", TiledNetwork.from_data(grouped_support(
-                np, BUILD_TAU_GENES, BUILD_SAMPLES, BUILD_GROUPS), BETA)),
-            ("planted", planted)):
+                np, tau_genes, BUILD_SAMPLES, BUILD_GROUPS), BETA)),
+            ("planted", planted if headline else TiledNetwork.from_data(
+                np.ascontiguousarray(xd[:, :WHOLE_TAU_PLANTED]), BETA))):
         kw = dict(tau=BUILD_TAU, tile_edge=BUILD_EDGE, degree=False,
                   screen_segments=BUILD_GROUPS)
         un = run(f"tau {label} unscreened", tn, **kw)
@@ -2082,7 +2124,8 @@ def autotune_phase(torch, np, tops, module_preservation, kw, card,
     the 32 chunks: no steady interval, so nothing is recorded for it.
 
     (b) The ``--atlas-build`` screening pair's build (``BUILD_GENES``
-    grouped genes, top-k ``BUILD_K``, no degrees) at each tile edge of
+    grouped genes, the whole script WHOLE_SWEEP_GENES; top-k ``BUILD_K``,
+    no degrees) at each tile edge of
     ``AUTOTUNE_EDGES``, and screened at edge 1,024 with each super-tile
     factor of ``AUTOTUNE_SUPERTILES``; then a default build of each kind,
     which must resolve to the best. The screened builds equal the
@@ -2170,7 +2213,8 @@ def autotune_phase(torch, np, tops, module_preservation, kw, card,
         del res, ref
 
         # ---- (b) the atlas tile pass's edge and super-tile factor ---------
-        x = grouped_support(np, BUILD_GENES, BUILD_SAMPLES, BUILD_GROUPS)
+        genes = BUILD_GENES if full else WHOLE_SWEEP_GENES
+        x = grouped_support(np, genes, BUILD_SAMPLES, BUILD_GROUPS)
         tn = TiledNetwork.from_data(x, BETA)
         del x
         pair = dict(top_k=BUILD_K, degree=False,
@@ -2244,7 +2288,7 @@ def autotune_phase(torch, np, tops, module_preservation, kw, card,
             os.environ[autotune.STORE_ENV] = before
         shutil.rmtree(top, ignore_errors=True)
     emit({"phase": "autotune", "null": null,
-          "atlas": {"genes": BUILD_GENES, "samples": BUILD_SAMPLES,
+          "atlas": {"genes": genes, "samples": BUILD_SAMPLES,
                     "top_k": BUILD_K, "builds": builds,
                     "resolved": resolved},
           "s": time.perf_counter() - t_phase, "card": card})
@@ -2255,6 +2299,10 @@ def autotune_phase(torch, np, tops, module_preservation, kw, card,
 #: runtime's error codes whose texts the taxonomy classifies, with the
 #: class each must get (cudaError_t values of the CUDA runtime API)
 HANG_TIMEOUT_S = 2.0
+#: the fault_ladder phase's depth: rounds of the policy/telemetry
+#: alternation, and chunks of the profiled null (3 and 40 before the
+#: whole script had to fit its limit)
+FAULT_ROUNDS, PROFILE_CHUNKS = 2, 24
 CUDA_CODES = {2: "fatal", 46: "device_lost", 100: "device_lost",
               214: "device_lost", 220: "device_lost", 700: "fatal",
               710: "fatal", 715: "fatal", 716: "fatal", 719: "fatal"}
@@ -2345,8 +2393,9 @@ def fault_ladder_phase(torch, np, drive, labels, disc, test, refs, card,
        scope) and of telemetry, alternated against neither on the same
        engine, and the telemetry file read back through
        ``aggregate_file``;
-    7. ``profile=`` on the fused streaming call (5,120 permutations in
-       superchunks of one chunk, so the null has a steady window), twice,
+    7. ``profile=`` on the fused streaming call (PROFILE_CHUNKS chunks of
+       permutations in superchunks of one chunk, so the null has a steady
+       window), twice,
        each beside the same call unprofiled: the null's device busy and
        idle share (median and spread) and its top five operations by
        device time, the profiled and unprofiled null seconds, and counts
@@ -2585,7 +2634,7 @@ def fault_ladder_phase(torch, np, drive, labels, disc, test, refs, card,
             # thread the watchdog's escalation can walk away from
             "policy_telemetry_watchdog": streaming(
                 fault_policy=FaultPolicy(), telemetry=Telemetry()),
-        }, rounds=3)
+        }, rounds=FAULT_ROUNDS)
         mean = {k: float(np.mean(v)) for k, v in secs.items()}
         reg = aggregate_file(tel_path)
         # what telemetry does a chunk, each part alone: the memory gauges,
@@ -2629,11 +2678,11 @@ def fault_ladder_phase(torch, np, drive, labels, disc, test, refs, card,
         torch.cuda.empty_cache()
 
         # ---- 7. profile=: the null's device busy and idle share -------
-        # a null long enough for a steady window (40 superchunks of one
+        # a null long enough for a steady window (superchunks of one
         # chunk), profiled twice, each beside the same call unprofiled
         # (P U P U); the counts of all four agree
-        n_prof = 40 * C
-        want = {"fused_stats_counts": 40 * B}
+        n_prof = PROFILE_CHUNKS * C
+        want = {"fused_stats_counts": PROFILE_CHUNKS * B}
         runs, plain_s, first = [], [], None
         for i in range(2):
             trace = os.path.join(top, f"profile{i}")
@@ -4302,7 +4351,46 @@ SERVE_DRILL_PERM, SERVE_CRASH_AT, SERVE_CKPT_EVERY = 2048, 640, 256
 SERVE_WINDOW_S = 1.0
 
 
+def serve_daemon_start(chunk: int) -> tuple:
+    """The serve phase's daemon (drill 3) started in a fresh directory:
+    ``(process, spawn wall clock, directory)``; it boots while drills 1
+    and 2 run. Its socket's path is relative to that directory (a unix
+    socket's path is bounded, a temporary directory's is not)."""
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="netrep_serve_daemon_")
+    code = (
+        "import sys\n"
+        f"sys.path.insert(0, {here()!r})\n"
+        "from netrep_tpu_torch.serve.server import daemon_args, "
+        "serve_daemon\n"
+        f"sys.exit(serve_daemon(daemon_args(socket='serve.sock', "
+        f"chunk={chunk}, journal={os.path.join(root, 'd.jsonl')!r})))\n")
+    t_spawn = time.time()
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=root,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    return proc, t_spawn, root
+
+
 def serve_phase(torch, np, tops, kw, labels, card, dev) -> dict:
+    """:func:`serve_drills` with drill 3's daemon started first, so that
+    its boot overlaps drills 1 and 2; the daemon never outlives the
+    phase."""
+    import shutil
+
+    daemon = serve_daemon_start(128)
+    proc, _t, root = daemon
+    try:
+        return serve_drills(torch, np, tops, kw, labels, card, dev, daemon)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def serve_drills(torch, np, tops, kw, labels, card, dev, daemon) -> dict:
     """The single server (``netrep_tpu_torch.serve``) on the three cohorts
     of ``kw`` (host float32), in three drills:
 
@@ -4332,8 +4420,10 @@ def serve_phase(torch, np, tops, kw, labels, card, dev) -> dict:
        ``recover=True`` completes every request bit-identical to an
        uncrashed server, resumed from the pack's checkpoint (no more than
        one checkpoint interval recomputed).
-    3. **The daemon over a socket**: a subprocess on
-       ``serve_daemon(daemon_args(...))``; ``ping``, ``register_fixture``,
+    3. **The daemon over a socket**: ``daemon``, from
+       :func:`serve_daemon_start`, a subprocess on
+       ``serve_daemon(daemon_args(...))`` (its ``ready_s`` from the spawn to
+       its ready line's own clock); ``ping``, ``register_fixture``,
        two ``analyze`` bit-equal to the same requests in process,
        ``metrics``, ``stats``, ``shutdown`` with its ``drained`` line and
        exit code 0.
@@ -4706,28 +4796,16 @@ def serve_phase(torch, np, tops, kw, labels, card, dev) -> dict:
               "recover_s": recover_s, "card": card})
 
         # ---- the daemon over a unix socket ---------------------------
-        # the socket's path is relative to both processes' directory (a
-        # unix socket's path is bounded, a temporary directory's is not)
-        sock, here = "serve.sock", os.getcwd()
-        os.chdir(root)
-        code = (
-            "import sys\n"
-            f"sys.path.insert(0, {os.path.dirname(os.path.abspath(__file__))!r})\n"
-            "from netrep_tpu_torch.serve.server import daemon_args, "
-            "serve_daemon\n"
-            f"sys.exit(serve_daemon(daemon_args(socket={sock!r}, "
-            f"chunk={chunk}, journal={os.path.join(root, 'd.jsonl')!r})))\n")
-        t0 = time.perf_counter()
-        proc = subprocess.Popen([sys.executable, "-c", code],
-                                stdout=subprocess.PIPE,
-                                stderr=subprocess.PIPE, text=True)
+        proc, t_spawn, droot = daemon
+        here = os.getcwd()
+        os.chdir(droot)
         try:
             ready = json.loads(proc.stdout.readline() or "{}")
             if ready.get("serve") != "ready":
                 raise RuntimeError(f"serve daemon did not start: "
                                    f"{proc.stderr.read()[-2000:]}")
-            start_s = time.perf_counter() - t0
-            client = SocketClient(sock, timeout=1200)
+            start_s = ready["boot"]["ready_t"] - t_spawn
+            client = SocketClient("serve.sock", timeout=1200)
             pong = client.ping()
             dfx = client.register_fixture("acme", "fx", **SERVE_FIXTURE)
             t0 = time.perf_counter()
@@ -6877,15 +6955,32 @@ def cli_env(**extra) -> dict:
     return env
 
 
+def start_cli(*argv, cwd=None, **env) -> tuple:
+    """``python -m netrep_tpu_torch ARGV`` started: ``(process, start
+    time)`` for :func:`wait_cli`."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "netrep_tpu_torch", *argv], cwd=cwd or here(),
+        env=cli_env(**env), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True), time.perf_counter()
+
+
+def wait_cli(started, timeout=900) -> tuple:
+    """``(returncode, stdout, stderr, wall seconds)`` of a process from
+    :func:`start_cli`, killed at ``timeout``."""
+    proc, t0 = started
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    return proc.returncode, out, err, time.perf_counter() - t0
+
+
 def run_cli(*argv, cwd=None, timeout=900, **env) -> tuple:
     """``python -m netrep_tpu_torch ARGV``: ``(returncode, stdout, stderr,
     wall seconds)``."""
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "netrep_tpu_torch", *argv],
-                          cwd=cwd or here(), env=cli_env(**env),
-                          capture_output=True, text=True, timeout=timeout)
-    return (proc.returncode, proc.stdout, proc.stderr,
-            time.perf_counter() - t0)
+    return wait_cli(start_cli(*argv, cwd=cwd, **env), timeout)
 
 
 def last_json(text: str) -> dict:
@@ -6926,14 +7021,11 @@ def daemon_boot(cwd: str, store: str) -> dict:
                                f"{proc.stderr.read()[-3000:]}")
         from netrep_tpu_torch.serve.client import SocketClient
 
-        old = os.getcwd()
-        os.chdir(cwd)
-        try:
-            c = SocketClient("s.sock", timeout=120)
-            c.shutdown()
-            c.close()
-        finally:
-            os.chdir(old)
+        # the absolute path: another thread may hold this process's
+        # working directory (the whole script's fleet_daemon)
+        c = SocketClient(os.path.join(cwd, "s.sock"), timeout=120)
+        c.shutdown()
+        c.close()
         out, err = proc.communicate(timeout=120)
     finally:
         if proc.poll() is None:
@@ -6958,7 +7050,9 @@ def startup_phase(card, first_launch=True) -> dict:
     - **first_null**: ``warmup --measure`` at the main path's widths
       (``FLEET_FIXTURE``, chunk 128, ``STARTUP_PERM`` permutations) in a
       fresh process, cold (another empty store) and warm: ``first_run_s``,
-      ``compile_span_s``, ``source``, permutations/s, the process's wall;
+      ``compile_span_s``, ``source``, permutations/s, the process's wall
+      (each started beside the daemon of the same temperature: two
+      processes at a time);
     - **first_launch** (``--startup``; the whole script leaves it out for
       time): ``warmup`` on the warm store at the default shape: each
       engine's first chunk in a fresh process, with its launches.
@@ -6974,11 +7068,22 @@ def startup_phase(card, first_launch=True) -> dict:
     out = {}
     try:
         daemon_store = os.path.join(top, "store_d")
-        boots = {}
+        measure_store = os.path.join(top, "store_m")
+        boots, firsts, measured = {}, {}, {}
+        g = FLEET_FIXTURE
         for temp in ("cold", "warm"):
+            measured[temp] = start_cli(
+                "warmup", "--measure", "--json", "--genes", str(g["genes"]),
+                "--modules", str(g["modules"]), "--samples",
+                str(g["n_samples"]), "--fixture-seed", str(g["seed"]),
+                "--chunk", "128", "--n-perm", str(STARTUP_PERM), "--store",
+                measure_store)
             cwd = os.path.join(top, temp)
             os.makedirs(cwd)
-            boots[temp] = daemon_boot(cwd, daemon_store)
+            try:
+                boots[temp] = daemon_boot(cwd, daemon_store)
+            finally:
+                measured[temp] = wait_cli(measured[temp])
             srcs = {v["source"] for v in boots[temp]["libraries"].values()}
             want = "jit" if temp == "cold" else "aot"
             if srcs != {want} or len(boots[temp]["libraries"]) != 3:
@@ -6986,16 +7091,8 @@ def startup_phase(card, first_launch=True) -> dict:
                                    f"{boots[temp]['libraries']}")
         out["daemon"] = boots
         emit({"phase": "startup", "part": "daemon", **boots, "card": card})
-        measure_store = os.path.join(top, "store_m")
-        firsts = {}
-        g = FLEET_FIXTURE
         for temp in ("cold", "warm"):
-            rc, so, se, wall = run_cli(
-                "warmup", "--measure", "--json", "--genes", str(g["genes"]),
-                "--modules", str(g["modules"]), "--samples",
-                str(g["n_samples"]), "--fixture-seed", str(g["seed"]),
-                "--chunk", "128", "--n-perm", str(STARTUP_PERM), "--store",
-                measure_store)
+            rc, so, se, wall = measured[temp]
             if rc != 0:
                 raise RuntimeError(f"startup: warmup --measure ({temp}) exit "
                                    f"{rc}: {se[-3000:]}")
@@ -7165,8 +7262,14 @@ def fleet_daemon_phase(torch, np, card, refs=None) -> dict:
     ``FLEET_FIXTURE`` registered through the coordinator's socket.
 
     1. Spawn: the coordinator's ready line (both replicas up), each
-       replica's boot split and its libraries' source, the card's memory
-       with the two contexts, and the coordinator without a CUDA context.
+       replica's boot split and its libraries' source, the whole card's
+       used memory before the spawn, with the two contexts, after the
+       registration and after the first request (``whole_card_used_gib``:
+       ``torch.cuda.mem_get_info``, so in the whole script, where this
+       phase runs beside the start-up drills, ``multi_process`` and the
+       installed child, it counts their memory too; the card does not
+       name a container's processes, so nothing narrower can be read),
+       and the coordinator without a CUDA context.
     2. Seed 300 served; seeds 301 and 302 submitted together, and the
        replica daemon with work in flight SIGKILLed mid-pack (the ``chaos
        --fleet`` drill): the coordinator fails its shipped journal over to
@@ -7341,9 +7444,10 @@ def fleet_daemon_phase(torch, np, card, refs=None) -> dict:
             raise RuntimeError(f"fleet_daemon: launches {launches}")
         out = {"fixture": FLEET_FIXTURE, "n_perm": N_PERM,
                "spawn_s": spawn_s, "replicas": replicas,
-               "card_used_gib": {"before": used0, "two_contexts": used_ready,
-                                 "registered": used_registered,
-                                 "after_first_request": used_engine},
+               "whole_card_used_gib": {
+                   "before": used0, "two_contexts": used_ready,
+                   "registered": used_registered,
+                   "after_first_request": used_engine},
                "coordinator_cuda_initialized": False,
                "register_s_two_replicas": register_s,
                "first_request_s": first_s, "killed": victim[0],
@@ -7555,6 +7659,384 @@ def lint_check(card, started=None) -> dict:
     return row
 
 
+#: the installed child's five network_properties modules
+INSTALLED_PROP_MODULES = 5
+#: the installed child: a fresh interpreter that reaches the port only
+#: through the installed copy (``sys.argv[1]``) from a working directory
+#: outside the checkout (``sys.argv[2]``, which holds the inputs the parent
+#: wrote). ``mats`` (this script's, with BETA) is inserted before the body.
+INSTALLED_HEAD = r'''
+import json
+import os
+import sys
+import time
+
+T0 = time.perf_counter()
+import numpy as np
+import torch
+
+import netrep_tpu_torch.api as nt
+
+SITE, RUN = sys.argv[1], sys.argv[2]
+nt.module_preservation  # the entry point's modules load here, in IMPORT_S
+from netrep_tpu_torch import ops as tops
+from netrep_tpu_torch.ops import _build
+
+IMPORT_S = time.perf_counter() - T0
+'''
+INSTALLED_BODY = r'''
+
+def under(path, top):
+    return os.path.realpath(path).startswith(os.path.realpath(top) + os.sep)
+
+
+def main():
+    out = {"api_file": nt.__file__, "import_s": IMPORT_S,
+           "cwd": os.getcwd()}
+    if not under(nt.__file__, SITE):
+        raise SystemExit(f"netrep_tpu_torch.api from {nt.__file__}, not "
+                         f"from the install {SITE}")
+    spec = json.load(open(os.path.join(RUN, "inputs.json")))
+    arrays = np.load(os.path.join(RUN, "inputs.npz"))
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    (dd, dc, dn), (td, tc, tn) = [
+        [m.cpu().numpy() for m in mats(torch, arrays[k], dev)]
+        for k in ("xd", "xt")]
+    torch.cuda.empty_cache()
+    out["host_inputs_s"] = time.perf_counter() - t0
+    pair = dict(network={"disc": dn, "test": tn},
+                data={"disc": dd, "test": td},
+                correlation={"disc": dc, "test": tc},
+                module_assignments=spec["labels"], discovery="disc",
+                test="test")
+    tops.reset_launches()
+    t0 = time.perf_counter()
+    res = nt.module_preservation(**pair, n_perm=spec["n_perm"],
+                                 seed=spec["seed"], device="cuda")
+    out["call_s"] = time.perf_counter() - t0
+    out["launches"] = {fn.__name__: fn.launches for fn in tops.kernels()}
+    out["profile"] = {k: res.profile[k] for k in (
+        "input_s", "engine_s", "observed_s", "null_s", "perms_per_s")}
+    info = _build.BUILD_INFO["fused_stats"]
+    out["fused_stats"] = {"source": info["source"], "lib": info["lib"],
+                          "nvcc_s": info["seconds"]}
+    out["module_labels"] = list(res.module_labels)
+    out["preserved"] = list(res.preserved_modules())
+    out["completed"] = int(res.completed)
+    t0 = time.perf_counter()
+    props = nt.network_properties(**pair, modules=spec["prop_modules"],
+                                  device="cuda")
+    out["props_s"] = time.perf_counter() - t0
+    keep = {f"props/{m}/{k}": np.asarray(props[m][k], dtype=np.float64)
+            for m in spec["prop_modules"] for k in spec["prop_keys"]}
+    out["required_perms"] = [nt.required_perms(a, n_tests=n)
+                             for a, n in spec["required_perms"]]
+    np.savez(os.path.join(RUN, "result.npz"), nulls=res.nulls,
+             observed=res.observed, p_values=res.p_values, **keep)
+    del pair, res, props, dd, dc, dn, td, tc, tn
+    torch.cuda.empty_cache()
+    try:
+        nt.plot_module
+        out["plot_module"] = "resolved"
+    except ImportError as e:
+        out["plot_module"] = f"ImportError: {e}"
+    import importlib.util
+    mpl = importlib.util.find_spec("matplotlib") is not None
+    ns = {"DEVICE": "cuda"}
+    ran, skipped = 0, []
+    t0 = time.perf_counter()
+    for i, block in enumerate(spec["vignette"]):
+        if not mpl and ("matplotlib" in block or "plot_" in block):
+            skipped.append(i + 1)
+            continue
+        exec(compile(block, f"vignette_torch block {i + 1}", "exec"), ns)
+        ran += 1
+    out["vignette"] = {"blocks": len(spec["vignette"]), "ran": ran,
+                       "skipped_plot_blocks": skipped, "matplotlib": mpl,
+                       "s": time.perf_counter() - t0,
+                       "result_completed": int(ns["result"].completed),
+                       "r2_completed": int(ns["r2"].completed),
+                       "selftest_ok": bool(ns["report"]["ok"])}
+    out["libraries"] = {n: {"source": v["source"], "lib": v["lib"]}
+                        for n, v in _build.BUILD_INFO.items()}
+    out["jax_loaded"] = "jax" in sys.modules
+    out["netrep_tpu_loaded"] = "netrep_tpu" in sys.modules
+    out["wall_s"] = time.perf_counter() - T0
+    print(json.dumps(out), flush=True)
+
+
+main()
+'''
+
+
+def wheel_files(top: str) -> list:
+    """The files a wheel of the checkout at ``top`` carries, as the
+    packaging settings name them: every ``.py`` of ``netrep_tpu*`` and the
+    package data (``csrc/*.cu``, ``native/*.cpp``), relative to ``top``."""
+    out = []
+    for pkg in ("netrep_tpu", "netrep_tpu_torch"):
+        for root, dirs, files in os.walk(os.path.join(top, pkg)):
+            dirs[:] = [d for d in dirs if d != "__pycache__"]
+            for f in files:
+                if f.endswith((".py", ".cu", ".cpp")):
+                    out.append(os.path.relpath(os.path.join(root, f), top))
+    return sorted(out)
+
+
+def installed_start(np, xd, xt, labels) -> dict:
+    """The ``installed`` phase's first half, host work only: a wheel of
+    the checkout beside this script built offline (``pip wheel --no-deps
+    --no-build-isolation --no-index`` on a copy of the files it packages,
+    so nothing is written into the checkout) and installed with ``pip
+    install --no-deps --no-index --target`` into a fresh directory outside
+    the checkout (a wheel that does not build or install fails the
+    phase, with pip's own error); the main path's data
+    arrays and labels written beside it; then the child started: a fresh
+    interpreter with ``PYTHONPATH`` naming only the install, its working
+    directory outside the checkout, no kernel-library or autotune store
+    named (so both land in the install's default). Returns the state
+    :func:`installed_check` waits on."""
+    import shutil
+    import tempfile
+    import zipfile
+
+    t0 = time.perf_counter()
+    top = tempfile.mkdtemp(prefix="netrep_installed_")
+    src, whl, site, run = (os.path.join(top, d) for d in
+                           ("src", "wheel", "site", "run"))
+    files = wheel_files(here())
+    for rel in files + ["pyproject.toml", "README.md"]:
+        os.makedirs(os.path.dirname(os.path.join(src, rel)), exist_ok=True)
+        shutil.copy2(os.path.join(here(), rel), os.path.join(src, rel))
+    pip = [sys.executable, "-m", "pip"]
+    env = dict(os.environ, PIP_NO_INDEX="1", PIP_DISABLE_PIP_VERSION_CHECK="1")
+    built = subprocess.run(
+        pip + ["wheel", "--no-deps", "--no-build-isolation", "--no-index",
+               "-w", whl, src],
+        capture_output=True, text=True, env=env, timeout=300)
+    wheels = sorted(os.listdir(whl)) if os.path.isdir(whl) else []
+    if built.returncode != 0 or len(wheels) != 1:
+        raise RuntimeError(f"installed: pip wheel exit {built.returncode}, "
+                           f"wheels {wheels}: "
+                           f"{(built.stderr or built.stdout)[-3000:]}")
+    path = os.path.join(whl, wheels[0])
+    with zipfile.ZipFile(path) as z:
+        names = z.namelist()
+    missing = [f for f in files if f not in names]
+    if missing:
+        raise RuntimeError(f"installed: the wheel lacks {missing[:10]}")
+    inst = subprocess.run(
+        pip + ["install", "--no-deps", "--no-index", "--target", site, path],
+        capture_output=True, text=True, env=env, timeout=300)
+    if inst.returncode != 0:
+        raise RuntimeError(f"installed: pip install exit "
+                           f"{inst.returncode}: {inst.stderr[-3000:]}")
+    state = {"top": top, "site": site, "run": run, "files": len(files),
+             "wheel": wheels[0], "wheel_bytes": os.path.getsize(path),
+             "wheel_entries": len(names),
+             "port_entries": sum(n.startswith("netrep_tpu_torch/")
+                                 for n in names)}
+    shutil.rmtree(src, ignore_errors=True)
+    os.makedirs(run)
+    mods = sorted(set(labels) - {"0"}, key=int)[:INSTALLED_PROP_MODULES]
+    spec = {"labels": [str(v) for v in labels], "n_perm": N_PERM,
+            "seed": SEED, "prop_modules": mods,
+            "prop_keys": ["degree", "summary", "contribution", "coherence",
+                          "avg_weight"],
+            "required_perms": [[0.05, 1], [0.05, MODULES * 7],
+                               [0.01, MODULES * 7]],
+            "vignette": vignette_blocks()}
+    with open(os.path.join(run, "inputs.json"), "w") as f:
+        json.dump(spec, f)
+    np.savez(os.path.join(run, "inputs.npz"), xd=xd, xt=xt)
+    import inspect
+
+    with open(os.path.join(run, "child.py"), "w") as f:
+        f.write(INSTALLED_HEAD + f"\nBETA = {BETA!r}\n\n\n"
+                + inspect.getsource(mats) + INSTALLED_BODY)
+    child_env = {k: v for k, v in os.environ.items()
+                 if k not in ("PYTHONPATH", "NETREP_AOT_STORE",
+                              "NETREP_AUTOTUNE_STORE", "NETREP_FAULT_PLAN")}
+    child_env["PYTHONPATH"] = site
+    state["setup_s"] = time.perf_counter() - t0
+    state["proc"] = subprocess.Popen(
+        [sys.executable, os.path.join(run, "child.py"), site, run], cwd=run,
+        env=child_env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    return state
+
+
+def vignette_blocks() -> list:
+    """The ``python`` blocks of ``docs/vignette_torch.md``, in order."""
+    with open(os.path.join(here(), "docs", "vignette_torch.md")) as f:
+        return re.findall(r"```python\n(.*?)```", f.read(), flags=re.S)
+
+
+def installed_check(np, state, fused_run, kw, launches, card) -> dict:
+    """The ``installed`` phase's second half: wait for the child, then
+    hold it to this process. Fails unless the child imported the port from
+    the install, built ``fused_stats.cu`` there (``source`` ``jit``, the
+    library under the install, its file name — the source's and flags'
+    digest — the checkout's, the installed source byte-equal to the
+    checkout's) and launched the fused-statistics kernel as often as the
+    main path's materialized run (``launches``); unless its module sets,
+    counts and p-values equal ``fused_run``'s (the main path's call on the
+    same inputs in this process) and its null equals it bit for bit (the
+    same kernel and chunking on the same card); unless its
+    ``network_properties`` and ``required_perms`` equal this process's;
+    unless ``plot_module`` raised the ``plot`` extra's ``ImportError``
+    where matplotlib is absent and every other block of the walkthrough
+    ran; and unless ``jax`` never loaded. Prints the largest differences
+    either way."""
+    import hashlib
+    import shutil
+
+    from netrep_tpu_torch.models.properties import network_properties
+    from netrep_tpu_torch.ops import _build
+    from netrep_tpu_torch.ops import pvalues as pv
+
+    proc, site, run = state["proc"], state["site"], state["run"]
+    try:
+        try:
+            so, se = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"installed: the child exited "
+                               f"{proc.returncode}: {se[-4000:]}")
+        got = last_json(so)
+        res = np.load(os.path.join(run, "result.npz"))
+        lib = got["fused_stats"]["lib"]
+        inst_src = os.path.join(site, "netrep_tpu_torch", "csrc",
+                                "fused_stats.cu")
+        digest = {p: hashlib.sha256(open(p, "rb").read()).hexdigest()
+                  for p in (inst_src, str(_build.CSRC / "fused_stats.cu"))}
+        store = os.path.join(site, "build", "netrep_tpu_torch")
+        nulls_equal = bool(np.array_equal(res["nulls"], fused_run.nulls,
+                                          equal_nan=True))
+        diff = {
+            "nulls": nulls_err(np, res["nulls"], fused_run.nulls),
+            "observed": float(np.abs(res["observed"]
+                                     - fused_run.observed).max()),
+            "p_values": float(np.abs(res["p_values"]
+                                     - fused_run.p_values).max()),
+        }
+        counts_equal = all(np.array_equal(a, b) for a, b in zip(
+            pv.tail_counts(res["observed"], res["nulls"]),
+            pv.tail_counts(fused_run.observed, fused_run.nulls)))
+        mods = sorted(set(kw["module_assignments"]) - {"0"},
+                      key=int)[:INSTALLED_PROP_MODULES]
+        pair = {f: {k: kw[f][k] for k in ("disc", "test")}
+                for f in ("network", "data", "correlation")}
+        props = network_properties(
+            **pair, module_assignments=kw["module_assignments"],
+            discovery="disc", test="test", modules=mods, device="cuda")
+        props_diff = max(
+            float(np.max(np.abs(res[f"props/{m}/{k}"] - np.asarray(
+                props[m][k], dtype=np.float64))))
+            for m in mods for k in ("degree", "summary", "contribution",
+                                    "coherence", "avg_weight"))
+        want_perms = [pv.required_perms(a, n_tests=n) for a, n in (
+            (0.05, 1), (0.05, MODULES * 7), (0.01, MODULES * 7))]
+        vig = got["vignette"]
+        plot_ok = (vig["matplotlib"] and got["plot_module"] == "resolved") or (
+            not vig["matplotlib"]
+            and "pip install netrep-tpu[plot]" in got["plot_module"])
+        row = {
+            "phase": "installed",
+            "wheel": state["wheel"], "wheel_bytes": state["wheel_bytes"],
+            "wheel_entries": state["wheel_entries"],
+            "port_entries": state["port_entries"],
+            "setup_s": state["setup_s"],
+            "child": {k: got[k] for k in (
+                "import_s", "host_inputs_s", "call_s", "props_s",
+                "wall_s", "profile", "launches",
+                "completed", "api_file", "cwd", "plot_module",
+                "vignette", "libraries", "jax_loaded")},
+            "nvcc_s": got["fused_stats"]["nvcc_s"],
+            "fused_stats": got["fused_stats"], "store": store,
+            "source_sha256_equal": len(set(digest.values())) == 1,
+            "library_name_equal": os.path.basename(lib)
+            == _build.library_path("fused_stats").name,
+            "nulls_bit_equal": nulls_equal, "counts_equal": counts_equal,
+            "max_abs_diff_vs_in_process": diff,
+            "props_max_abs_diff": props_diff,
+            "required_perms": got["required_perms"],
+            "genes": GENES, "modules": MODULES, "samples": SAMPLES,
+            "n_perm": N_PERM, "seed": SEED, "card": card}
+        emit(row)
+        fails = []
+        if not (got["api_file"].startswith(site + os.sep)
+                and got["cwd"].startswith(state["top"])):
+            fails.append("the child did not run the installed copy")
+        if got["fused_stats"]["source"] != "jit" or not lib.startswith(
+                store + os.sep):
+            fails.append(f"fused_stats acquired {got['fused_stats']}")
+        if not (row["source_sha256_equal"] and row["library_name_equal"]):
+            fails.append("the installed source differs from the checkout's")
+        want = launches["fused_stats_values"]
+        if got["launches"]["fused_stats_values"] != want:
+            fails.append(f"{got['launches']} fused launches, main path "
+                         f"{want}")
+        if not (nulls_equal and counts_equal and np.array_equal(
+                res["p_values"], fused_run.p_values)):
+            fails.append(f"results differ from the in-process call: {diff}")
+        if (got["module_labels"] != list(fused_run.module_labels)
+                or got["preserved"] != list(fused_run.preserved_modules())
+                or got["completed"] != fused_run.completed):
+            fails.append("module sets differ from the in-process call")
+        if props_diff != 0.0 or got["required_perms"] != want_perms:
+            fails.append(f"network_properties / required_perms differ: "
+                         f"{props_diff}, {got['required_perms']} vs "
+                         f"{want_perms}")
+        if not plot_ok:
+            fails.append(f"plot_module: {got['plot_module']}")
+        if (vig["ran"] + len(vig["skipped_plot_blocks"]) != vig["blocks"]
+                or (vig["matplotlib"] and vig["skipped_plot_blocks"])
+                or vig["result_completed"] != 250
+                or vig["r2_completed"] != 256 or not vig["selftest_ok"]):
+            fails.append(f"the walkthrough: {vig}")
+        if got["jax_loaded"] or got["netrep_tpu_loaded"]:
+            fails.append("the child loaded jax or the JAX package")
+        if fails:
+            raise RuntimeError("installed: " + "; ".join(fails))
+        return row
+    finally:
+        shutil.rmtree(state["top"], ignore_errors=True)
+
+
+def installed_only() -> int:
+    """``--installed``: the main path's fused materialized run in this
+    process, then the ``installed`` phase on the same inputs."""
+    setup = mode_setup()
+    if setup is None:
+        return 1
+    torch, np, dev, card = setup
+    from netrep_tpu_torch import ops as tops
+    from netrep_tpu_torch.models.preservation import module_preservation
+    from netrep_tpu_torch.utils.config import EngineConfig
+
+    _sizes, labels, (xd, xt, _x2) = make_cohorts(np)
+    (dd, dc, dn), (td, tc, tn) = [
+        [m.cpu().numpy() for m in mats(torch, x, dev)] for x in (xd, xt)]
+    torch.cuda.empty_cache()
+    kw = dict(network={"disc": dn, "test": tn},
+              data={"disc": dd, "test": td},
+              correlation={"disc": dc, "test": tc},
+              module_assignments=list(labels), discovery="disc",
+              test="test", n_perm=N_PERM, seed=SEED, device="cuda")
+    drive = make_drive(torch, np, tops, module_preservation, kw, card)
+    fused_run, launches, _mem = drive("main_path", ["fused_stats_values"],
+                                      config=EngineConfig())
+    installed_check(np, installed_start(np, xd, xt, labels), fused_run, kw,
+                    launches, card)
+    print(card_line(), flush=True)
+    return 0
+
+
 def native_only() -> int:
     """``--native``: the lint check, then the main path's fused
     materialized run on the card and the ``native`` phase on the same
@@ -7670,21 +8152,32 @@ def main() -> int:
     emit({"phase": "build", "total_s": time.perf_counter() - t0,
           "sources": built})
 
-    # ---- the start-up path: traced starts, the CLI, the daemon fleet ----
-    # first, while this process holds little host memory: two replica
-    # daemons generate the fixture at once (the results are held to the
-    # in-process fleet's after the fleet phase)
-    FLEET_FIXTURE = dict(FLEET_FIXTURE, genes=WHOLE_FIXTURE_GENES)
-    startup_phase(card, first_launch=False)
-    cli_phase(np, card)
-    daemon_got = fleet_daemon_phase(torch, np, card)
+    # ---- the fresh processes, side by side ------------------------------
+    # first, while this process holds little host memory, and each beside
+    # the others: the installed port's child on the main path's cohorts
+    # (held to main_path below), the start-up drills and the daemon fleet
+    # from two threads (its results are held to the in-process fleet's
+    # after the fleet phase), and the two-process runs from this thread
+    # (their references need this process's card)
+    from concurrent.futures import ThreadPoolExecutor
 
-    # ---- the invariant linter over the checkout's port, in the background
-    # while the kernels are held to their plain versions (checked below)
+    sizes, labels, (xd, xt, x2) = make_cohorts(np)
+    # the invariant linter over the checkout's port (checked before the
+    # main path)
     lint = lint_start()
+    installed = installed_start(np, xd, xt, labels)
+    FLEET_FIXTURE = dict(FLEET_FIXTURE, genes=WHOLE_FIXTURE_GENES)
+    with ThreadPoolExecutor(2) as pool:
+        started = pool.submit(startup_phase, card, first_launch=False)
+        daemon = pool.submit(fleet_daemon_phase, torch, np, card)
+        mp_used = multi_process_phase(torch, np, module_preservation, card,
+                                      dev)
+        started.result()
+        daemon_got = daemon.result()
+    cli_phase(np, card)
+
     # ---- inputs at the north-star width, from one seed -------------------
     t0 = time.perf_counter()
-    sizes, labels, (xd, xt, x2) = make_cohorts(np)
     (dd, dc, dn), (td, tc, tn) = mats(torch, xd, dev), mats(torch, xt, dev)
     torch.cuda.synchronize()
     emit({"phase": "inputs", "genes": GENES, "samples": SAMPLES,
@@ -7952,6 +8445,10 @@ def main() -> int:
           "modules_preserved": int(preserved.sum()),
           "planted_preserved": MODULES // 2})
     fused_run = a
+    # ---- the same call from the installed wheel in a fresh process -------
+    launches[("installed",)] = installed_check(
+        np, installed, fused_run, kw, launches[True], card)["child"][
+            "launches"]
     # ---- the native C++ host tier on the same inputs and seed -----------
     native_phase(np, module_preservation, kw, fused_run, card)
     # ---- the autotune store: superchunk, tile edge and super-tile sweeps -
@@ -8210,10 +8707,8 @@ def main() -> int:
     daemon_results_check(np, daemon_got, results_b, card)
     # ---- the forensic chain: the dump op's bundle, a refused checkpoint -
     forensics_phase(np, module_preservation, card)
-    # ---- two processes on the card over gloo, one perm row each --------
-    launches.update(multi_process_phase(
-        torch, np, module_preservation, card, dev,
-        kw20={**kw, **one_test, "test": "test"}))
+    # ---- two processes on the card over gloo (run at the start) ---------
+    launches.update(mp_used)
     del kw, runs, a, b, comp, der, multi, fused_run, res, seq, f32_ref
     del composed_adaptive
     del dd, dc, dn, td, tc, tn, t2d, t2c, t2n
@@ -8325,6 +8820,7 @@ def main() -> int:
         "fault_ladder shrink/grow (2x1 perm mesh)": ("faults",
                                                      "shrink_grow"),
         "fault_ladder CPU rung (the card's chunks)": ("faults", "cpu_rung"),
+        "installed: a fresh process from the wheel": ("installed",),
         "fault_ladder composed streaming transient": (
             "faults", "composed_transient"),
         "fault_ladder profile= (fused streaming)": ("faults", "profile"),
@@ -8421,7 +8917,8 @@ if __name__ == "__main__":
              "--tooling": tooling_only, "--startup": startup_only,
              "--native": native_only, "--autotune": autotune_only,
              "--multi-test-mesh": multi_test_mesh_only,
-             "--multi-process": multi_process_only}
+             "--multi-process": multi_process_only,
+             "--installed": installed_only}
     args = sys.argv[1:]
     if len(args) > 1 or (args and args[0] not in modes):
         sys.exit(f"usage: {sys.argv[0]} [{' | '.join(modes)}]")
