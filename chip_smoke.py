@@ -357,7 +357,20 @@ only the main path's fused materialized run and ``installed``, and
     python3 chip_smoke.py --screened-mesh
 
 only the 2×1 screened streaming null of one process, a warm-up run and
-four timed ones (``screened_mesh``).
+four timed ones (``screened_mesh``), and
+
+    python3 chip_smoke.py --memory
+
+only where the datasets' matrices live and the card's peaks (the main
+path, the 1×4 ring and psum, ``network_properties``, the server, the
+in-process fleet, ``genome_scale``), and
+
+    python3 chip_smoke.py --large-modules
+
+only the main path's width with modules of 1,000 to 4,000 genes, the
+discovery on the host against the same call with it on the card
+(``engine_s``, bit-equal results), and one 4,000-gene block gathered on
+the host and on the card.
 Each mode runs
 through the ``netrep_tpu_torch`` beside the script: copied into another checkout,
 it measures that checkout's version on the same inputs.
@@ -404,6 +417,11 @@ def card_line() -> str:
 
 GENES, SAMPLES, MODULES, SIZES = 20_000, 128, 50, (30, 200)
 N_PERM, SEED, BETA = 1000, 2026, 2.0
+#: permutations of each request of the serve and fleet memory reads
+SERVE_MEM_PERM = 256
+#: the --large-modules mode: modules of these many genes at the main
+#: path's width, its permutations and its calls (each placement)
+LARGE_MODULES, LARGE_PERM, LARGE_CALLS = (1000, 2000, 3000, 4000), 128, 4
 #: the wide_samples phase: cohorts of this many samples at the same widths
 WIDE_SAMPLES, WIDE_PERM = 1000, 1000
 #: the genome_scale phase: two datasets of this many genes, streaming
@@ -658,6 +676,62 @@ def fused_bound(costmodel, engine, counting, dtype="float32"):
     return {"family": cost.family, "bytes": b, "flops": f, "bytes_ms": t_b,
             "ops_ms": t_o, "bound_ms": max(t_b, t_o),
             "bound_by": "bytes" if t_b >= t_o else "operations"}
+
+
+def storages(torch, objs, device_type="cuda") -> dict:
+    """``{(device, data pointer): bytes}`` of the distinct tensor storages
+    on ``device_type`` reachable from ``objs`` (attributes, lists, tuples,
+    dicts, dataclasses): what a set of engines or registrations holds,
+    each storage once, read the same way in any checkout of the port."""
+    seen, found = set(), {}
+    stack = list(objs)
+    while stack:
+        obj = stack.pop()
+        if id(obj) in seen or obj is None:
+            continue
+        seen.add(id(obj))
+        if isinstance(obj, torch.Tensor):
+            if obj.device.type == device_type:
+                st = obj.untyped_storage()
+                found[(str(obj.device), st.data_ptr())] = st.nbytes()
+        elif isinstance(obj, dict):
+            stack.extend(obj.values())
+        elif isinstance(obj, (list, tuple)):
+            stack.extend(obj)
+        elif hasattr(obj, "__dict__") and not isinstance(obj, type):
+            stack.extend(vars(obj).values())
+    return found
+
+
+def gib_of(found: dict) -> float:
+    return sum(found.values()) / 2**30
+
+
+def spy_datasets(torch):
+    """``(on_card, undo)``: for every dataset ``build_datasets`` returns
+    from now on, ``on_card[name]`` is the bytes of the CUDA tensors its
+    matrices are when the input phase hands it over (:func:`card_bytes`;
+    a later ``place`` may release them)."""
+    from netrep_tpu_torch.models import dataset as tds
+
+    real = tds.build_datasets
+    on_card = {}
+
+    def spy(*a, **k):
+        out = real(*a, **k)
+        on_card.update({n: card_bytes(torch, d) for n, d in out.items()})
+        return out
+
+    tds.build_datasets = spy
+    return on_card, lambda: setattr(tds, "build_datasets", real)
+
+
+def card_bytes(torch, d) -> int:
+    """Bytes of the CUDA tensors a dataset's matrices are (0: none of its
+    matrices is on the card)."""
+    return sum(t.numel() * t.element_size()
+               for t in (d.correlation, d.network, d.data)
+               if isinstance(t, torch.Tensor) and t.is_cuda)
 
 
 def same(torch, got, want):
@@ -2813,11 +2887,23 @@ def surface(torch, np, kw, labels, card):
     mods = sorted(set(labels) - {"0"}, key=int)[:5]
     pair = {f: {k: kw[f][k] for k in ("disc", "test")}
             for f in ("network", "data", "correlation")}
-    t0 = time.perf_counter()
-    props = network_properties(
-        **pair, module_assignments=list(labels), discovery="disc",
-        test="test", modules=mods, device="cuda")
-    props_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    on_card, undo = spy_datasets(torch)
+    try:
+        t0 = time.perf_counter()
+        props = network_properties(
+            **pair, module_assignments=list(labels), discovery="disc",
+            test="test", modules=mods, device="cuda")
+        props_s = time.perf_counter() - t0
+    finally:
+        undo()
+    props_peak = torch.cuda.max_memory_allocated() / 2**30
+    # only module blocks are read: no dataset's n×n lands on the card
+    if any(on_card.values()):
+        raise RuntimeError(f"network_properties: bytes on the card after "
+                           f"the input phase {on_card}")
     tn, td = kw["network"]["test"], kw["data"]["test"]
     worst = {}
     for lab in mods:
@@ -2857,7 +2943,8 @@ def surface(torch, np, kw, labels, card):
     emit({"phase": "surface", "modules": mods,
           "network_properties": {"seconds": props_s,
                                  "max_abs_vs_host_float64": worst,
-                                 "tolerance": TOL},
+                                 "tolerance": TOL, "peak_gib": props_peak,
+                                 "card_gib_after_input": 0.0},
           "combine_analyses": {"n_perm_each": SURFACE_PERM,
                                "seeds": [1, 2], "runs_s": runs_s,
                                "completed": comb[True].completed,
@@ -3779,14 +3866,99 @@ SINGLE = {"gather_submatrix_fused": 0, "gather_submatrix_fused_local": 0}
 MANY = "gather_submatrix_fused_many"
 
 
+def discovery_props(torch, np, kw, labels, dev, card) -> None:
+    """The main path's discovery buckets built twice at full width:
+    ``build_buckets`` on the host source (its blocks gathered and
+    narrowed on the host) and on the same matrices narrowed to float32 on
+    the card (gathered there); every ``DiscProps`` tensor ``torch.equal``,
+    stored and derived network. Seconds of each build."""
+    from netrep_tpu_torch.parallel.engine import ModuleSpec, build_buckets
+    from netrep_tpu_torch.utils.config import EngineConfig
+
+    labels = np.asarray(labels, dtype=object)
+    specs = [ModuleSpec(k, np.flatnonzero(labels == k),
+                        np.flatnonzero(labels == k))
+             for k in sorted(set(labels) - {"0"}, key=int)]
+    pool = np.arange(len(labels), dtype=np.int32)
+    host = [kw[f]["disc"] for f in ("correlation", "network", "data")]
+    on_card = [torch.as_tensor(h, device=dev, dtype=torch.float32)
+               for h in host]
+    report = {}
+    for name, cfg in (("stored", EngineConfig()),
+                      ("derived", EngineConfig(
+                          network_from_correlation=BETA))):
+        got = {}
+        for where, mats_ in (("host", host), ("card", on_card)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got[where] = build_buckets(*mats_, specs, pool, cfg, dev)
+            torch.cuda.synchronize()
+            report[f"{name}_{where}_s"] = time.perf_counter() - t0
+        pairs = [(x, y) for a, b in zip(got["host"], got["card"])
+                 for x, y in zip(a["disc"], b["disc"])]
+        if len(got["host"]) != len(got["card"]) or not all(
+                torch.equal(x, y) for x, y in pairs):
+            raise RuntimeError(f"discovery props ({name} network) from the "
+                               "host source differ from the card's")
+        report[f"{name}_buckets"] = len(got["host"])
+    del on_card
+    torch.cuda.empty_cache()
+    emit({"phase": "discovery_props", "bit_equal": True, **report,
+          "card": card})
+
+
+def discovery_twins(torch, np, tops, module_preservation, kw, paths,
+                    card) -> None:
+    """Each path of ``paths`` (label → its result, launches and call)
+    called again with the discovery dataset handed over as float32 CUDA
+    tensors, so it is narrowed and gathered on the card (the other
+    placement): observed values, p-values and nulls (materialized) or
+    tallies (streaming) bit-equal, and every launch count equal (the
+    discovery blocks are gathered by indexing wherever they lie)."""
+    on_card = {f: dict(kw[f], disc=torch.as_tensor(
+        kw[f]["disc"], device="cuda", dtype=torch.float32))
+        for f in ("network", "data", "correlation")}
+    report = {}
+    for name, (res, used, call) in paths.items():
+        tops.reset_launches()
+        twin = module_preservation(**{**kw, **on_card, **call})
+        got = {fn.__name__: fn.launches for fn in tops.kernels()}
+        if got != used:
+            raise RuntimeError(f"discovery twin {name}: launches {got}, "
+                               f"expected {used}")
+        pairs = (list(zip(res.values(), twin.values()))
+                 if isinstance(res, dict) else [(res, twin)])
+        for a, b in pairs:
+            same_ = (np.array_equal(a.observed, b.observed)
+                     and np.array_equal(a.p_values, b.p_values)
+                     and (np.array_equal(a.nulls, b.nulls, equal_nan=True)
+                          if a.nulls is not None else all(
+                              np.array_equal(getattr(a, f), getattr(b, f))
+                              for f in ("counts_hi", "counts_lo",
+                                        "counts_eff"))))
+            if not same_:
+                raise RuntimeError(f"discovery twin {name}: the result "
+                                   "differs from the host discovery's")
+        one = next(iter(res.values())) if isinstance(res, dict) else res
+        two = next(iter(twin.values())) if isinstance(twin, dict) else twin
+        report[name] = {"engine_s": one.profile["engine_s"],
+                        "twin_engine_s": two.profile["engine_s"],
+                        "gather_launches": used[MANY]}
+    del on_card
+    torch.cuda.empty_cache()
+    emit({"phase": "discovery_twins", "bit_equal": True, "paths": report,
+          "card": card})
+
+
 def row_launches(chunks, R, mats, ring):
     """Gather launches of a row-sharded call of ``chunks`` chunks on R row
     shards: per chunk, one per step, shard and matrix on the ring (one per
-    block and matrix, psum); the discovery build and the observed pass one
-    per block and matrix each. Ring steps: R - 1 per chunk, each one
-    launch per block and matrix."""
+    block and matrix, psum); the observed pass one per block and matrix;
+    none for the discovery build, whose blocks are gathered by indexing
+    wherever the discovery matrices lie. Ring steps: R - 1 per chunk,
+    each one launch per block and matrix."""
     per_chunk = R * R * mats if ring else R * mats
-    out = {MANY: chunks * per_chunk + 2 * R * mats, **SINGLE}
+    out = {MANY: chunks * per_chunk + R * mats, **SINGLE}
     if ring:
         out["ring_shift_dma"] = chunks * (R - 1) * R * mats
     return out
@@ -4634,7 +4806,13 @@ def serve_drills(torch, np, tops, kw, labels, card, dev, daemon) -> dict:
                     "pool_misses": (st["pool"]["misses"]
                                     - st0["pool"]["misses"]),
                     "pool_held_gib": st["pool"]["held_gib"],
+                    "pool_engines_gib_each": [
+                        gib_of(storages(torch, [e]))
+                        for e in list(srv.pool._lru.values())],
                     "datasets_gib": st["datasets_gib"],
+                    "registrations_pinned_gib": gib_of(storages(
+                        torch, [t.datasets for t in srv._tenants.values()],
+                        "cpu")),
                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
                     "register_s": register_s if rnd == 1 else None,
                     "launches": launches,
@@ -4980,6 +5158,16 @@ def fleet_phase(torch, np, tops, kw, labels, card, dev,
         return {rid: rep.stats()["datasets_gib"]
                 for rid, rep in sorted(fleet.live_replicas().items())}
 
+    def process_gib(fleet):
+        """The live replicas' registrations (host) and pooled engines
+        (card), each storage counted once across the process."""
+        reps = list(fleet.live_replicas().values())
+        return {"pinned_gib_process": gib_of(storages(torch, [
+                    t.datasets for r in reps
+                    for t in r.server._tenants.values()], "cpu")),
+                "pool_gib_process": gib_of(storages(torch, [
+                    list(r.server.pool._lru.values()) for r in reps]))}
+
     def same_counts(what, got, want):
         diff = {f: int(np.sum(np.asarray(got[f]) != np.asarray(want[f])))
                 for f in ("p_values", "counts_hi", "counts_lo",
@@ -5074,6 +5262,7 @@ def fleet_phase(torch, np, tops, kw, labels, card, dev,
                                     for rid, rep in
                                     fleet.live_replicas().items()},
                   "pinned_gib_per_replica": pinned_a,
+                  **process_gib(fleet),
                   "packs": {rid: row["packs"] for rid, row in
                             stats_a["replicas"].items()},
                   "card": card})
@@ -5295,6 +5484,7 @@ def fleet_phase(torch, np, tops, kw, labels, card, dev,
                   "autoscale_up": {"ticks": ticks, "spawn_s": spawn_s,
                                    "spawned": spawned},
                   "pinned_gib_per_replica": pinned_b,
+                  **process_gib(fleet),
                   "evicted": home.rid, "peer": receipt["peer"],
                   "handoff_s": receipt["s"],
                   "requeued": receipt["requeued"],
@@ -5377,7 +5567,7 @@ MP_SCREEN = dict(stat_mode="xla", null_precision="bf16_rescue")
 
 
 def multi_test_mesh_phase(np, pv, drive, cfg, composed_cfg, multi, ref_mem,
-                          launches, chunks, card, dev) -> dict:
+                          launches, chunks, card, dev, twin=None) -> dict:
     """``vmap_tests=True`` against the two cohorts on meshes of the one
     card, each held to the unsplit ``multi_test`` runs ``multi`` (``True``:
     fused materialized, its memory ``ref_mem``; ``False``: composed
@@ -5388,7 +5578,9 @@ def multi_test_mesh_phase(np, pv, drive, cfg, composed_cfg, multi, ref_mem,
     the same run unsplit, and a 2×1 run interrupted after STOP_AFTER
     chunks and resumed unsplit. Launch counts exact: B buckets (from the
     fixture's module sizes), T = 2 cohorts, P perm shards, R row blocks,
-    two stored matrices. Returns the launches by path."""
+    two stored matrices. ``twin`` (given: :func:`discovery_twins` over
+    the caller's inputs) holds the 1×4 psum run to the same call with the
+    discovery dataset on the card. Returns the launches by path."""
     import os
     import shutil
     import tempfile
@@ -5446,10 +5638,11 @@ def multi_test_mesh_phase(np, pv, drive, cfg, composed_cfg, multi, ref_mem,
          {"fused_stats_counts": chunks * B * 2 * T, many: 0}),
         ("perm2x1 composed materialized", perm2, composed_cfg, True, many,
          {many: chunks * 2 * T * 2, **zero}),
-        # per chunk one launch per block, matrix and cohort; the discovery
-        # build and each cohort's observed pass one per block and matrix
+        # per chunk one launch per block, matrix and cohort; each cohort's
+        # observed pass one per block and matrix (the host discovery's
+        # blocks are gathered on the host: no launch)
         ("row1x4 psum streaming", row4, EngineConfig(matrix_sharding="row"),
-         False, many, {many: 4 * 2 * (chunks * T + 1 + T), **zero}))
+         False, many, {many: 4 * 2 * (chunks * T + T), **zero}))
     for name, mesh, config, store, kernel, expect in runs:
         res, used, mem = drive("multi_test_mesh", [kernel], expect,
                                config=config, store_nulls=store, mesh=mesh,
@@ -5475,6 +5668,11 @@ def multi_test_mesh_phase(np, pv, drive, cfg, composed_cfg, multi, ref_mem,
         raise RuntimeError(f"multi_test_mesh composed null differs from "
                            f"the unsplit fused null by {comp_err}")
     same("row1x4 psum streaming", out["row1x4 psum streaming"], ref_stream)
+    if twin is not None:
+        twin({"multi_test_mesh/row1x4_psum": (
+            out["row1x4 psum streaming"], used_by["row1x4 psum streaming"],
+            dict(config=EngineConfig(matrix_sharding="row"),
+                 store_nulls=False, mesh=row4, **mt))})
     same_counts("row1x4 psum streaming", out["row1x4 psum streaming"],
                 ref_stream)
     # adaptive: the 2x1 run against the same run unsplit
@@ -8103,6 +8301,356 @@ def startup_only() -> int:
     return 0
 
 
+def serve_memory(torch, np, kw, labels, card) -> dict:
+    """A server on the card (pool of 8, fused statistics, SERVE_MEM_PERM
+    permutations a request) over the three cohorts of ``kw``: three
+    requests on (disc, test) with three module sets and one on (disc,
+    test2) — four pooled engines, three of them over one test
+    registration. The pool's ``held_gib``, the same engines' storages
+    counted once and per engine (this script's walk, the same in any
+    checkout), the registrations' pinned GiB (each storage once), the
+    card's peak over the requests and the card after ``close()``."""
+    import shutil
+    import tempfile
+
+    from netrep_tpu_torch.serve import (
+        InProcessClient, PreservationServer, ServeConfig,
+    )
+    from netrep_tpu_torch.utils.config import EngineConfig
+
+    mods = sorted(set(labels) - {"0"}, key=int)
+    root = tempfile.mkdtemp(prefix="netrep_servemem_")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    srv = PreservationServer(ServeConfig(engine=EngineConfig(), pool_size=8,
+                                         slo_s=600.0))
+    client = InProcessClient(srv)
+    try:
+        for name in ("disc", "test", "test2"):
+            client.register_dataset(
+                "acme", name, network=kw["network"][name],
+                correlation=kw["correlation"][name], data=kw["data"][name],
+                assignments=labels if name == "disc" else None)
+        torch.cuda.synchronize()
+        registered = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        k = max(1, len(mods) // 5)
+        for t, sub in (("test", mods[:k]), ("test", mods[k:3 * k]),
+                       ("test", mods), ("test2", mods)):
+            client.analyze("acme", "disc", t, modules=sub,
+                           n_perm=SERVE_MEM_PERM, seed=7, timeout=1200)
+        st = srv.stats()
+        engines = list(srv.pool._lru.values())
+        rep = {"phase": "memory", "run": "serve",
+               "engines": len(engines),
+               "pool_held_gib": st["pool"]["held_gib"],
+               "engines_gib_distinct": gib_of(storages(torch, engines)),
+               "engines_gib_each": [gib_of(storages(torch, [e]))
+                                    for e in engines],
+               "registrations_gib": st["datasets_gib"],
+               "registrations_pinned_gib_distinct": gib_of(storages(
+                   torch, [t.datasets for t in srv._tenants.values()],
+                   "cpu")),
+               "card_after_register_gib": (registered - before) / 2**30,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    finally:
+        srv.close()
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    rep["card_after_close_gib"] = (torch.cuda.memory_allocated()
+                                   - before) / 2**30
+    emit({**rep, "card": card})
+    return rep
+
+
+def fleet_memory(torch, np, kw, labels, card) -> dict:
+    """Two in-process replicas on the card, the three cohorts of ``kw``
+    registered on both (each with the modules): the registrations' pinned
+    GiB per replica and for the process (each storage once); after the
+    six cells of the grid, each on its home, the pools' GiB per replica
+    and for the process (six engines, two on each test cohort); the card
+    after ``close()``."""
+    import shutil
+    import tempfile
+
+    from netrep_tpu_torch.serve import (
+        FleetConfig, ServeConfig, build_inprocess_fleet,
+    )
+    from netrep_tpu_torch.utils.config import EngineConfig
+
+    root = tempfile.mkdtemp(prefix="netrep_fleetmem_")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    fleet = build_inprocess_fleet(
+        2, root, make_config=lambda rid, _j, _c: ServeConfig(
+            engine=EngineConfig(), fleet_label=rid, slo_s=600.0),
+        fleet_config=FleetConfig(heartbeat_s=3600.0))
+    try:
+        names = ("disc", "test", "test2")
+        for name in names:
+            fleet.register_dataset(
+                "acme", name, network=kw["network"][name],
+                correlation=kw["correlation"][name], data=kw["data"][name],
+                assignments=labels)
+        reps = dict(sorted(fleet.live_replicas().items()))
+
+        def pinned(rs):
+            return gib_of(storages(torch, [
+                t.datasets for r in rs for t in r.server._tenants.values()],
+                "cpu"))
+
+        for d in names:
+            for t in names:
+                if t != d:
+                    fleet.analyze("acme", d, t, n_perm=SERVE_MEM_PERM,
+                                  seed=7, timeout=1200)
+
+        def pooled(rs):
+            return gib_of(storages(torch, [list(r.server.pool._lru.values())
+                                           for r in rs]))
+
+        rep = {"phase": "memory", "run": "fleet", "replicas": len(reps),
+               "pinned_gib_per_replica": {rid: pinned([r])
+                                          for rid, r in reps.items()},
+               "pinned_gib_process": pinned(reps.values()),
+               "pool_gib_per_replica": {rid: pooled([r])
+                                        for rid, r in reps.items()},
+               "pool_gib_process": pooled(reps.values()),
+               "pool_held_gib": {rid: r.stats()["pool"]["held_gib"]
+                                 for rid, r in reps.items()}}
+    finally:
+        fleet.close()
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    rep["card_after_close_gib"] = (torch.cuda.memory_allocated()
+                                   - before) / 2**30
+    emit({**rep, "card": card})
+    return rep
+
+
+def memory_only() -> int:
+    """``--memory``: where the datasets' matrices live and what the card
+    holds, read the same way through the ``netrep_tpu_torch`` beside this
+    script (another checkout's, to hold two versions to each other on one
+    card): the main path (both modes) and the 1×4 ring and psum nulls on
+    host float64 inputs, each call's peak, launches and the discovery
+    dataset's bytes on the card after the input phase;
+    ``network_properties`` at the main path's width; ``genome_scale``
+    (float32, bfloat16); :func:`serve_memory` and :func:`fleet_memory` on
+    the three cohorts (host float32)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA device available", file=sys.stderr)
+        return 1
+    import numpy as np
+
+    from netrep_tpu_torch import ops as tops
+    from netrep_tpu_torch.models.preservation import module_preservation
+    from netrep_tpu_torch.models.properties import network_properties
+    from netrep_tpu_torch.ops import _build
+    from netrep_tpu_torch.parallel.mesh import make_mesh
+    from netrep_tpu_torch.utils.config import EngineConfig
+
+    dev = torch.device("cuda")
+    card = card_line()
+    _build.build(list(_build.SOURCES))
+    _sizes, labels, cohorts = make_cohorts(np)
+    host = [[m.cpu().numpy() for m in mats(torch, x, dev)]
+            for x in cohorts[:2]]
+    torch.cuda.empty_cache()
+    names = ("disc", "test")
+    kw = dict(network={k: h[2] for k, h in zip(names, host)},
+              data={k: h[0] for k, h in zip(names, host)},
+              correlation={k: h[1] for k, h in zip(names, host)},
+              module_assignments=list(labels), discovery="disc",
+              test="test", n_perm=N_PERM, seed=SEED, device="cuda")
+    row = make_mesh(1, 4, devices=[dev] * 4)
+    runs = {
+        "main/materialized": dict(config=EngineConfig()),
+        "main/streaming": dict(config=EngineConfig(), store_nulls=False),
+        "ring/materialized": dict(config=EngineConfig(matrix_sharding="row"),
+                                  mesh=row),
+        "psum/streaming": dict(config=EngineConfig(matrix_sharding="row",
+                                                   stat_mode="xla"),
+                               store_nulls=False, mesh=row),
+    }
+    on_card, undo = spy_datasets(torch)
+    try:
+        for name, call in runs.items():
+            on_card.clear()
+            tops.reset_launches()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = module_preservation(**{**kw, **call})
+            emit({"phase": "memory", "run": name, "wall_s":
+                  time.perf_counter() - t0,
+                  **{k: res.profile[k] for k in ("input_s", "engine_s",
+                                                 "observed_s", "null_s")},
+                  "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                  "disc_card_gib": on_card["disc"] / 2**30,
+                  "test_card_gib": on_card["test"] / 2**30,
+                  "launches": {fn.__name__: fn.launches
+                               for fn in tops.kernels()},
+                  "min_p": float(res.p_values.min()), "card": card})
+            del res
+        mods = sorted(set(labels) - {"0"}, key=int)[:5]
+        on_card.clear()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        network_properties(
+            network=kw["network"], data=kw["data"],
+            correlation=kw["correlation"],
+            module_assignments=list(labels), discovery="disc", test="test",
+            modules=mods, device="cuda")
+        emit({"phase": "memory", "run": "network_properties",
+              "seconds": time.perf_counter() - t0,
+              "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+              "card_gib_after_input": {n: b / 2**30
+                                       for n, b in on_card.items()},
+              "card": card})
+    finally:
+        undo()
+    # the server and the fleet take host float32 registrations
+    kw32 = {f: {n: np.asarray(kw[f][n], dtype=np.float32) for n in names}
+            for f in ("network", "data", "correlation")}
+    del host, kw
+    t2 = [m.to(torch.float32).cpu().numpy()
+          for m in mats(torch, cohorts[2], dev)]
+    torch.cuda.empty_cache()
+    for f, m in zip(("data", "correlation", "network"), t2):
+        kw32[f]["test2"] = m
+    serve_memory(torch, np, kw32, labels, card)
+    fleet_memory(torch, np, kw32, labels, card)
+    del kw32, t2
+    genome_scale(torch, np, card, strict=False)
+    print(card_line(), flush=True)
+    return 0
+
+
+def large_modules_only() -> int:
+    """``--large-modules``: the main path's width (GENES genes, SAMPLES
+    samples, host float64 inputs) with one module of each size in
+    LARGE_MODULES, LARGE_PERM permutations, fused materialized: the call
+    with the discovery on the host (its blocks gathered there) and its
+    twin with the discovery handed over as float32 CUDA tensors (gathered
+    on the card), LARGE_CALLS of each in the order host, card, card,
+    host; each call's ``engine_s`` and peak above what the script holds,
+    the results bit-equal. Then the largest module's padded block gathered
+    from the float64 host matrix by the port (``gather_block``, threads
+    over its rows), by torch's advanced indexing on the host, and from
+    the narrowed matrix on the card, five times each, bit-equal."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA device available", file=sys.stderr)
+        return 1
+    import numpy as np
+
+    from netrep_tpu_torch.models import dataset as tds
+    from netrep_tpu_torch.models.preservation import module_preservation
+    from netrep_tpu_torch.ops import _build
+    from netrep_tpu_torch.utils.config import EngineConfig
+
+    dev = torch.device("cuda")
+    card = card_line()
+    _build.build(list(_build.SOURCES))
+    _sizes, _labels, cohorts = make_cohorts(np)
+    host = [[m.cpu().numpy() for m in mats(torch, x, dev)]
+            for x in cohorts[:2]]
+    torch.cuda.empty_cache()
+    order = np.random.default_rng(SEED).permutation(GENES)
+    labels = np.full(GENES, "0", dtype=object)
+    at = 0
+    for k, size in enumerate(LARGE_MODULES):
+        labels[order[at: at + size]] = str(k + 1)
+        at += size
+    names = ("disc", "test")
+    kw = dict(network={k: h[2] for k, h in zip(names, host)},
+              data={k: h[0] for k, h in zip(names, host)},
+              correlation={k: h[1] for k, h in zip(names, host)},
+              module_assignments=list(labels), discovery="disc",
+              test="test", n_perm=LARGE_PERM, seed=SEED, device="cuda",
+              config=EngineConfig())
+    on_card = {f: dict(kw[f], disc=torch.as_tensor(
+        kw[f]["disc"], device=dev, dtype=torch.float32))
+        for f in ("network", "data", "correlation")}
+    runs = {"host": [], "card": []}
+    for where in ("host", "card", "card", "host") * (LARGE_CALLS // 2):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = module_preservation(**{**kw, **(on_card if where == "card"
+                                              else {})})
+        wall = time.perf_counter() - t0
+        runs[where].append((res, {
+            "wall_s": wall, "engine_s": res.profile["engine_s"],
+            "input_s": res.profile["input_s"],
+            "null_s": res.profile["null_s"],
+            "peak_above_gib": (torch.cuda.max_memory_allocated() - base)
+            / 2**30}))
+    ref = runs["host"][0][0]
+    for where, got in runs.items():
+        for res, _ in got:
+            if not (np.array_equal(res.observed, ref.observed)
+                    and np.array_equal(res.p_values, ref.p_values)
+                    and np.array_equal(res.nulls, ref.nulls,
+                                       equal_nan=True)):
+                raise RuntimeError(f"large_modules: a {where} call differs "
+                                   "from the first host call")
+    # the largest module's padded block, three ways
+    cap = EngineConfig().rounded_cap(LARGE_MODULES[-1])
+    idx = np.sort(order[at - LARGE_MODULES[-1]: at])
+    idx = np.concatenate([idx, np.full(cap - idx.size, idx[0])])[None]
+    src = kw["correlation"]["disc"]
+    narrowed = on_card["correlation"]["disc"]
+    t_src, i_host = torch.from_numpy(src), torch.as_tensor(idx)
+    i_card = i_host.to(dev)
+    ways = {
+        "port_host": lambda: tds.gather_block(src, idx, dev),
+        "torch_index_host": lambda: t_src[
+            i_host[..., :, None], i_host[..., None, :]].to(
+            torch.float32).to(dev),
+        "card": lambda: narrowed[i_card[..., :, None],
+                                 i_card[..., None, :]],
+    }
+    times, blocks = {}, {}
+    for name, fn in ways.items():
+        times[name] = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            blocks[name] = fn()
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t0)
+    if not all(torch.equal(b.view(torch.int32),
+                           blocks["card"].view(torch.int32))
+               for b in blocks.values()):
+        raise RuntimeError("large_modules: the gathered blocks differ")
+    emit({"phase": "large_modules", "genes": GENES, "samples": SAMPLES,
+          "modules": list(LARGE_MODULES), "n_perm": LARGE_PERM,
+          "bit_equal": True,
+          "calls": {w: [r for _, r in got] for w, got in runs.items()},
+          "engine_s_median": {w: float(np.median([r["engine_s"]
+                                                  for _, r in got]))
+                              for w, got in runs.items()},
+          "block": {"cap": cap, "seconds": times,
+                    "median_s": {k: float(np.median(v))
+                                 for k, v in times.items()}},
+          "gather_threads": tds._GATHER_THREADS, "card": card})
+    print(card_line(), flush=True)
+    return 0
+
+
 def main() -> int:
     global FLEET_FIXTURE
     import torch
@@ -8427,13 +8975,25 @@ def main() -> int:
 
     runs, launches, memory = {}, {}, {}
     for store in (True, False):
-        res, launches[store], memory[store] = drive(
-            "main_path", ["fused_stats_values" if store
-                          else "fused_stats_counts"],
-            config=cfg, store_nulls=store)
+        on_card, undo = spy_datasets(torch)
+        try:
+            res, launches[store], memory[store] = drive(
+                "main_path", ["fused_stats_values" if store
+                              else "fused_stats_counts"],
+                config=cfg, store_nulls=store)
+        finally:
+            undo()
         runs[store] = res
+        # the discovery dataset is checked on the card but keeps its host
+        # source: no n×n of it lands there
+        if on_card["disc"] or not on_card["test"]:
+            raise RuntimeError(f"main_path: bytes on the card after the "
+                               f"input phase {on_card}")
         emit({"phase": "input_checks", "store_nulls": store,
-              "seconds": res.profile["input_s"]})
+              "seconds": res.profile["input_s"],
+              "card_gib_after_input": {n: b / 2**30
+                                       for n, b in on_card.items()},
+              "peak_gib": memory[store]["peak_gib"]})
     a, b = runs[True], runs[False]
     if not np.array_equal(a.p_values, b.p_values):
         raise RuntimeError("materialized and streaming p-values differ")
@@ -8445,6 +9005,8 @@ def main() -> int:
           "modules_preserved": int(preserved.sum()),
           "planted_preserved": MODULES // 2})
     fused_run = a
+    # ---- the discovery props from the host source and from the card -----
+    discovery_props(torch, np, kw, labels, dev, card)
     # ---- the same call from the installed wheel in a fresh process -------
     launches[("installed",)] = installed_check(
         np, installed, fused_run, kw, launches[True], card)["child"][
@@ -8548,6 +9110,10 @@ def main() -> int:
     row_mesh = make_mesh(1, R, devices=[dev] * R)
     ring_cfg = EngineConfig(matrix_sharding="row")
     row_runs = {}
+    #: the row-sharded paths' runs, launches and calls, held below to the
+    #: same call with the discovery dataset on the card (the unsplit
+    #: paths' discovery buckets are held bit for bit by discovery_props)
+    twins = {}
 
     def row_expect(mats, ring):
         return row_launches(chunks, R, mats, ring)
@@ -8571,6 +9137,8 @@ def main() -> int:
         row_runs[(label, store)] = (used, mem,
                                     mesh_checks(label, res, store))
         launches[("row", label, store)] = used
+        twins[f"row_{label}/{'materialized' if store else 'streaming'}"] = (
+            res, used, dict(config=config, store_nulls=store, mesh=row_mesh))
         f32_ref[f"{label}/{'materialized' if store else 'streaming'}"] = (
             res, mem)
     emit({"phase": "row_sharded_check", "mesh": row_mesh.shape,
@@ -8594,6 +9162,9 @@ def main() -> int:
     f32_ref["perm_mesh/streaming"] = (res, mem)
     emit({"phase": "perm_mesh_check", "mesh": perm_mesh.shape,
           "p_values_equal_main": True, "tallies_equal_main": True})
+    # ---- the row-sharded paths again with the discovery on the card -----
+    discovery_twins(torch, np, tops, module_preservation, kw, twins, card)
+    del twins
     if torch.cuda.device_count() >= 2:
         two = make_mesh(1, 2, devices=[torch.device("cuda", 0),
                                        torch.device("cuda", 1)])
@@ -8665,7 +9236,10 @@ def main() -> int:
     launches.update({("multi_mesh", k): used for k, used in
                      multi_test_mesh_phase(
                          np, pv, drive, cfg, composed_cfg, multi, multi_mem,
-                         launches, chunks, card, dev).items()})
+                         launches, chunks, card, dev,
+                         twin=lambda paths: discovery_twins(
+                             torch, np, tops, module_preservation, kw, paths,
+                             card)).items()})
     # ---- the same two cohorts one pair after another -------------------
     seq = sequential_tests(torch, np, module_preservation, tops, kw, cfg,
                            card, dev)
@@ -8918,7 +9492,8 @@ if __name__ == "__main__":
              "--native": native_only, "--autotune": autotune_only,
              "--multi-test-mesh": multi_test_mesh_only,
              "--multi-process": multi_process_only,
-             "--installed": installed_only}
+             "--installed": installed_only, "--memory": memory_only,
+             "--large-modules": large_modules_only}
     args = sys.argv[1:]
     if len(args) > 1 or (args and args[0] not in modes):
         sys.exit(f"usage: {sys.argv[0]} [{' | '.join(modes)}]")

@@ -17,7 +17,15 @@ package's order (non-finite before asymmetric). The float32 matrices
 equal the narrowing of the whole float64 matrix bit for bit.
 
 A :class:`Dataset` comes out of the checks holding float32 tensors on the
-device, the precision the engine computes in; :func:`place` then moves
+device, the precision the engine computes in, when a pair of the call
+reads it as a test side (``build_datasets(on_device=...)``). Any other
+dataset is read only through gathers of module blocks (a discovery side,
+``network_properties``' and the plots' inputs): it is checked tile by tile
+on the device all the same, but keeps its host source (the caller's
+array, in its own type; the serving tier's pinned float32 registration),
+and :func:`gather_block` / :func:`gather_columns` gather its blocks where
+it lies and narrow them to float32 there, the bits the narrowed matrix
+would give, so no n×n matrix of it reaches the device. :func:`place` then moves
 each matrix to where the call next needs it, a later pair's through pinned
 host memory, in its own type. With ``EngineConfig(dtype='bfloat16')`` the
 engine narrows the test side it holds from these float32 tensors (float32
@@ -34,7 +42,9 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from typing import Mapping, Sequence
 
 import numpy as np
@@ -66,9 +76,10 @@ class Dataset:
     dataset, whose matrices derive from its data and are never
     materialized), ``data`` ``(n_samples, n)`` or None (data-less
     variant). :func:`build_datasets` and :func:`build_data_only_datasets`
-    leave them on the run's device; :func:`place` may move one to pinned
-    host memory or let it go (None). ``copies`` holds, per field, the
-    event of a copy to the host still in flight."""
+    leave them on the run's device, or, for a dataset no pair reads as a
+    test side, as its host sources (``host_source``); :func:`place` may
+    move one to pinned host memory or let it go (None). ``copies`` holds,
+    per field, the event of a copy to the host still in flight."""
 
     name: str
     correlation: torch.Tensor | None
@@ -77,6 +88,10 @@ class Dataset:
     node_names: list[str]
     sample_names: list[str] | None = None
     copies: dict = dataclasses.field(default_factory=dict, repr=False)
+    #: the matrices are the checked host sources, read only through
+    #: :func:`gather_block` / :func:`gather_columns`; :func:`place` never
+    #: moves them to the device
+    host_source: bool = False
 
     @property
     def n_nodes(self) -> int:
@@ -316,11 +331,18 @@ def _host_float64(t: torch.Tensor) -> np.ndarray:
 
 
 def build_datasets(network, data=None, correlation=None,
-                   device=None, host64: bool = False) -> dict[str, Dataset]:
+                   device=None, host64: bool = False,
+                   on_device=None) -> dict[str, Dataset]:
     """Normalize user inputs into named, validated :class:`Dataset` objects
     on ``device`` (None means ``"cuda"``; raises without a card): square,
     symmetric and finite correlation/network, correlation entries in
     [-1, 1], finite data, node-name agreement and equal node counts.
+
+    ``on_device``: the names of the datasets narrowed into float32
+    matrices on ``device`` (None: every dataset), the test sides of the
+    call. Every other dataset is checked the same way, on ``device``, in
+    the same order, but keeps its host sources (:attr:`Dataset.
+    host_source`; a source already on the card is narrowed there).
 
     ``host64``: the native tier's datasets — the checks run on the CPU
     (``device`` is ignored) and every matrix is held as the float64 host
@@ -352,14 +374,20 @@ def build_datasets(network, data=None, correlation=None,
     out: dict[str, Dataset] = {}
     for name, net_raw in nets.items():
         net_src, _nr, net_names = _as_matrix(net_raw, "network", name)
+        # a source on the card is narrowed where it lies
+        keep = (not host64 and on_device is not None
+                and name not in on_device and net_src.device.type == "cpu")
+        narrow = not (host64 or keep)
         net, _ = _check_square_symmetric(net_src, "network", name, tiles,
-                                         not host64)
+                                         narrow)
         corr_src, _cr, corr_names = _as_matrix(corrs[name], "correlation",
                                                name)
         corr, top = _check_square_symmetric(corr_src, "correlation", name,
-                                            tiles, not host64)
+                                            tiles, narrow)
         if host64:
             net, corr = _host_float64(net_src), _host_float64(corr_src)
+        elif keep:
+            net, corr = net_src, corr_src
         if top > 1 + 1e-6:
             raise ValueError(
                 f"correlation for dataset {name!r} has entries outside [-1, 1]"
@@ -374,9 +402,11 @@ def build_datasets(network, data=None, correlation=None,
         if name in datas:
             dat_src, samp_names, dat_names = _as_matrix(datas[name], "data",
                                                         name)
-            dat = _check_data(dat_src, name, tiles, not host64)
+            dat = _check_data(dat_src, name, tiles, narrow)
             if host64:
                 dat = _host_float64(dat_src)
+            elif keep:
+                dat = dat_src
             if dat.shape[1] != net.shape[0]:
                 raise ValueError(
                     f"data for dataset {name!r} has {dat.shape[1]} nodes "
@@ -402,8 +432,106 @@ def build_datasets(network, data=None, correlation=None,
             data=dat,
             node_names=list(names),
             sample_names=samp_names,
+            host_source=keep,
         )
     return out
+
+
+def tested_names(network, discovery, test, self_preservation: bool):
+    """The names of ``network``'s datasets that :func:`resolve_pairs`
+    reads as test sides, from the collection's names alone (before the
+    matrices are checked): ``build_datasets``' ``on_device``. None where
+    :func:`resolve_pairs` would raise, so every dataset is narrowed and
+    the error keeps its place after the input checks."""
+    names = _normalize_collection(network)
+    try:
+        pairs = resolve_pairs(names, discovery, test, self_preservation)
+    except ValueError:
+        return None
+    return {t for _d, t in pairs}
+
+
+def _narrow(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in float32 as the input checks narrow a matrix: widened to
+    float64 first (exact for every accepted type), then rounded to nearest
+    even, so a gathered block equals the same block of the narrowed
+    matrix bit for bit."""
+    if t.dtype == torch.float32:
+        return t
+    return t.to(torch.float64).to(torch.float32)
+
+
+def _source(a) -> torch.Tensor:
+    """A tensor over ``a``: a tensor as it is, a host array without a copy
+    where torch can view it (:func:`_host_tensor`)."""
+    return a if isinstance(a, torch.Tensor) else _host_tensor(np.asarray(a))
+
+
+#: threads that share a host block gather's rows (numpy lets go of the
+#: GIL while it gathers), and the block size, in elements, below which
+#: the caller's thread gathers alone
+_GATHER_THREADS = max(1, min(8, os.cpu_count() or 1))
+_GATHER_ALONE = 1 << 20
+
+
+def _host_block(src: np.ndarray, idx: np.ndarray) -> np.ndarray:
+    """``src[idx[..., :, None], idx[..., None, :]]`` of a host matrix in
+    float32, narrowed as :func:`_narrow` narrows (through float64), each
+    block's rows split over :data:`_GATHER_THREADS` threads. A matrix
+    stored by columns is read through its transpose, so every thread
+    reads along rows of memory."""
+    flip = not src.flags.c_contiguous and src.T.flags.c_contiguous
+    base = src.T if flip else src
+    wide = src.dtype not in (np.float32, np.float64)
+    flat = idx.reshape(-1, idx.shape[-1])
+    m = flat.shape[1]
+    out = np.empty((len(flat), m, m), np.float32)
+
+    def part(job):
+        b, rows = job
+        # base[p, q] is src[q, p]: a flipped part is columns of the block
+        blk = base[np.ix_(flat[b, rows], flat[b])]
+        if wide:
+            blk = blk.astype(np.float64)
+        if flip:
+            out[b][:, rows] = blk.T
+        else:
+            out[b, rows] = blk
+
+    if out.size < _GATHER_ALONE or _GATHER_THREADS == 1:
+        for b in range(len(flat)):
+            part((b, slice(None)))
+    else:
+        step = -(-m // _GATHER_THREADS)
+        with ThreadPoolExecutor(_GATHER_THREADS) as pool:
+            list(pool.map(part, [(b, slice(r, r + step))
+                                 for b in range(len(flat))
+                                 for r in range(0, m, step)]))
+    return out.reshape(idx.shape + (m,))
+
+
+def gather_block(src, idx, device) -> torch.Tensor:
+    """``src[idx[..., :, None], idx[..., None, :]]`` as float32 on
+    ``device``: gathered where ``src`` lies (an array or tensor on the
+    host, its rows over threads, :func:`_host_block`; or a tensor on the
+    card), narrowed there (:func:`_narrow`), and only the block copied.
+    ``idx`` ``(..., m)`` integer positions."""
+    src = _source(src)
+    idx = np.asarray(idx)
+    if src.device.type == "cpu" and src.dtype != torch.bfloat16:
+        return torch.from_numpy(
+            _host_block(src.detach().numpy(), idx)).to(device)
+    i = torch.as_tensor(idx, dtype=torch.long, device=src.device)
+    return _narrow(src[i[..., :, None], i[..., None, :]]).to(device)
+
+
+def gather_columns(src, idx, device) -> torch.Tensor:
+    """``src[:, idx]`` as float32 on ``device``, gathered and narrowed
+    where ``src`` lies (:func:`gather_block`)."""
+    src = _source(src)
+    i = torch.as_tensor(np.asarray(idx), dtype=torch.long,
+                        device=src.device)
+    return _narrow(src[:, i]).to(device)
 
 
 def _column_sd(src: torch.Tensor) -> np.ndarray:
@@ -511,6 +639,13 @@ def place(datasets: dict[str, Dataset], now: Mapping[str, set],
         for field in FIELDS:
             t = getattr(d, field)
             if t is None:
+                continue
+            if d.host_source:
+                # read only through gathers: kept where it lies while a
+                # pair reads it
+                if (field not in now.get(name, ())
+                        and field not in later.get(name, ())):
+                    setattr(d, field, None)
                 continue
             if field in now.get(name, ()):
                 t = to_device(t, device, d.copies.pop(field, None))

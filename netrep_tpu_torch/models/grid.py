@@ -34,8 +34,11 @@ with the same seed and config:
   stop monitor is seeded with the stored run's tallies (``grid_warmstart_
   seeded``); reported numbers stay fresh-draw-only.
 
-Device memory: the input checks leave every dataset on the device, as in
-``module_preservation``. The grid keeps there what a later pack reads and
+Device memory: the input checks leave every column's dataset on the
+device, as in ``module_preservation``; a row whose dataset is no column
+keeps its host source, and only its buckets' blocks reach the device
+(:func:`~netrep_tpu_torch.models.dataset.gather_block`). The grid keeps
+there what a later pack reads and
 lets go of the rest after each pack's engine is built (the engine holds
 its test matrices and the props it built from its sources): no matrix
 makes a round trip through host memory, so a grid's peak is its input
@@ -204,6 +207,19 @@ def _write_manifest(path: str, manifest: dict) -> None:
     os.replace(tmp, path)
 
 
+def _columns(network, datasets, module_assignments) -> set | None:
+    """The grid's test sides (its columns) from the inputs' names alone,
+    for ``build_datasets``' ``on_device``: a row whose dataset is no
+    column keeps its host source. None (every dataset narrowed) where the
+    checks after the input phase raise anyway."""
+    if not isinstance(module_assignments, dict):
+        return None
+    names = (list(ds._normalize_collection(network)) if datasets is None
+             else [str(n) for n in datasets])
+    rows = [n for n in names if n in module_assignments]
+    return {t for d in rows for t in names if t != d}
+
+
 def grid_preservation(
     network=None,
     data=None,
@@ -281,8 +297,9 @@ def grid_preservation(
     config = dataclasses.replace(
         config, null_precision=config.resolved_null_precision(dev.type))
     t_in = time.perf_counter()
-    built = ds.build_datasets(network, data=data, correlation=correlation,
-                              device=dev)
+    built = ds.build_datasets(
+        network, data=data, correlation=correlation, device=dev,
+        on_device=_columns(network, datasets, module_assignments))
     _sync(dev)
     profile = {"input_s": time.perf_counter() - t_in, "packs": []}
     names = list(built) if datasets is None else [str(n) for n in datasets]

@@ -400,8 +400,12 @@ def module_preservation(
     datasets = (
         ds.build_data_only_datasets(data, device=dev)
         if data_only is not None
-        else ds.build_datasets(network, data=data, correlation=correlation,
-                               device=dev, host64=native)
+        else ds.build_datasets(
+            network, data=data, correlation=correlation, device=dev,
+            host64=native,
+            # a dataset no pair reads as a test side keeps its host source
+            on_device=ds.tested_names(network, discovery, test,
+                                      self_preservation))
     )
     _sync(dev)
     input_s = time.perf_counter() - t0
@@ -493,9 +497,10 @@ def _run_groups(by_disc, datasets, assign, modules, background_label, null,
     native.NativePermutationEngine`) with ``n_threads`` threads, from the
     host float64 datasets: no discovery side is built ahead, no matrix
     moves, and pairs never share an engine."""
-    # every group's discovery side first, while every dataset is still on
-    # the device (one multi-test engine for a group of cohorts, or one
-    # engine a pair): after it no discovery matrix is read again
+    # every group's discovery side first, while every dataset is still
+    # where the input checks left it (one multi-test engine for a group of
+    # cohorts, or one engine a pair; a discovery-only dataset's blocks are
+    # gathered on the host): after it no discovery matrix is read again
     plan = []
     for d_name, t_names in by_disc.items():
         disc_ds = datasets[d_name]

@@ -3,9 +3,11 @@ network properties (NetRep's ``networkProperties``), the port of
 ``netrep_tpu/models/properties.py``.
 
 Per (discovery, test) pair and module, the module's test network
-submatrix and data slice are gathered on the device and the properties
-computed there in float64, with the formulas, sign anchor and
-zero-variance handling of the JAX package's oracle
+submatrix and data slice are gathered where the input lies (a host
+source on the host), narrowed to float32 as the input checks narrow a
+matrix, copied to the device and the properties computed there in
+float64 (no dataset's ``n × n`` reaches the device), with the formulas,
+sign anchor and zero-variance handling of the JAX package's oracle
 (``netrep_tpu/ops/oracle.py``): weighted degree (normalized to the module
 maximum), average edge weight, summary profile, node contribution and
 coherence. The results come back as numpy arrays in the JAX package's
@@ -65,20 +67,21 @@ def avg_edge_weight(net: torch.Tensor) -> float:
     return float((net.sum() - net.trace()) / (m * (m - 1)))
 
 
-def submatrix(mat: torch.Tensor, idx) -> torch.Tensor:
-    """``mat[idx][:, idx]`` as float64, gathered on ``mat``'s device."""
-    i = torch.as_tensor(np.asarray(idx), dtype=torch.long, device=mat.device)
-    return mat[i[:, None], i[None, :]].to(torch.float64)
+def submatrix(mat, idx, device) -> torch.Tensor:
+    """``mat[idx][:, idx]`` as float64 on ``device``: gathered where
+    ``mat`` lies and narrowed to float32 there
+    (:func:`~netrep_tpu_torch.models.dataset.gather_block`)."""
+    return ds.gather_block(mat, idx, device).to(torch.float64)
 
 
-def columns(mat: torch.Tensor, idx) -> torch.Tensor:
-    """``mat[:, idx]`` as float64, gathered on ``mat``'s device."""
-    i = torch.as_tensor(np.asarray(idx), dtype=torch.long, device=mat.device)
-    return mat[:, i].to(torch.float64)
+def columns(mat, idx, device) -> torch.Tensor:
+    """``mat[:, idx]`` as float64 on ``device``, gathered and narrowed
+    where ``mat`` lies."""
+    return ds.gather_columns(mat, idx, device).to(torch.float64)
 
 
-def _module_props(tgt: ds.Dataset, ti) -> dict:
-    net_sub = submatrix(tgt.network, ti)
+def _module_props(tgt: ds.Dataset, ti, dev) -> dict:
+    net_sub = submatrix(tgt.network, ti, dev)
     deg = weighted_degree(net_sub)
     dmax = deg.abs().max()
     props = {
@@ -90,7 +93,7 @@ def _module_props(tgt: ds.Dataset, ti) -> dict:
         "coherence": float("nan"),
     }
     if tgt.data is not None:
-        dat = columns(tgt.data, ti)
+        dat = columns(tgt.data, ti, dev)
         prof = summary_profile(dat)
         nc = node_contribution(dat, prof)
         props.update(
@@ -133,8 +136,9 @@ def network_properties(
     collapses single-level nesting.
     """
     dev = resolve_device(device)
+    # only module blocks are read: every dataset keeps its host source
     datasets = ds.build_datasets(network, data=data, correlation=correlation,
-                                 device=dev)
+                                 device=dev, on_device=set())
     # networkProperties computes properties in every dataset, including
     # the discovery itself (self pairs allowed)
     pairs = ds.resolve_pairs(datasets, discovery, test, self_preservation)
@@ -150,7 +154,7 @@ def network_properties(
             disc_ds, tgt, assign[d_name], modules, background_label
         )
         out.setdefault(d_name, {})[t_name] = {
-            lab: _module_props(tgt, ti) if len(ti) else None
+            lab: _module_props(tgt, ti, dev) if len(ti) else None
             for lab, _di, ti in specs
         }
 

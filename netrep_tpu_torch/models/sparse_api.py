@@ -24,7 +24,7 @@ from ..ops.sparse import SparseAdjacency
 from ..parallel.engine import ModuleSpec
 from ..parallel.sparse import SparsePermutationEngine
 from ..utils.config import EngineConfig, resolve_device
-from .properties import columns, node_contribution, summary_profile
+from .properties import node_contribution, summary_profile
 from .results import PreservationResult
 
 logger = logging.getLogger("netrep_tpu_torch")
@@ -324,7 +324,9 @@ def sparse_network_properties(network: SparseAdjacency, data=None,
             "coherence": float("nan"),
         }
         if data is not None:
-            dat = columns(data, idx)
+            # the slice in float64 where the data lies (in its own type)
+            dat = data[:, torch.as_tensor(idx, device=data.device)].to(
+                torch.float64)
             prof = summary_profile(dat)
             nc = node_contribution(dat, prof)
             props.update(summary=prof.cpu().numpy(),

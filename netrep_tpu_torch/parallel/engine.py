@@ -113,6 +113,7 @@ from .. import random as trandom
 from ..atlas.modules import (
     data_only_gather_and_stats, make_disc_props_data_only,
 )
+from ..models import dataset as ds
 from ..ops import stats as tstats
 from ..ops.fused_gather import gather_submatrix_fused_many
 from ..ops.fused_stats import (
@@ -132,7 +133,7 @@ from . import mesh as tmesh
 from . import screened as scr
 from .mesh import PERM_AXIS, ROW_AXIS, Mesh
 from .sharded import (
-    chunk_shards, gather_corr_net, make_sharded_gatherer,
+    chunk_shards, make_sharded_gatherer,
     pad_square_to_multiple, shard_rows,
 )
 
@@ -185,6 +186,16 @@ def _as_f32(a, device) -> torch.Tensor:
     if isinstance(a, np.ndarray) and not a.flags.writeable:
         a = a.copy()
     return torch.as_tensor(a).to(device=device, dtype=torch.float32)
+
+
+def _as_stored(a, device, dtype) -> torch.Tensor:
+    """A test operand for the engine: a tensor already of the storage type
+    ``dtype`` on ``device`` as it is (the serving tier's shared copy,
+    :func:`~netrep_tpu_torch.serve.pool.device_copy`), else
+    :func:`_as_f32` (the engine narrows it to ``dtype``)."""
+    if isinstance(a, torch.Tensor) and a.dtype == dtype:
+        return a.to(device)
+    return _as_f32(a, device)
 
 
 #: formula of each derived-network kind, for error texts
@@ -404,10 +415,11 @@ def build_buckets(disc_corr, disc_net, disc_data, modules, pool,
     :meth:`PermutationEngine.from_parts` takes. Raises on a module with
     fewer than two nodes or module sizes beyond the pool. With
     ``config.network_from_correlation`` the discovery network submatrices
-    derive from the gathered correlation and ``disc_net`` is not read. With
-    a ``mesh`` (one perm row of a row-sharded engine's) the discovery
-    matrices are split by rows over it and gathered by the sum of the row
-    blocks' shares, as the JAX package's row-sharded engine does. With
+    derive from the gathered correlation and ``disc_net`` is not read.
+    ``mesh`` (one perm row of a row-sharded engine's) changes nothing
+    here: where the JAX package's row-sharded engine gathers the
+    discovery blocks by the sum of the row blocks' shares, each block is
+    gathered where the matrix lies (a gather, so the same bits). With
     ``disc_corr`` None (data-only) every submatrix derives from the
     discovery data (:func:`~netrep_tpu_torch.atlas.modules.
     make_disc_props_data_only`).
@@ -460,7 +472,7 @@ def build_buckets(disc_corr, disc_net, disc_data, modules, pool,
     if caps:
         for cap, disc in zip(caps, _bucket_props(
                 disc_corr, disc_net, disc_data, caps, pads, masks, net_beta,
-                dev, mesh)):
+                dev)):
             props[cap] = disc
             if cache is not None:
                 store.put_props(keys[cap], disc)
@@ -475,45 +487,39 @@ def build_buckets(disc_corr, disc_net, disc_data, modules, pool,
 
 
 def _bucket_props(disc_corr, disc_net, disc_data, caps, pads, masks,
-                  net_beta, dev, mesh) -> list:
+                  net_beta, dev) -> list:
     """The :class:`~netrep_tpu_torch.ops.stats.DiscProps` of the buckets
     ``caps`` (padded indices ``pads[cap]``, masks ``masks[cap]``) from one
-    discovery side, its matrices copied to ``dev`` for the call (see
-    :func:`build_buckets`)."""
+    discovery side (see :func:`build_buckets`). Each bucket's padded
+    blocks and data columns are gathered where the matrices lie and
+    narrowed to float32 there (:func:`~netrep_tpu_torch.models.dataset.
+    gather_block`: the bits of the narrowed matrix), and only they are
+    copied to ``dev``, so no discovery ``n × n`` of the host reaches the
+    card. The properties are computed on ``dev``."""
     data_only = disc_corr is None
-    dc = None if data_only else _as_f32(disc_corr, dev)
-    dn = None if net_beta is not None else _as_f32(disc_net, dev)
-    dd = None if disc_data is None else _as_f32(disc_data, dev)
     didxs = [torch.as_tensor(pads[cap].astype(np.int64), device=dev)
              for cap in caps]
     if data_only:
         # the submatrices derive from the transposed data's rows below
+        dd = _as_f32(disc_data, dev)
         subs = [(None, None)] * len(caps)
-    elif mesh is not None:
-        # every bucket's submatrices in one gather launch per row block
-        R = mesh.shape[ROW_AXIS]
-        dc = shard_rows(pad_square_to_multiple(dc, R), mesh)
-        dn = None if dn is None else shard_rows(
-            pad_square_to_multiple(dn, R), mesh)
-        subs = zip(*gather_corr_net(make_sharded_gatherer(mesh), dc, dn,
-                                    didxs, net_beta))
     else:
         subs = []
-        for didx in didxs:
-            sub_c = tstats.gather_submatrix(dc, didx)
+        for cap in caps:
+            sub_c = ds.gather_block(disc_corr, pads[cap], dev)
             subs.append((sub_c, tstats.derived_net(sub_c, net_beta)
-                         if dn is None else tstats.gather_submatrix(dn, didx)))
+                         if net_beta is not None
+                         else ds.gather_block(disc_net, pads[cap], dev)))
 
     out = []
     for cap, didx, (sub_c, sub_n) in zip(caps, didxs, subs):
         mask = torch.as_tensor(masks[cap], device=dev)
-        out.append(
-            make_disc_props_data_only(dd.T, didx, mask, net_beta)
-            if data_only else tstats.make_disc_props(
-                sub_c, sub_n,
-                dd[:, didx].permute(1, 0, 2) if dd is not None else None,
-                mask)
-        )
+        if data_only:
+            out.append(make_disc_props_data_only(dd.T, didx, mask, net_beta))
+            continue
+        data = None if disc_data is None else ds.gather_columns(
+            disc_data, pads[cap], dev).permute(1, 0, 2)
+        out.append(tstats.make_disc_props(sub_c, sub_n, data, mask))
     return out
 
 
@@ -1618,10 +1624,11 @@ class PermutationEngine:
             check_derived_network(test_corr, test_net, net_beta, "test")
         # the test data is kept TRANSPOSED, (n, n_samples): a module's data
         # slice is then a gather of contiguous rows
+        st = config.torch_dtype
         self._setup(
-            None if data_only else _as_f32(test_corr, dev),
-            None if net_beta is not None else _as_f32(test_net, dev),
-            _as_f32(test_data, dev).T if has_data else None,
+            None if data_only else _as_stored(test_corr, dev, st),
+            None if net_beta is not None else _as_stored(test_net, dev, st),
+            _as_stored(test_data, dev, st).T if has_data else None,
             pool, buckets, len(modules), config, dev, mesh,
         )
         self.modules = modules
@@ -1676,11 +1683,14 @@ class PermutationEngine:
         def f32(a):
             return _as_f32(a, dev)
 
+        def stored(a):
+            return _as_stored(a, dev, config.torch_dtype)
+
         derived = config.network_from_correlation is not None
         self._setup(
-            None if test_corr is None else f32(test_corr),
-            None if derived or test_net is None else f32(test_net),
-            None if test_dataT is None else f32(test_dataT),
+            None if test_corr is None else stored(test_corr),
+            None if derived or test_net is None else stored(test_net),
+            None if test_dataT is None else stored(test_dataT),
             np.asarray(pool, dtype=np.int32),
             [dict(b, disc=tstats.DiscProps(*(f32(a) for a in b["disc"])))
              for b in buckets],

@@ -56,7 +56,7 @@ from ..utils.config import EngineConfig
 from . import distributed
 from . import mesh as tmesh
 from .engine import (
-    _STREAM_FP, ModuleSpec, PermutationEngine, StreamCounts, _as_f32,
+    _STREAM_FP, ModuleSpec, PermutationEngine, StreamCounts, _as_stored,
     _check_sharding, build_discovery, check_derived_network, checkpointer,
     chunk_counts, pull_tallies, resolve_stream_superchunk, root_key,
     run_adaptive_chunks, run_adaptive_stream_chunks,
@@ -117,12 +117,14 @@ class MultiTestEngine:
             for t in range(self.T):
                 check_derived_network(test_corrs[t], test_nets[t], net_beta,
                                       f"test[{t}]")
+        st = config.torch_dtype
         self._setup([
             PermutationEngine.from_parts(
-                _as_f32(test_corrs[t], dev),
-                None if net_beta is not None else _as_f32(test_nets[t], dev),
+                _as_stored(test_corrs[t], dev, st),
+                None if net_beta is not None
+                else _as_stored(test_nets[t], dev, st),
                 None if test_datas is None
-                else _as_f32(test_datas[t], dev).T,
+                else _as_stored(test_datas[t], dev, st).T,
                 pool, buckets, len(modules), config, dev, mesh,
             )
             for t in range(self.T)

@@ -14,13 +14,15 @@ edge-weight heatmap, node-contribution bars, weighted-degree bars) and
   midpoint, the network panel a single-hue sequential map, bars a single
   neutral hue.
 
-The layout (:func:`_prepare`) goes through the port's datasets on
-``device`` (None means the card): the module submatrices and data slices
-are gathered there and the degrees, summary profiles and contributions
-computed there in float64, as ``network_properties`` does. Only the
-plotted submatrices come to the host. The drawing code is the JAX
-package's. matplotlib is optional: it is imported when a panel is drawn,
-and its absence raises ``ImportError`` naming the ``plot`` extra.
+The layout (:func:`_prepare`) goes through the port's datasets, checked
+on ``device`` (None means the card): the module submatrices and data
+slices are gathered where the inputs lie, narrowed to float32, copied to
+``device`` and the degrees, summary profiles and contributions computed
+there in float64, as ``network_properties`` does; no ``n × n`` matrix
+reaches the device. Only the plotted submatrices come to the host. The
+drawing code is the JAX package's. matplotlib is optional: it is
+imported when a panel is drawn, and its absence raises ``ImportError``
+naming the ``plot`` extra.
 ``plot_module_sparse`` draws the composite of a sparse network's modules,
 densifying only their subgraph.
 """
@@ -98,8 +100,7 @@ class ModuleLayout:
     Node order is the concatenation of per-module blocks (each internally
     ordered); ``boundaries`` are cumulative block edges for separator lines.
     ``correlation`` and ``network`` are the target's submatrices on the
-    plotted nodes and ``data`` its data columns on them (float64, host),
-    the only parts of the target that leave the device.
+    plotted nodes and ``data`` its data columns on them (float64, host).
     """
 
     target: dsmod.Dataset
@@ -117,8 +118,8 @@ class ModuleLayout:
     data: np.ndarray | None = None
 
 
-def _degree(net: torch.Tensor, idx) -> np.ndarray:
-    return weighted_degree(submatrix(net, idx)).cpu().numpy()
+def _degree(net, idx, dev) -> np.ndarray:
+    return weighted_degree(submatrix(net, idx, dev)).cpu().numpy()
 
 
 def _prepare(
@@ -145,8 +146,10 @@ def _prepare(
     skipped).
     """
     dev = resolve_device(device)
+    # only module blocks are read: every dataset keeps its host source
     datasets = dsmod.build_datasets(network, data=data,
-                                    correlation=correlation, device=dev)
+                                    correlation=correlation, device=dev,
+                                    on_device=set())
     names = list(datasets)
     d_name = str(discovery) if discovery is not None else names[0]
     t_name = (
@@ -190,7 +193,7 @@ def _prepare(
 
     node_idx, node_mods, degree = [], [], []
     for lab, di, ti in specs:
-        deg_here = _degree(tgt.network, ti)
+        deg_here = _degree(tgt.network, ti, dev)
         if order_ds is None:
             order = np.arange(len(ti))
         else:
@@ -209,7 +212,7 @@ def _prepare(
                         f"order_nodes_by dataset {order_ds.name!r} is missing "
                         f"nodes of module {lab!r}"
                     )
-            order = np.argsort(-_degree(order_ds.network, oidx),
+            order = np.argsort(-_degree(order_ds.network, oidx, dev),
                                kind="stable")
         ti = np.asarray(ti)
         node_idx.extend(ti[order])
@@ -222,7 +225,7 @@ def _prepare(
 
     contribution = summary = sample_order = dat = None
     if tgt.data is not None:
-        dat = columns(tgt.data, node_idx)
+        dat = columns(tgt.data, node_idx, dev)
         if stats != "none":
             if stats == "full":
                 # per-module contribution in the target dataset
@@ -259,8 +262,8 @@ def _prepare(
         contribution=contribution,
         summary=summary,
         sample_order=sample_order,
-        correlation=submatrix(tgt.correlation, node_idx).cpu().numpy(),
-        network=submatrix(tgt.network, node_idx).cpu().numpy(),
+        correlation=submatrix(tgt.correlation, node_idx, dev).cpu().numpy(),
+        network=submatrix(tgt.network, node_idx, dev).cpu().numpy(),
         data=dat,
     )
 

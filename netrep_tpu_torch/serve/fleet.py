@@ -300,11 +300,13 @@ class InProcessReplica:
 
     def release(self) -> None:
         """Give back the device memory of a dead replica's warm pool
-        without draining it. Only once its worker has exited: a worker
-        still running holds its pack's engine."""
+        without draining it, and its hold on the process's registration
+        copies. Only once its worker has exited: a worker still running
+        holds its pack's engine."""
         w = self.server._worker
         if w is None or not w.is_alive():
             self.server.pool.clear()
+            self.server.drop_registrations()
 
     def close(self, drain: bool = True,
               timeout: float | None = None) -> None:

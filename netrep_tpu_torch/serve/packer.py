@@ -60,7 +60,7 @@ from ..ops import pvalues as pv
 from ..ops import stats as tstats
 from ..ops.sequential import StopMonitor, StopRule
 from ..parallel.engine import (
-    ModuleSpec, PermutationEngine, _as_f32, _block_positions, build_buckets,
+    ModuleSpec, PermutationEngine, _block_positions, build_buckets,
     build_discovery, check_derived_network, props_mode,
 )
 from ..utils import checkpoint as ckpt
@@ -193,8 +193,9 @@ class PackedEngine(PermutationEngine):
         discovery side exactly as its solo engine builds its buckets, so a
         module's props are its solo run's bit for bit (a bucket's props
         come from batched decompositions, whose rounding follows the
-        batch). The discovery matrices go to ``dev`` once for all the
-        segments; none is kept."""
+        batch). The discovery matrices are read where they lie, a host
+        registration's on the host (:func:`~netrep_tpu_torch.parallel.
+        engine.build_buckets`): only the buckets' blocks reach ``dev``."""
         if self.n_groups == 1:
             return super()._build_buckets(disc_corr, disc_net, disc_data,
                                           modules, pool, config, dev, mesh)
@@ -205,17 +206,13 @@ class PackedEngine(PermutationEngine):
                      ckpt.content_digest([disc_corr, disc_net, disc_data]),
                      props_mode(disc_corr is None and disc_net is None,
                                 False, net_beta, disc_data is not None))
-        # a derived network is only checked against the correlation (on
-        # a sample, where it lies), never copied
-        on_dev = [a if a is None or (i == 1 and net_beta is not None)
-                  else _as_f32(a, dev)
-                  for i, a in enumerate((disc_corr, disc_net, disc_data))]
         parts = []
         for g in range(self.n_groups):
             pos = self.request_positions(g)
             parts.append((pos, build_discovery(
-                *on_dev, [modules[p] for p in pos], pool, config, dev,
-                offsets=self._packed_offsets[pos], cache=cache)))
+                disc_corr, disc_net, disc_data, [modules[p] for p in pos],
+                pool, config, dev, offsets=self._packed_offsets[pos],
+                cache=cache)))
         return merge_segments(parts)
 
     def _observed_bucket(self, b, subs) -> torch.Tensor:

@@ -48,11 +48,17 @@ What the port does its own way:
   server raises ``RuntimeError`` unless given ``device="cpu"``).
 - **Registered datasets live on the host**, float32, in pinned memory on
   a card (:func:`~netrep_tpu_torch.models.dataset.to_host`), after the
-  input checks ran on the server's device. Registrations grow with every
-  tenant and only the pool is bounded, so the card holds only what the
-  pooled engines hold: a pool miss copies a pair to the card, a pool hit
-  copies nothing. A dataset's digest is the JAX package's for the same
-  registration (the inputs sampled as float64).
+  input checks ran on the server's device; the servers of one process (a
+  fleet's in-process replicas) hold one copy per registration digest
+  whose matrices are equal bit for bit (:func:`_share_registration`),
+  freed when the last server holding it closes or dies. Registrations grow with every tenant and only the pool is
+  bounded, so the card holds only what the pooled engines hold: a pool
+  miss gathers the discovery side's blocks on the host and takes the
+  test side's device copy, which every pooled engine over that
+  registration shares (:func:`~netrep_tpu_torch.serve.pool.
+  device_copy`); a pool hit copies nothing. A dataset's digest is the
+  JAX package's for the same registration (the inputs sampled as
+  float64).
 - **Threads**: every pack runs on the scheduler's worker thread (the fault
   ladder's guarded dispatch may add one). The engines need no per-thread
   torch state (no grad mode, no stream set on the caller's thread).
@@ -100,6 +106,7 @@ import uuid
 from typing import Callable, Sequence
 
 import numpy as np
+import torch
 
 from .. import ops as tops
 from ..models import dataset as ds
@@ -107,7 +114,7 @@ from ..models.preservation import _overlap_setup
 from ..ops import pvalues as pv
 from ..utils import costmodel, detectors
 from ..utils import telemetry as tm
-from ..utils.checkpoint import content_digest
+from ..utils.checkpoint import Stack, content_digest
 from ..utils.config import EngineConfig, resolve_device
 from ..utils.faults import SimulatedCrash, resolve_runtime
 from . import journal as jnl
@@ -115,7 +122,7 @@ from .packer import (
     GridPackedEngine, PackedEngine, PackMonitor, RequestPlan, assign_bases,
     run_pack,
 )
-from .pool import ProgramPool
+from .pool import ProgramPool, SharedCopies, device_copy
 
 logger = logging.getLogger("netrep_tpu_torch")
 
@@ -305,10 +312,19 @@ class _Dataset:
         #: engines derive submatrices with; None = stored matrices
         self.beta = beta
 
-    def nbytes(self) -> int:
-        return sum(t.numel() * t.element_size()
-                   for t in (self.ds.correlation, self.ds.network,
-                             self.ds.data) if t is not None)
+    def tensors(self) -> list:
+        return [t for t in (self.ds.correlation, self.ds.network,
+                            self.ds.data) if t is not None]
+
+
+def _distinct_bytes(tensors) -> int:
+    """Bytes of the distinct storages of ``tensors`` (a registration that
+    two names or two servers hold counts once)."""
+    seen = {}
+    for t in tensors:
+        st = t.untyped_storage()
+        seen[(t.device.type, st.data_ptr())] = st.nbytes()
+    return sum(seen.values())
 
 
 def _on_host(dataset) -> None:
@@ -322,6 +338,73 @@ def _on_host(dataset) -> None:
         host, done = ds.to_host(t)
         done.synchronize()
         setattr(dataset, field, host)
+
+
+#: the registrations' checked host copies of the process, one per
+#: registration digest (:func:`_share_registration`)
+HOST_COPIES = SharedCopies()
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s bits, as integers of its width (``-0.0`` is not ``0.0``)."""
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
+def _same_bits(held, fields) -> bool:
+    """Whether host copies ``held`` equal the checked matrices ``fields``
+    bit for bit: shapes, types and every element, compared in row blocks
+    of about 64 MiB on the fields' device."""
+    for h, f in zip(held, fields):
+        if (h is None) != (f is None):
+            return False
+        if h is None:
+            continue
+        if h.shape != f.shape or h.dtype != f.dtype:
+            return False
+        rows = max(1, (64 << 20) // max(1, h[0].numel() * h.element_size()))
+        for r in range(0, h.shape[0], rows):
+            if not torch.equal(_bits(h[r:r + rows].to(f.device)),
+                               _bits(f[r:r + rows])):
+                return False
+    return True
+
+
+def _share_registration(digest: str, dataset) -> None:
+    """Put a checked dataset's matrices on the host (:func:`_on_host`) as
+    the process's copy of ``digest``, or set them to the copy that
+    another server of the process (a fleet's in-process replica) holds
+    for it when that copy equals them bit for bit; the card's checked
+    copies are then dropped. The digest only samples the matrices, so a
+    copy that differs elsewhere is never shared: the dataset keeps its
+    own, and becomes the copy later registrations of ``digest`` meet."""
+    fields = [getattr(dataset, f) for f in ds.FIELDS]
+
+    def build():
+        _on_host(dataset)
+        return tuple(getattr(dataset, f) for f in ds.FIELDS)
+
+    held = HOST_COPIES.get(digest, build,
+                           lambda held: _same_bits(held, fields))
+    for f, t in zip(ds.FIELDS, held):
+        setattr(dataset, f, t)
+
+
+def registrations_gib() -> float:
+    """GiB of the registrations' host copies the process holds, each
+    once."""
+    return _distinct_bytes(HOST_COPIES.live()) / 2**30
+
+
+def _registration_identity(engine, discs, test) -> None:
+    """A packed engine's checkpoint identity from the registrations' host
+    tensors, as an engine built from them digests it: its test operands
+    are the shared device copies, whose bfloat16 values a digest would
+    sample instead."""
+    engine._digest = content_digest(
+        [a for d in discs for a in (d.ds.correlation, d.ds.network,
+                                    d.ds.data)]
+        + [test.ds.correlation, test.ds.network, test.ds.data])
 
 
 def _load_kernels(engine) -> None:
@@ -489,6 +572,7 @@ class PreservationServer:
                                "(no journal)")
                 r.done.set()
         self.pool.clear()
+        self.drop_registrations()
         if self.tel is not None:
             done = sum(t.counters["done"] for t in self._tenants.values())
             fail = sum(t.counters["failed"] for t in self._tenants.values())
@@ -503,6 +587,16 @@ class PreservationServer:
                 self.tel.close()
         if self.journal is not None:
             self.journal.close()
+
+    def drop_registrations(self) -> None:
+        """Let go of every registration's matrices (a closed or dead
+        server's): a host copy the process's other servers do not hold is
+        freed (:data:`HOST_COPIES`). The names and digests stay."""
+        with self._work:
+            for ten in self._tenants.values():
+                for d in ten.datasets.values():
+                    for f in ds.FIELDS:
+                        setattr(d.ds, f, None)
 
     # -- the warm pool at boot ----------------------------------------------
 
@@ -793,7 +887,7 @@ class PreservationServer:
             norm = ds.normalize_module_assignments(
                 assignments, built, [name]
             )[name]
-        _on_host(dataset)
+        _share_registration(digest, dataset)
         with self._work:
             self._tenants[tenant].datasets[name] = _Dataset(
                 name, dataset, norm, digest,
@@ -1612,23 +1706,33 @@ class PreservationServer:
             cfg = dataclasses.replace(
                 cfg, network_from_correlation=disc.beta
             )
-        return PackedEngine(
+        engine = PackedEngine(
             disc.ds.correlation, disc.ds.network, disc.ds.data,
-            test.ds.correlation, test.ds.network, test.ds.data,
+            *self._test_copies(test, cfg),
             [p.specs for p in plans], plans[0].pool,
             config=cfg, device=self.device,
         )
+        _registration_identity(engine, [disc], test)
+        return engine
+
+    def _test_copies(self, test: _Dataset, cfg: EngineConfig) -> tuple:
+        """The test registration's device copy in ``cfg``'s storage type,
+        shared by every pooled engine over it (:func:`~netrep_tpu_torch.
+        serve.pool.device_copy`)."""
+        return device_copy(test.ds, cfg.torch_dtype, self.device)
 
     def _grid_pack_engine(self, discs, test: _Dataset, plans):
         """Cross-pair pack builder: one discovery source per request,
         shared test matrices — the grid-column engine. Only dense members
         reach here (the cross-pair key excludes beta registrations)."""
-        return GridPackedEngine(
+        engine = GridPackedEngine(
             [(d.ds.correlation, d.ds.network, d.ds.data) for d in discs],
-            test.ds.correlation, test.ds.network, test.ds.data,
+            *self._test_copies(test, self.config.engine),
             [p.specs for p in plans], plans[0].pool,
             config=self.config.engine, device=self.device,
         )
+        _registration_identity(engine, discs, test)
+        return engine
 
     def _execute_pack(self, batch: list[Request], pack_id: str) -> None:
         plans = [r.plan for r in batch]
@@ -1722,14 +1826,21 @@ class PreservationServer:
         def build():
             with_data = (disc.ds.data is not None
                          and tests[0].ds.data is not None)
-            return MultiTestEngine(
+            copies = [self._test_copies(t, self.config.engine)
+                      for t in tests]
+            engine = MultiTestEngine(
                 disc.ds.correlation, disc.ds.network, disc.ds.data,
-                [t.ds.correlation for t in tests],
-                [t.ds.network for t in tests],
-                [t.ds.data for t in tests] if with_data else None,
+                [c[0] for c in copies], [c[1] for c in copies],
+                [c[2] for c in copies] if with_data else None,
                 plan.specs, plan.pool, config=self.config.engine,
                 device=self.device,
             )
+            # the checkpoint identity digests the registrations as given
+            engine._test_digest = content_digest(
+                [Stack([t.ds.correlation for t in tests]),
+                 Stack([t.ds.network for t in tests])]
+                + ([t.ds.data for t in tests] if with_data else []))
+            return engine
 
         engine, hit = self.pool.get(key, build)
         self._emit_pool(hit, pack_id, 1)
@@ -1858,9 +1969,10 @@ class PreservationServer:
                 "fleet_label": self.config.fleet_label,
                 "journal": self.config.journal,
                 "pool": self.pool.stats(),
-                "datasets_gib": sum(
-                    d.nbytes() for t in self._tenants.values()
-                    for d in t.datasets.values()) / 2**30,
+                "datasets_gib": _distinct_bytes(
+                    x for t in self._tenants.values()
+                    for d in t.datasets.values() for x in d.tensors())
+                / 2**30,
                 "device": str(self.device),
                 "packs": self._pack_seq,
                 # this process's kernel launches (a daemon's are its own)

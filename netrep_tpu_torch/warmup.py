@@ -89,7 +89,7 @@ def _direct_engine(genes: int, modules: int, samples: int, seed: int,
     (dd, dc, dn), (td, tc, tn) = mixed["discovery"], mixed["test"]
     built = ds.build_datasets(
         network={"d": dn, "t": tn}, correlation={"d": dc, "t": tc},
-        data={"d": dd, "t": td}, device=device,
+        data={"d": dd, "t": td}, device=device, on_device={"t"},
     )
     norm = ds.normalize_module_assignments(assign, built, ["d"])["d"]
     _labels, specs, _counts, pool = _overlap_setup(

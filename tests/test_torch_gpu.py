@@ -1558,3 +1558,80 @@ def test_native_observed_equals_the_card(cuda):
     assert native.completed == card.completed == 64
     err = float(np.abs(native.observed - card.observed).max())
     assert err <= tolerance_for("cuda"), err
+
+
+def _mixed_kw(genes, modules=12, samples=64, seed=5):
+    from netrep_tpu_torch.data import make_mixed_pair
+
+    mixed = make_mixed_pair(genes, modules, n_samples=samples, seed=seed)
+    (dd, dc, dn), (td, tc, tn) = mixed["discovery"], mixed["test"]
+    labels = np.full(dn.shape[0], "0", dtype=object)
+    for lab, idx in mixed["specs"]:
+        labels[idx] = str(lab)
+    return dict(network={"d": dn, "t": tn}, correlation={"d": dc, "t": tc},
+                data={"d": dd, "t": td}, module_assignments=list(labels),
+                discovery="d", seed=9, n_perm=256)
+
+
+#: what the main path may hold on the card beside the test pair's float32
+#: matrices: the input checks' pinned-to-card staging (four 32 MiB
+#: buffers), their float64 tile scratch, the buckets, the null
+PEAK_MARGIN = 384 * 2**20
+
+
+@pytest.mark.parametrize("store_nulls", (True, False))
+def test_main_path_peak_holds_the_test_pair_alone(cuda, store_nulls):
+    """The discovery dataset never lands on the card as an n×n matrix:
+    the main path's peak stays below the test pair's bytes plus
+    ``PEAK_MARGIN`` (the discovery pair would add as much again), and the
+    discovery dataset holds no CUDA tensor."""
+    from netrep_tpu_torch.models import dataset as tds
+
+    genes = 8000
+    kw = _mixed_kw(genes)
+    built = {}
+    real = tds.build_datasets
+
+    def keep(*a, **k):
+        built.update(real(*a, **k))
+        return built
+
+    pair_bytes = 2 * genes * genes * 4
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    mp = pytest.MonkeyPatch()
+    try:
+        mp.setattr(tds, "build_datasets", keep)
+        res = module_preservation(**kw, test="t", store_nulls=store_nulls,
+                                  config=EngineConfig())
+    finally:
+        mp.undo()
+    peak = torch.cuda.max_memory_allocated() - base
+    assert peak < pair_bytes + PEAK_MARGIN, (peak, pair_bytes)
+    assert built["d"].host_source
+    assert not any(isinstance(t, torch.Tensor) and t.is_cuda
+                   for t in (built["d"].correlation, built["d"].network,
+                             built["d"].data))
+    assert np.isfinite(res.observed).all() and res.completed == 256
+
+
+@pytest.mark.parametrize("store_nulls", (True, False))
+def test_host_discovery_equals_discovery_on_the_card(cuda, store_nulls):
+    """Bit for bit: the same call with the discovery dataset also a test
+    side (narrowed onto the card, its blocks gathered there) gives the
+    same observed values, nulls or counts and p-values."""
+    kw = _mixed_kw(2000)
+    host = module_preservation(**kw, test="t", store_nulls=store_nulls)
+    both = module_preservation(**kw, test=["t", "d"],
+                               self_preservation=True,
+                               store_nulls=store_nulls)["t"]
+    np.testing.assert_array_equal(host.observed, both.observed)
+    np.testing.assert_array_equal(host.p_values, both.p_values)
+    if store_nulls:
+        np.testing.assert_array_equal(host.nulls, both.nulls)
+    else:
+        for f in ("counts_hi", "counts_lo", "counts_eff"):
+            np.testing.assert_array_equal(getattr(host, f),
+                                          getattr(both, f))
