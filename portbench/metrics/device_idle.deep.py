@@ -1,0 +1,8 @@
+"""``device_idle.deep``: percent of the traced window in which neither a
+kernel nor a copy ran on the card."""
+
+from portbench.readers import idle_share
+
+
+def read(view):
+    return idle_share(view)

@@ -1,0 +1,8 @@
+"""``engine_s``: mean seconds of the port's ``result.profile['engine_s']`` over
+the window's calls."""
+
+from portbench.readers import mean_phase
+
+
+def read(view):
+    return mean_phase(view, "engine_s")
